@@ -1,0 +1,294 @@
+"""Embedding encoders (counterpart of raglite_tpu/models/encoder.py).
+
+``TransformerEncoder`` ("flax:<preset|dir>", the JAX package's spec names
+kept so configs map one to one) runs the PyTorch ``EncoderModel`` on the
+configured device, with token-level outputs for late chunking and a
+device-resident MaxSim rerank.  ``"flax:sem"`` is the packaged 8-layer,
+d=768 semantic encoder; its weights are read by path from the JAX package's
+data directory.  ``HashEncoder`` ("hash:") and ``OpenAICompatEncoder``
+("openai:") are not ported yet (ROADMAP queue 1 item 2).
+"""
+
+from __future__ import annotations
+
+import os
+from functools import lru_cache
+from pathlib import Path
+from typing import Protocol
+
+import numpy as np
+import torch
+
+from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+from raglite_tpu_torch.utils.padding import round_up as _round_up
+
+__all__ = ["Encoder", "TransformerEncoder", "encoder_from_config", "embedding_dim"]
+
+#: The JAX package's packaged encoder (encoder.npz, tokenizer.json, config.json).
+PACKAGED_ENCODER_DIR = (
+    Path(__file__).resolve().parents[2] / "raglite_tpu" / "models" / "data" / "encoder"
+)
+
+
+class Encoder(Protocol):
+    """Uniform encoder interface consumed by embed.py."""
+
+    dim: int
+    max_tokens: int
+    supports_token_embeddings: bool
+
+    def count_tokens(self, texts: list[str]) -> list[int]: ...
+
+    def embed_token_level(self, text: str) -> np.ndarray:
+        """Token-level embeddings [num_tokens, dim] (pre-pooling)."""
+        ...
+
+    def embed(self, texts: list[str]) -> np.ndarray:
+        """Mean-pooled embeddings [len(texts), dim]."""
+        ...
+
+
+class TransformerEncoder:
+    """XLM-RoBERTa-class encoder on a torch device.
+
+    Specs: ``sem`` (the packaged encoder), a directory holding
+    ``encoder.npz`` and ``tokenizer.json``, or a preset (``tiny``, ``base``,
+    ``large``) with random weights drawn from a seeded ``torch.Generator``
+    (not the JAX package's draws).  Texts are padded to 128-token buckets
+    and batched per bucket, as in the JAX package.
+    """
+
+    supports_token_embeddings = True
+
+    _PRESETS = {
+        "tiny": dict(layers=2, d_model=256, heads=4, d_ff=512, vocab=8192, max_len=512),
+        "base": dict(layers=12, d_model=768, heads=12, d_ff=3072, vocab=250002, max_len=8192),
+        "large": dict(layers=24, d_model=1024, heads=16, d_ff=4096, vocab=250002, max_len=8192),
+    }
+
+    def __init__(
+        self,
+        spec: str = "tiny",
+        *,
+        device: torch.device | str = "cuda",
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+    ) -> None:
+        from raglite_tpu_torch.models.tokenizer import ByteTokenizer, load_tokenizer
+        from raglite_tpu_torch.models.transformer import EncoderModel, load_npz_encoder
+
+        if spec == "sem":
+            spec = str(PACKAGED_ENCODER_DIR)
+        if os.path.isdir(spec) and os.path.exists(os.path.join(spec, "encoder.npz")):
+            cfg, params, _ = load_npz_encoder(os.path.join(spec, "encoder.npz"))
+            model = EncoderModel.from_params(cfg, params, dtype=dtype, device=device)
+            tokenizer = load_tokenizer(os.path.join(spec, "tokenizer.json"))
+        elif spec in self._PRESETS:
+            cfg = dict(self._PRESETS[spec])
+            model = _random_encoder(cfg, dtype=dtype, seed=seed).to(device).eval()
+            tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
+        else:
+            msg = f"unsupported encoder spec {spec!r} (safetensors and orbax loading are not ported yet)"
+            raise NotImplementedError(msg)
+        self._init(cfg, model, tokenizer)
+
+    @classmethod
+    def from_model(cls, model, tokenizer) -> "TransformerEncoder":
+        """Wrap an already built ``EncoderModel`` and tokenizer."""
+        encoder = cls.__new__(cls)
+        encoder._init(model.cfg, model, tokenizer)
+        return encoder
+
+    def _init(self, cfg: dict, model, tokenizer) -> None:
+        self._cfg = cfg
+        self._model = model
+        self._tokenizer = tokenizer
+        self.device = next(model.parameters()).device
+        self.dim = cfg["d_model"]
+        self.max_tokens = cfg["max_len"]
+        # Device-resident L2-normalized token states keyed by candidate text
+        # (insertion-ordered LRU): warm reranks skip the candidate encode.
+        # RAGLITE_TPU_RERANK_CACHE sets the cap (0 disables), as in the JAX
+        # package.
+        self._rerank_cache: dict[str, tuple[torch.Tensor, int]] = {}
+        self._rerank_cache_cap = int(os.environ.get("RAGLITE_TPU_RERANK_CACHE", "128"))
+
+    def count_tokens(self, texts: list[str]) -> list[int]:
+        return [len(self._tokenizer.encode(t)) for t in texts]
+
+    def _encode_ids(self, text: str) -> np.ndarray:
+        return np.asarray(self._tokenizer.encode(text)[: self.max_tokens], np.int64)
+
+    @torch.inference_mode()
+    def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """[B, T] ids and mask (host) -> [B, T, d] f32 states on the device."""
+        ids_t = torch.from_numpy(ids).to(self.device)
+        mask_t = torch.from_numpy(mask).to(self.device)
+        return self._model(ids_t, mask_t)
+
+    def _padded(self, encoded: list[np.ndarray], members: list[int], pad: int, bpad: int):
+        ids = np.zeros((bpad, pad), np.int64)
+        mask = np.zeros((bpad, pad), np.bool_)
+        for row, i in enumerate(members):
+            ids[row, : encoded[i].size] = encoded[i]
+            mask[row, : encoded[i].size] = True
+        return ids, mask
+
+    @staticmethod
+    def _buckets(encoded: list[np.ndarray], skip=lambda i: False) -> dict[int, list[int]]:
+        """Text indices per padded length (a multiple of 128 tokens)."""
+        buckets: dict[int, list[int]] = {}
+        for i, ids in enumerate(encoded):
+            if ids.size and not skip(i):
+                buckets.setdefault(_round_up(max(ids.size, 8), 128), []).append(i)
+        return buckets
+
+    def embed_token_level(self, text: str) -> np.ndarray:
+        ids = self._encode_ids(text)
+        if ids.size == 0:
+            return np.zeros((0, self.dim), dtype=np.float32)
+        pad = _round_up(max(ids.size, 8), 128)
+        hidden = self._forward(*self._padded([ids], [0], pad, 1))
+        return hidden[0, : ids.size].cpu().numpy()
+
+    def embed_token_level_batch(self, texts: list[str]) -> list[np.ndarray]:
+        """Token-level embeddings for many texts as length-bucketed [B, T]
+        forwards of up to 8 texts; returns [n_i, d] per text."""
+        encoded = [self._encode_ids(t) for t in texts]
+        out: list[np.ndarray] = [np.zeros((0, self.dim), np.float32) for _ in texts]
+        for pad, members in self._buckets(encoded).items():
+            for start in range(0, len(members), 8):
+                group = members[start : start + 8]
+                hidden = self._forward(*self._padded(encoded, group, pad, _round_up(len(group), 8)))
+                hidden = hidden.cpu().numpy()
+                for row, i in enumerate(group):
+                    out[i] = hidden[row, : encoded[i].size]
+        return out
+
+    def embed(self, texts: list[str]) -> np.ndarray:
+        """Mean-pooled embeddings, batched per length bucket (64 texts a
+        forward)."""
+        out = np.zeros((len(texts), self.dim), dtype=np.float32)
+        encoded = [self._encode_ids(t) for t in texts]
+        for pad, members in self._buckets(encoded).items():
+            for start in range(0, len(members), 64):
+                group = members[start : start + 64]
+                ids, mask = self._padded(encoded, group, pad, _round_up(len(group), 8))
+                hidden = self._forward(ids, mask)
+                mask_t = torch.from_numpy(mask).to(self.device)
+                denom = mask_t.sum(dim=1, keepdim=True).clamp(min=1)
+                pooled = (hidden * mask_t[:, :, None]).sum(dim=1) / denom
+                out[group] = pooled.cpu().numpy()[: len(group)]
+        return out
+
+    def _encode_norm(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
+        """L2-normalized token states [B, T, d] f32, left on the device."""
+        hidden = self._forward(ids, mask)
+        return hidden / torch.linalg.vector_norm(hidden, dim=-1, keepdim=True).clamp(min=1e-12)
+
+    @staticmethod
+    def _score(qh, q_mask, ch, c_mask) -> torch.Tensor:
+        """Masked MaxSim of query states [Tq, d] against candidate states
+        [C, Tc, d] -> [C] f32, at full f32 precision (TF32 off)."""
+        with full_f32_matmul():
+            sims = torch.einsum("qd,ctd->cqt", qh, ch)
+        sims = sims.masked_fill(~c_mask[:, None, :], float("-inf"))
+        best = sims.amax(dim=-1)  # [C, Tq]
+        best = torch.where(torch.isfinite(best), best, torch.zeros_like(best))
+        return (best * q_mask[0][None, :]).sum(dim=-1)
+
+    @torch.inference_mode()
+    def rerank_maxsim(self, query: str, texts: list[str]) -> np.ndarray:
+        """Token-level MaxSim scores [len(texts)] computed on the device:
+        encode the query and any uncached candidates, L2-normalize the token
+        states, score, and fetch only the per-candidate scores, once per
+        call (the structure of the JAX package's ``rerank_maxsim``)."""
+        q_ids = self._encode_ids(query)
+        if q_ids.size == 0 or not texts:
+            return np.zeros(len(texts), np.float32)
+        encoded = [self._encode_ids(t) for t in texts]
+        qt = _round_up(max(q_ids.size, 8), 128)
+        q_np, q_mask_np = self._padded([q_ids], [0], qt, 1)
+        q_mask = torch.from_numpy(q_mask_np).to(self.device)
+        qh = self._encode_norm(q_np, q_mask_np)[0]
+        cache, cap = self._rerank_cache, self._rerank_cache_cap
+        # Refresh hits' recency before this call's inserts, so a candidate
+        # list near the cap cannot evict its own entries.
+        for text in texts:
+            if text in cache:
+                cache[text] = cache.pop(text)
+        tile = 32  # bounds the encode's [B, heads, T, T] attention
+        missing = self._buckets(encoded, skip=lambda i: texts[i] in cache)
+        for tc, members in missing.items():
+            for start in range(0, len(members), tile):
+                group = members[start : start + tile]
+                states = self._encode_norm(
+                    *self._padded(encoded, group, tc, _round_up(len(group), 8))
+                )
+                for row, i in enumerate(group):
+                    cache[texts[i]] = (states[row], int(encoded[i].size))
+        scores = np.zeros(len(texts), np.float32)
+        by_tc: dict[int, list[int]] = {}
+        for i, text in enumerate(texts):
+            if text in cache:  # texts with no tokens score 0
+                by_tc.setdefault(int(cache[text][0].shape[0]), []).append(i)
+        pieces: list[tuple[list[int], int]] = []
+        dev_scores: list[torch.Tensor] = []
+        offset = 0
+        for tc, members in by_tc.items():
+            for start in range(0, len(members), tile):
+                group = members[start : start + tile]
+                bpad = _round_up(len(group), 8)
+                rows = [cache[texts[i]][0] for i in group]
+                rows.extend([torch.zeros_like(rows[0])] * (bpad - len(rows)))
+                c_mask = torch.zeros((bpad, tc), dtype=torch.bool)
+                for row, i in enumerate(group):
+                    c_mask[row, : cache[texts[i]][1]] = True
+                dev_scores.append(
+                    self._score(qh, q_mask, torch.stack(rows), c_mask.to(self.device))
+                )
+                pieces.append((group, offset))
+                offset += bpad
+        if dev_scores:
+            flat = torch.cat(dev_scores).cpu().numpy()  # the one host fetch
+            for group, off in pieces:
+                scores[group] = flat[off : off + len(group)]
+        while len(cache) > cap:
+            cache.pop(next(iter(cache)))
+        return scores
+
+
+def _random_encoder(cfg: dict, *, dtype: torch.dtype, seed: int):
+    """Preset encoder with seeded random weights (normal / sqrt(fan_in)
+    matrices, 0.02-scaled embeddings, unit LayerNorms, zero biases)."""
+    from raglite_tpu_torch.models.transformer import EncoderModel
+
+    g = torch.Generator().manual_seed(seed)
+    model = EncoderModel(cfg, dtype=dtype, final_ln=True)
+    for name, param in model.named_parameters():
+        if name.endswith("emb.weight"):
+            param.copy_(torch.randn(param.shape, generator=g) * 0.02)
+        elif param.ndim == 2:
+            param.copy_(torch.randn(param.shape, generator=g) / param.shape[1] ** 0.5)
+    return model
+
+
+@lru_cache(maxsize=4)
+def _make_encoder(embedder: str, device: str) -> Encoder:
+    kind, _, arg = embedder.partition(":")
+    if kind == "flax":
+        return TransformerEncoder(arg or "tiny", device=device)
+    if kind in ("hash", "openai"):
+        msg = f"the {kind!r} embedder is not ported yet (ROADMAP queue 1 item 2)"
+        raise NotImplementedError(msg)
+    msg = f"unknown embedder {embedder!r} (expected 'flax:<preset|path>')"
+    raise ValueError(msg)
+
+
+def encoder_from_config(config) -> Encoder:
+    """The configured embedder on the configured (checked) device, cached."""
+    return _make_encoder(config.embedder, str(config.torch_device()))
+
+
+def embedding_dim(config) -> int:
+    return encoder_from_config(config).dim

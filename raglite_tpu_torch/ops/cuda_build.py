@@ -1,0 +1,89 @@
+"""Build the port's CUDA C++ kernels with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles on its own into a shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), for
+``sm_90a``, at first use, into ``raglite_tpu_torch/_build/`` (listed in
+``.gitignore``).  The library name carries a digest of the sources and
+flags, so an edited kernel never loads a stale build.  :func:`build_all`
+starts one ``nvcc`` per source, all at once, and waits for them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+#: One library per kernel source.
+SOURCES = ("bucket_scan", "int4_scan")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    for candidate in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if candidate and os.path.exists(candidate):
+            return candidate
+    msg = "nvcc not found: the port's CUDA kernels build with the CUDA toolkit"
+    raise RuntimeError(msg)
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"]:
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all(names: tuple[str, ...] = SOURCES) -> dict[str, str]:
+    """Compile every library of ``names`` that is not built yet, one
+    ``nvcc`` process per source, all started together.  Returns the
+    compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    per library built; raises with that output if a build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    running = {}
+    for name in names:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, out)
+    logs: dict[str, str] = {}
+    failed: list[str] = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        return lib

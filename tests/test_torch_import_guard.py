@@ -1,0 +1,75 @@
+"""The PyTorch port stands alone: importing it loads neither JAX nor the JAX
+package (nor markdown-it, tokenizers, msgpack or filelock on the
+in-memory path), its config asks for the card by default, and asking for the
+card where there is none raises instead of running on the CPU."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
+    code = textwrap.dedent(
+        """
+        import sys
+        import raglite_tpu_torch
+        import raglite_tpu_torch.index.dense, raglite_tpu_torch.models.encoder
+        import raglite_tpu_torch.ops.cuda_build, raglite_tpu_torch.search
+        bad = [
+            m for m in sys.modules
+            if m in ("jax", "raglite_tpu") or m.startswith(("jax.", "raglite_tpu."))
+        ]
+        assert not bad, bad
+        assert raglite_tpu_torch.RAGLiteConfig().device == "cuda"
+        # The host path needs none of the packages the card's machine may
+        # lack: Markdown blocks and BPE ids are first-party, and a ":memory:"
+        # store touches no persistence code.
+        from raglite_tpu_torch.models.encoder import PACKAGED_ENCODER_DIR
+        from raglite_tpu_torch.models.tokenizer import load_tokenizer
+        from raglite_tpu_torch.store import Store
+        from raglite_tpu_torch.utils.mdparse import parse_markdown
+        assert [t.type for t in parse_markdown("# x\\n\\n- y\\n")][:2] == ["heading_open", "bullet_list_open"]
+        assert load_tokenizer(str(PACKAGED_ENCODER_DIR / "tokenizer.json")).encode("x")
+        Store(":memory:").save()
+        extra = {"markdown_it", "tokenizers", "msgpack", "filelock"} & set(sys.modules)
+        assert not extra, extra
+        print("ok")
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300
+    )
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyPatch) -> None:
+    from raglite_tpu_torch import RAGLiteConfig
+    from raglite_tpu_torch.search import vector_search
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    config = RAGLiteConfig(store_path=":memory:", embedder="flax:tiny", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vector_search("anything", config=config)
+
+
+def test_multi_gpu_is_not_ported_yet() -> None:
+    from raglite_tpu_torch import RAGLiteConfig
+
+    with pytest.raises(NotImplementedError):
+        RAGLiteConfig(num_devices=2)
+
+
+def test_kernel_sources_build_for_sm90a() -> None:
+    """The build module compiles every csrc/*.cu for sm_90a (the command
+    only: there is no nvcc here)."""
+    from raglite_tpu_torch.ops import cuda_build
+
+    sources = {p.stem for p in cuda_build.CSRC.glob("*.cu")}
+    assert sources == set(cuda_build.SOURCES)
+    assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
