@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval path once on one NVIDIA GPU.
+"""Drive the PyTorch port's retrieval and answer path once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile]
 
@@ -11,6 +11,13 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    B in {1, 8, 32}, with duplicated rows (ties), invalid rows and a step of
    bucket padding: int4_bucket_scan and int8 bucketed_max_scan bit for
    bit; bf16 bucketed_max_scan to a stated tolerance.
+2b. The three attention kernels against their plain versions (bf16 caches;
+   decode at B in {1, 4}, (KVH, REP, hd) in {(4, 5, 128), (2, 1, 64),
+   (2, 4, 32)}, S in {2208, 1003}, per-row positions, soft-cap and window on
+   and off; verify at T in {2, 8, 16}, every row bit-equal to a decode call
+   at pos0 + t; prefill at T in {24, 64, 2048} with nonzero offsets, S a
+   multiple of 8 and not), each output within attention_tolerance (the
+   smaller of a sound and a statistical bound on bf16 probability rounding).
 3. Serve with the default config (packaged 8-layer d=768 encoder, bf16
    rows, ":memory:" store): insert the repo's README, SURVEY, MIGRATION and
    PARITY documents, add seeded unit-vector background chunks until the
@@ -24,7 +31,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    version and one PyTorch library computation of the same function (CUDA
    events, median of 20 runs of 10 launches), the kernels' bound,
    vector_search p50 and its split into query encode and index search.
-
+6. RAG: RAGLiteConfig(llm="jax:large") over the phase-3 index (36 layers,
+   d 2560, seeded bf16 weights): a rag() answer streamed from
+   add_context(question, retrieve_context(question)), asserting one prefill
+   kernel launch per layer and one verify launch per layer and speculative
+   iteration (no attention on the plain path); a sampled TorchChatLLM.stream
+   (temperature 0.7, top_k 20, top_p 0.8) that launches the decode kernel;
+   greedy with speculation off against on (common-prefix share, reported).
+   Prints the prompt tokens, time to the first token, decode tokens/s.
+7. Attention kernels at the `large` shapes (B = 1), each checked against
+   its plain version and timed against its bound, its plain version and one
+   scaled_dot_product_attention call, on 36 rotating per-layer caches (more
+   than L2 holds, as the decoder's layers are): decode at the answer's S and
+   at S = 8352, verify T = 8, prefill at the answer's own prompt bucket and S
+   (the launches that served it) and at T = 2048.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -44,6 +64,7 @@ D = 768
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 ops/s.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT8_OPS_PER_S = 1979e12
+PEAK_BF16_FLOPS = 989e12
 #: bf16 rows: kernel and plain version sum in different orders (f32).
 BF16_RTOL = 1e-5
 RECALL_MIN = 0.99
@@ -141,6 +162,386 @@ def check_kernels(seed: int) -> dict[str, float]:
                 errs[name] = max(errs[name], err)
                 log(f"kernel check {name} [{kind}] B={batch} N={n} d={d} L={L}: max_abs_err={err} ok")
     return errs
+
+
+def _attention_check(what, got, want, q, k, v, offsets, **kw) -> tuple[float, float]:
+    """Assert every output of an attention kernel lies within
+    ``attention_tolerance`` of its plain version ``want`` on the same inputs;
+    returns (max abs error, largest share of the limit used)."""
+    from raglite_tpu_torch.ops.decode_attention import attention_tolerance
+
+    limit = attention_tolerance(q, k, v, offsets, **kw)
+    diff = (got.reshape(want.shape) - want).abs()
+    share = float((diff / limit).max())
+    assert share <= 1.0, (what, float(diff.max()), share)
+    return float(diff.max()), share
+
+
+def _cache(g, b, kvh, hd, s):
+    import torch
+
+    k = torch.randn((b, kvh, hd, s), generator=g, device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, kvh, hd, s), generator=g, device="cuda").to(torch.bfloat16)
+    return k, v
+
+
+def check_attention_kernels(seed: int) -> dict[str, float]:
+    """Phase 2b: the three attention kernels against their plain versions
+    on the card (bf16 caches, ragged S, per-row positions, soft-cap and
+    window on and off), and every verify row against a decode call at
+    ``pos0 + t``, bit for bit.  Returns the max abs error per kernel."""
+    import torch
+
+    from raglite_tpu_torch.ops import decode_attention as da
+    from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    errs = {"gqa_decode_attention": 0.0, "gqa_verify_attention": 0.0, "gqa_prefill_attention": 0.0}
+    shares = dict.fromkeys(errs, 0.0)
+
+    def check(name, what, got, want, q, k, v, offsets, **kw):
+        err, share = _attention_check(what, got, want, q, k, v, offsets, **kw)
+        errs[name], shares[name] = max(errs[name], err), max(shares[name], share)
+
+    knobs = ((0.0, 0), (50.0, 0), (0.0, 512), (30.0, 300))
+    for kvh, rep, hd in ((4, 5, 128), (2, 1, 64), (2, 4, 32)):
+        scale = hd**-0.5
+        for batch, s in ((1, 2208), (4, 2208), (4, 1003)):
+            k, v = _cache(g, batch, kvh, hd, s)
+            pos = torch.tensor([1234, 0, 700, s - 17][:batch], device="cuda", dtype=torch.int32)
+            for softcap, window in knobs:
+                kw = dict(scale=scale, softcap=softcap, window=window)
+                what = (kvh, rep, hd, batch, s, softcap, window)
+                # Decode.
+                q = torch.randn((batch, kvh, rep, hd), generator=g, device="cuda").to(torch.bfloat16)
+                got = da.gqa_decode_attention(q, k, v, pos, **kw)
+                q5 = q[:, :, :, None]
+                check("gqa_decode_attention", ("decode", *what), got, da.gqa_attention_plain(q5, k, v, pos, **kw), q5, k, v, pos, **kw)
+                # Verify windows: each row t bit-equal to decode at pos0 + t.
+                for t in (2, 8, 16):
+                    qv = torch.randn((batch, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
+                    got = da.gqa_verify_attention(qv, k, v, pos, **kw)
+                    for i in range(t):
+                        one = da.gqa_decode_attention(qv[:, :, :, i], k, v, pos + i, **kw)
+                        assert torch.equal(got[:, :, :, i], one), ("verify != decode", *what, t, i)
+                    check("gqa_verify_attention", ("verify", *what, t), got, da.gqa_attention_plain(qv, k, v, pos, **kw), qv, k, v, pos, **kw)
+            log(f"attention check KVH={kvh} REP={rep} hd={hd} B={batch} S={s}: decode and verify ok "
+                f"(verify rows bit-equal to decode), max_abs_err so far {errs}, share of limit {shares}")
+        # Prefill: T in {24, 64, 2048} at nonzero offsets (T = 24 is a verify
+        # window wider than 16); S = T + 160 leaves room for the offsets, and
+        # S = T + 163 (not a multiple of 8) takes the kernel's scalar staging.
+        for batch, t, s in ((2, 24, 184), (2, 64, 227), (1, 2048, 2208), (2, 2048, 2211)):
+            k, v = _cache(g, batch, kvh, hd, s)
+            off = torch.tensor([160, 37][:batch], device="cuda", dtype=torch.int32)
+            q = torch.randn((batch, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
+            for softcap, window in knobs:
+                kw = dict(scale=scale, softcap=softcap, window=window)
+                got = gqa_prefill_attention(q, k, v, off, **kw)
+                want = da.gqa_attention_plain(q, k, v, off, **kw)
+                check("gqa_prefill_attention", ("prefill", kvh, rep, hd, batch, t, s, softcap, window), got, want, q, k, v, off, **kw)
+                del want
+            log(f"attention check prefill KVH={kvh} REP={rep} hd={hd} B={batch} T={t} S={s}: ok, "
+                f"max_abs_err so far {errs['gqa_prefill_attention']}, share of limit {shares['gqa_prefill_attention']:.4f}")
+    return errs
+
+
+def _sdpa(q, k, v, mask):
+    """One library call of the same attention: scaled_dot_product_attention
+    with enable_gqa on the cache's transposed view (timed here, never
+    called by the port).  q [B, H, T, hd], k/v [B, KVH, hd, S], mask [B, 1,
+    T, S]."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q, k.transpose(2, 3), v.transpose(2, 3), attn_mask=mask, enable_gqa=True
+    )
+
+
+def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str) -> list[dict]:
+    """Phase 7: each attention kernel at the ``large`` preset's shapes (B=1,
+    KVH=4, REP=5, hd=128), first at the RAG answer's own (decode and verify
+    at its S and position, prefill at its prompt bucket ``rag_t`` and S),
+    then decode at S = 8,352 and prefill at T = 2,048 (S = 2,208).  Each is
+    checked against its plain version, then timed against its bound, its
+    plain version and one scaled_dot_product_attention call, every call on
+    the next of 36 per-layer caches: as in a decoder forward, no cache is
+    still in L2 when it is read again."""
+    import itertools
+
+    import torch
+
+    from raglite_tpu_torch.ops import decode_attention as da
+    from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    kvh, rep, hd, layers = 4, 5, 128, 36
+    heads, scale = kvh * rep, hd**-0.5
+    cases = [
+        ("gqa_decode_attention", 1, rag_s, rag_pos),
+        ("gqa_verify_attention", 8, rag_s, rag_pos),
+        ("gqa_prefill_attention", rag_t, rag_s, 0),
+        ("gqa_decode_attention", 1, 8352, 8192 + 40),
+        ("gqa_prefill_attention", 2048, 2208, 0),
+    ]
+    kernels = {
+        "gqa_decode_attention": lambda q5, k, v, pos: da.gqa_decode_attention(q5[:, :, :, 0], k, v, pos, scale=scale),
+        "gqa_verify_attention": lambda q5, k, v, pos: da.gqa_verify_attention(q5, k, v, pos, scale=scale),
+        "gqa_prefill_attention": lambda q5, k, v, pos: gqa_prefill_attention(q5, k, v, pos, scale=scale),
+    }
+    out = []
+    for name, t, s, p0 in cases:
+        caches = [_cache(g, 1, kvh, hd, s) for _ in range(layers)]
+        pos = torch.tensor([p0], device="cuda", dtype=torch.int32)
+        q5 = torch.randn((1, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
+        qh = q5.reshape(1, heads, t, hd)
+        key = torch.arange(s, device="cuda")
+        rows = p0 + torch.arange(t, device="cuda")
+        mask = (key[None, :] <= rows[:, None])[None, None]
+
+        def rotating(fn):
+            """``fn`` on the next layer's cache at every call."""
+            nxt = itertools.cycle(caches)
+            return lambda: fn(*next(nxt))
+
+        kernel = rotating(lambda k, v: kernels[name](q5, k, v, pos))
+        plain = rotating(lambda k, v: da.gqa_attention_plain(q5, k, v, pos, scale=scale))
+        library = rotating(lambda k, v: _sdpa(qh, k, v, mask))
+        k0, v0 = caches[0]
+        want = da.gqa_attention_plain(q5, k0, v0, pos, scale=scale)
+        err, share = _attention_check((name, t, s), kernels[name](q5, k0, v0, pos), want, q5, k0, v0, pos, scale=scale)
+        lib_err = float((_sdpa(qh, k0, v0, mask).reshape(want.shape).float() - want).abs().max())
+        del want
+        torch.cuda.empty_cache()
+        ms = median_ms(kernel)
+        plain_ms = median_ms(plain, reps=5, inner=1, warmup=1)
+        library_ms = median_ms(library, reps=10, inner=5)
+        # What this call must do: every valid key's K and V columns read once,
+        # q read and the f32 context written once; 4 * hd flops per (query
+        # head, valid key) pair.
+        valid = torch.clamp(rows + 1, max=s)
+        pairs = int(valid.sum()) * heads
+        moved = int(valid.max()) * kvh * hd * 2 * 2 + q5.numel() * 2 + q5.numel() * 4
+        bound = {"bytes": moved / PEAK_BYTES_PER_S * 1e3, "operations": 4 * hd * pairs / PEAK_BF16_FLOPS * 1e3}
+        bound_by = max(bound, key=bound.get)
+        log(
+            f"timing {name} B=1 T={t} S={s} pos0={p0} (KVH {kvh}, REP {rep}, hd {hd}; {layers} rotating caches) "
+            f"on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms "
+            f"(max_abs_err vs plain {lib_err:.3g}), bound {bound[bound_by]:.4f} ms ({bound_by}); "
+            f"max_abs_err {err}, share of limit {share:.4f}"
+        )
+        out.append({
+            "name": name, "T": t, "S": s, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "max_abs_err": err,
+        })
+        del caches, kernel, plain, library
+        torch.cuda.empty_cache()
+    return out
+
+
+def _attention_launches() -> dict[str, int]:
+    from raglite_tpu_torch.ops import decode_attention as da
+    from raglite_tpu_torch.ops import prefill_attention as pa
+
+    return {**da.launch_counts, **pa.launch_counts}
+
+
+def _reset_attention_launches() -> None:
+    from raglite_tpu_torch.ops import decode_attention as da
+    from raglite_tpu_torch.ops import prefill_attention as pa
+
+    da.reset_launch_counts()
+    pa.reset_launch_counts()
+
+
+def _timed_tokens(tokens) -> tuple[list[int], float, float]:
+    """Drain a token iterator: (tokens, ms to the first, ms in all)."""
+    import torch
+
+    t0 = time.perf_counter()
+    out, first = [], None
+    for token in tokens:
+        if first is None:
+            first = (time.perf_counter() - t0) * 1e3
+        out.append(token)
+    torch.cuda.synchronize()
+    return out, first or 0.0, (time.perf_counter() - t0) * 1e3
+
+
+def _profile_window(fn, what: str, card: str) -> None:
+    """One torch.profiler window over ``fn`` (warm): the device's busy time
+    by kernel and its idle share of the window (the profiler's own host
+    overhead is inside the window, so the idle share is an upper bound)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [
+        (e.key, e.self_device_time_total, e.count)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+    ]
+    kernels.sort(key=lambda k: -k[1])
+    busy_us = sum(k[1] for k in kernels)
+    log(
+        f"profile: {what}, window {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+        f"idle share {1 - busy_us / wall_us:.4f}, {sum(k[2] for k in kernels)} device ops, on {card}"
+    )
+    for name, us, count in kernels[:12]:
+        log(f"  profile: {us / 1e3:9.3f} ms  {count:5d}x  {name[:110]}")
+
+
+def profile_decode(llm, ids, lens, rag_s: int, card: str) -> None:
+    """``--profile``: the whole-model prefill of the RAG prompt, then one
+    plain decode chunk (DECODE_CHUNK greedy T = 1 forwards) after it."""
+    import torch
+
+    from raglite_tpu_torch.models.decoder import DECODE_CHUNK, _decode_chunk_device, _prefill_last
+
+    model, params = llm.model, llm.params
+    cache = model.init_cache(1, rag_s, device="cuda")
+    state = {}
+
+    def prefill():
+        state["last"], _ = _prefill_last(model, params, ids, cache, lens)
+
+    def chunk():
+        _decode_chunk_device(
+            model, cache, params, lens.clone(), state["last"],
+            torch.zeros(llm.cfg["vocab"], device="cuda"), torch.zeros(1, dtype=torch.bool, device="cuda"),
+            llm._stop_ids_device(), torch.Generator(device="cuda").manual_seed(0),
+            num_steps=DECODE_CHUNK, temperature=0.0, top_p=1.0, top_k=0, min_p=0.0,
+        )
+
+    prefill()
+    chunk()
+    _profile_window(prefill, f"prefill of {int(lens[0])} tokens (T = {ids.shape[1]})", card)
+    _profile_window(chunk, f"one plain decode chunk ({DECODE_CHUNK} forwards at S = {rag_s})", card)
+
+
+def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
+    """Phase 6: rag() answers from the ``large`` decoder over the phase-3
+    index; a sampled stream; greedy with speculation off against on."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from raglite_tpu_torch import add_context, rag, retrieve_context
+    from raglite_tpu_torch.models.decoder import DECODE_CHUNK, _bucket
+    from raglite_tpu_torch.models.llm import llm_from_config
+    from raglite_tpu_torch.rag import _clip
+
+    rag_cfg = dataclasses.replace(cfg, llm="jax:large")
+    t0 = time.perf_counter()
+    llm = llm_from_config(rag_cfg)  # seeded init of the 8 GB preset, on the card
+    torch.cuda.synchronize()
+    layers = llm.cfg["layers"]
+    weight_bytes = sum(
+        x.numel() * x.element_size()
+        for x in [*(v for k, v in llm.params.items() if k != "layers"),
+                  *(v for layer in llm.params["layers"] for v in layer.values())]
+    )
+    log(f"llm jax:large ({layers} layers, d {llm.cfg['d_model']}, vocab {llm.cfg['vocab']}): "
+        f"{weight_bytes / 1e9:.3f} GB of bf16 weights, seeded init {time.perf_counter() - t0:.3f} s")
+
+    t0 = time.perf_counter()
+    spans = retrieve_context(question, config=rag_cfg)
+    messages = [add_context(question, spans, rag_cfg)]
+    retrieve_ms = (time.perf_counter() - t0) * 1e3
+    prompt = llm._format_messages(_clip(messages, llm.context_size), None)
+    max_new = 128
+    prompt_tokens = min(len(llm.tokenizer.encode(prompt)), llm.context_size - max_new - 1) + 1
+    rag_s = _bucket(prompt_tokens) + _bucket(max_new) + DECODE_CHUNK
+    log(f"rag question {question!r}: {len(spans)} spans retrieved in {retrieve_ms:.1f} ms, "
+        f"prompt {prompt_tokens} tokens, KV length S = {rag_s}")
+
+    # The answer stream through the user entry point.
+    _reset_attention_launches()
+    pieces, first_piece_ms, rag_ms = _timed_tokens(rag(messages, config=rag_cfg))
+    launches_rag = _attention_launches()
+    stats = dict(llm.spec_stats)
+    answer = "".join(pieces)
+    assert messages[-1] == {"role": "assistant", "content": answer}
+    assert stats["tokens"] > 0 and answer, stats
+    # Every attention call of the answer went through a kernel: one prefill
+    # forward and one verify forward per speculative iteration, each layer.
+    assert launches_rag["gqa_prefill_attention"] == layers, launches_rag
+    assert launches_rag["gqa_verify_attention"] == layers * stats["verify_iters"], (launches_rag, stats)
+    assert launches_rag["gqa_decode_attention"] == 0, launches_rag
+    log(f"rag() answer: {stats['tokens']} tokens in {rag_ms:.1f} ms (first piece after "
+        f"{first_piece_ms:.1f} ms), {stats['tokens'] / stats['verify_iters']:.3f} tokens per verify "
+        f"forward ({stats['verify_iters']} forwards), launches {launches_rag}, on {card}")
+
+    # Token-level timing of the same greedy generation: time to the first
+    # token (the prefill, then the first chunk's one fetch) and decode rate.
+    greedy, ttft_ms, greedy_ms = _timed_tokens(llm._generate_tokens(prompt, max_new_tokens=max_new))
+    spec_stats = dict(llm.spec_stats)
+
+    # A sampled stream (RECOMMENDED_SAMPLING) through TorchChatLLM.stream:
+    # the plain chunk loop, T = 1, a fixed DECODE_CHUNK forwards per chunk.
+    _reset_attention_launches()
+    sampled_text = "".join(llm.stream(messages[:1], **llm.RECOMMENDED_SAMPLING))
+    launches_sampled = _attention_launches()
+    assert sampled_text and launches_sampled["gqa_decode_attention"] > 0, launches_sampled
+    assert launches_sampled["gqa_decode_attention"] % (layers * DECODE_CHUNK) == 0, launches_sampled
+    assert launches_sampled["gqa_verify_attention"] == 0 and launches_sampled["gqa_prefill_attention"] == layers
+    forwards = launches_sampled["gqa_decode_attention"] // layers
+    sampled, _, sampled_ms = _timed_tokens(
+        llm._generate_tokens(prompt, max_new_tokens=max_new, **llm.RECOMMENDED_SAMPLING)
+    )
+    log(f"sampled stream (temperature 0.7, top_k 20, top_p 0.8): {forwards} decode forwards, "
+        f"launches {launches_sampled}; timed again: {len(sampled)} tokens in {sampled_ms:.1f} ms")
+
+    # Greedy with speculation off against on, same prompt.
+    os.environ["RAGLITE_TPU_SPECULATE"] = "0"
+    try:
+        plain, _, plain_ms = _timed_tokens(llm._generate_tokens(prompt, max_new_tokens=max_new))
+    finally:
+        del os.environ["RAGLITE_TPU_SPECULATE"]
+    common = next((i for i, (a, b) in enumerate(zip(plain, greedy)) if a != b), min(len(plain), len(greedy)))
+    log(f"greedy speculation on vs off: common prefix {common} of {len(plain)} tokens "
+        f"(share {common / max(len(plain), 1):.4f}); speculative {greedy_ms:.1f} ms, plain {plain_ms:.1f} ms")
+
+    # Whole-model prefill and one decode step at the answer's shapes.
+    ids = torch.full((1, _bucket(prompt_tokens)), llm.tokenizer.PAD, dtype=torch.int64, device="cuda")
+    ids[0, :prompt_tokens] = 3
+    lens = torch.tensor([prompt_tokens], device="cuda")
+    model, params = llm.model, llm.params
+
+    def prefill():
+        cache = model.init_cache(1, rag_s, device="cuda")
+        return model.forward(params, ids, cache, 0, last_positions=lens - 1)
+
+    cache = model.init_cache(1, rag_s, device="cuda")
+    tok1 = torch.full((1, 1), 3, dtype=torch.int64, device="cuda")
+    prefill_ms = median_ms(prefill, reps=3, inner=1, warmup=1)
+    step_ms = median_ms(lambda: model.forward(params, tok1, cache, lens), reps=5, inner=3, warmup=1)
+    log(f"large preset on {card}: prefill of {prompt_tokens} tokens (T = {ids.shape[1]}) {prefill_ms:.2f} ms; "
+        f"one decode forward at S = {rag_s} {step_ms:.3f} ms (weights alone: {weight_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
+    if profile:
+        profile_decode(llm, ids, lens, rag_s, card)
+    decode_tps = len(greedy) / max((greedy_ms - prefill_ms) / 1e3, 1e-9)
+    log(f"rag answer metrics on {card}: prompt {prompt_tokens} tokens, time to first token {ttft_ms:.1f} ms "
+        f"(prefill, then the first {DECODE_CHUNK}-token chunk), decode {decode_tps:.2f} tokens/s greedy speculative "
+        f"({len(greedy)} tokens in {greedy_ms:.1f} ms), {len(plain) / max((plain_ms - prefill_ms) / 1e3, 1e-9):.2f} "
+        f"tokens/s plain greedy, {len(sampled) / max((sampled_ms - prefill_ms) / 1e3, 1e-9):.2f} tokens/s sampled; "
+        f"spec stats {spec_stats}")
+    log(f"launches per decoded token: decode {layers * forwards / len(sampled):.3f} "
+        f"(sampled, {DECODE_CHUNK}-step chunks: {forwards} forwards for {len(sampled)} tokens), verify {launches_rag['gqa_verify_attention'] / stats['tokens']:.3f} "
+        f"(rag greedy); prefill {launches_rag['gqa_prefill_attention']} per prefill")
+    return {
+        "rag_s": rag_s, "rag_pos": prompt_tokens, "rag_t": ids.shape[1],
+        "launches": {
+            "gqa_prefill_attention": launches_rag["gqa_prefill_attention"],
+            "gqa_verify_attention": launches_rag["gqa_verify_attention"],
+            "gqa_decode_attention": launches_sampled["gqa_decode_attention"],
+        },
+    }
 
 
 def pick_queries(texts: list[str], count: int, seed: int) -> list[str]:
@@ -310,37 +711,15 @@ def _library_scan(q_i8, rows_i8, rscale, bias, num_buckets):
 
 def profile_search(cfg, queries: list[str], card: str) -> None:
     """``--profile``: one torch.profiler window over ``queries`` answered by
-    vector_search (warm), printing the device's busy time by kernel and its
-    idle share of the window (the profiler's own host overhead is inside the
-    window, so the idle share is an upper bound)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    vector_search (warm)."""
     from raglite_tpu_torch.search import vector_search
 
     for query in queries[:2]:
         vector_search(query, num_results=10, config=cfg)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for query in queries:
-            vector_search(query, num_results=10, config=cfg)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [
-        (e.key, e.self_device_time_total, e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-    ]
-    kernels.sort(key=lambda k: -k[1])
-    busy_us = sum(k[1] for k in kernels)
-    log(
-        f"profile: {len(queries)} vector_search calls, window {wall_us / 1e3:.3f} ms, device busy "
-        f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, {sum(k[2] for k in kernels)} "
-        f"device ops, on {card}"
+    _profile_window(
+        lambda: [vector_search(query, num_results=10, config=cfg) for query in queries],
+        f"{len(queries)} vector_search calls", card,
     )
-    for name, us, count in kernels[:12]:
-        log(f"  profile: {us / 1e3:9.3f} ms  {count:5d}x  {name[:110]}")
 
 
 def main() -> int:
@@ -349,7 +728,8 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=1_249_280)
     parser.add_argument(
         "--profile", action="store_true",
-        help="also trace 8 warm vector_search calls of each route with torch.profiler",
+        help="also trace 8 warm vector_search calls of each route, the large preset's "
+        "prefill and one decode chunk with torch.profiler",
     )
     args = parser.parse_args()
 
@@ -382,6 +762,8 @@ def main() -> int:
 
     # 2. Kernels vs plain versions.
     errs = check_kernels(args.seed)
+    # 2b. Attention kernels vs plain versions; verify rows vs decode.
+    errs.update(check_attention_kernels(args.seed))
 
     # 3. Serve, default config (int4 two-stage route).
     texts = [(ROOT / f).read_text(encoding="utf-8") for f in ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")]
@@ -433,20 +815,34 @@ def main() -> int:
     n_queries = len(vs_q) + len(rr_q)
     launches = {"int4_bucket_scan": launches_default["int4_bucket_scan"], "bucketed_max_scan": launches_single["bucketed_max_scan"]}
     log(f"launches per query: { {k: v / n_queries for k, v in launches.items()} }")
+
+    # 6. RAG answers from the `large` decoder over the phase-3 index.
+    answer = serve_rag(cfg, vs_q[0], card, profile=args.profile)
+    launches.update(answer["launches"])
+
+    # 7. Attention kernel timings at the `large` shapes.
+    timings += time_attention(args.seed, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card)
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
+        "gqa_decode_attention": ("raglite_tpu_torch/csrc/decode_attention.cu", "raglite_tpu/ops/decode_attention.py:37"),
+        "gqa_verify_attention": ("raglite_tpu_torch/csrc/decode_attention.cu", "raglite_tpu/ops/decode_attention.py:140"),
+        "gqa_prefill_attention": ("raglite_tpu_torch/csrc/prefill_attention.cu", "raglite_tpu/ops/prefill_attention.py:71"),
     }
     kernels = []
     for name, (source, replaced) in replaces.items():
-        t = next(t for t in timings if t["name"] == name and t["batch"] == 1)
+        # The scans at B = 1; each attention kernel at its first phase-7
+        # shape, the RAG answer's own.
+        t = next(t for t in timings if t["name"] == name and t.get("batch", 1) == 1)
+        err = max(errs[name], *(x["max_abs_err"] for x in timings if x["name"] == name))
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaced,
-            "launches": launches[name], "max_abs_err": max(errs[name], t["max_abs_err"]),
+            "launches": launches[name], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         })
-    log(f"kernels: {json.dumps([k['name'] for k in kernels])} (times at B=1, N={index_bf16.capacity}, d={D})")
+    log(f"kernels: {json.dumps([k['name'] for k in kernels])} (scans at B=1, N={index_bf16.capacity}, "
+        f"d={D}; decode and verify at S={answer['rag_s']}, prefill at T={answer['rag_t']}, S={answer['rag_s']})")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()}}))

@@ -76,8 +76,9 @@ class RAGLiteConfig:
     # default (bge-m3, _config.py:50-64) without downloads.  "hash:<dim>",
     # the hermetic lexical featurizer, is not ported yet (ROADMAP queue 1
     # item 2).
-    # The default LLM stays "echo" (deterministic, offline); the LLMs are
-    # not ported yet (ROADMAP queue 1 items 7 and 9).
+    # The default LLM stays "echo" (deterministic, offline); "jax:<preset>"
+    # is the port's own decoder on ``device`` (models/llm.py), the same
+    # strings as the JAX package.
     llm: str = "echo"
     embedder: str = "flax:sem"
 

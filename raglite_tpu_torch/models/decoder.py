@@ -1,0 +1,708 @@
+"""Decoder-only LLM over an explicit KV cache (counterpart of
+raglite_tpu/models/decoder.py).
+
+- ``init_decoder_params``: seeded random weights at a preset's shapes (the
+  same distributions as the JAX package, not the same bits), or
+  ``params_from_jax`` for a JAX parameter tree;
+- ``DecoderModel.forward``: prefill and decode over per-layer ``[B, KVH, hd,
+  S]`` caches, with the JAX forward's family knobs and dtypes; attention goes
+  through the hand-written CUDA kernels on the card (ops/decode_attention.py,
+  ops/prefill_attention.py) and their plain versions on the CPU;
+- ``TorchChatLLM``: the ``jax:<preset>`` provider of models/llm.py: ChatML
+  prompts, unconstrained streamed generation with prompt-lookup speculation
+  for greedy decode (models/speculative.py), the tool-tag filter.
+
+Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints,
+``@int8`` weights, grammar-constrained decode and forced tool calls,
+batched generation.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import re
+import uuid
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from raglite_tpu_torch.models.speculative import (
+    _NO_TOKEN,
+    _categorical,
+    _filtered_probs,
+    speculate_chunk_device,
+)
+from raglite_tpu_torch.models.tokenizer import ByteTokenizer
+from raglite_tpu_torch.ops.decode_attention import gqa_decode_attention, gqa_verify_attention
+from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
+from raglite_tpu_torch.utils.padding import bucket as _bucket_any
+
+__all__ = [
+    "DECODE_CHUNK",
+    "DecoderModel",
+    "SPEC_DRAFT_LEN",
+    "TorchChatLLM",
+    "compute_inv_freq",
+    "init_decoder_params",
+    "params_from_jax",
+]
+
+Params = dict[str, Any]
+
+#: Widest window routed to the verify kernel (speculative drafts are K + 1 <=
+#: ~9 tokens); wider windows are prefill and take the prefill kernel.
+_VERIFY_KERNEL_MAX_T = 16
+
+#: Tokens emitted per decode chunk: one host fetch per chunk.  Must divide
+#: the cache-length buckets (64-multiples).
+DECODE_CHUNK = 32
+
+#: Draft tokens verified per speculative forward (window = draft + 1).
+SPEC_DRAFT_LEN = int(os.environ.get("RAGLITE_TPU_SPEC_K", "7"))
+if not 1 <= SPEC_DRAFT_LEN <= DECODE_CHUNK - 1:
+    msg = (
+        f"RAGLITE_TPU_SPEC_K={SPEC_DRAFT_LEN} is invalid: speculative draft "
+        f"length must be in [1, {DECODE_CHUNK - 1}] (window of draft+1 "
+        f"tokens must fit a {DECODE_CHUNK}-token decode chunk)"
+    )
+    raise ValueError(msg)
+
+
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in f32 with f32 scales; the result takes the input's dtype."""
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, inv_freq: torch.Tensor) -> torch.Tensor:
+    """Rotary embedding in f32.  x: [B, H, T, Dh], positions: [B, T],
+    inv_freq: [Dh/2] (carries any rope_scaling)."""
+    angles = positions[:, None, :, None].to(torch.float32) * inv_freq  # [B, 1, T, half]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1).to(x.dtype)
+
+
+def compute_inv_freq(cfg: dict) -> np.ndarray:
+    """RoPE inverse frequencies [head_dim/2] with the checkpoint's
+    rope_scaling ("llama3" frequency-dependent scaling, "linear" position
+    interpolation)."""
+    head_dim = cfg.get("head_dim") or cfg["d_model"] // cfg["heads"]
+    base = float(cfg.get("rope_base", 10000.0))
+    half = head_dim // 2
+    inv_freq = base ** (-np.arange(half, dtype=np.float64) / half)
+    scaling = cfg.get("rope_scaling") or {}
+    rope_type = scaling.get("rope_type") or scaling.get("type")
+    if rope_type == "llama3":
+        factor = float(scaling["factor"])
+        low = float(scaling.get("low_freq_factor", 1.0))
+        high = float(scaling.get("high_freq_factor", 4.0))
+        original = float(scaling.get("original_max_position_embeddings", 8192))
+        wavelen = 2.0 * np.pi / inv_freq
+        smooth = np.clip((original / wavelen - low) / max(high - low, 1e-9), 0.0, 1.0)
+        scaled = (1.0 - smooth) * inv_freq / factor + smooth * inv_freq
+        inv_freq = np.where(
+            wavelen < original / high, inv_freq,
+            np.where(wavelen > original / low, inv_freq / factor, scaled),
+        )
+    elif rope_type == "linear":
+        inv_freq = inv_freq / float(scaling["factor"])
+    elif rope_type is not None:
+        import warnings
+
+        warnings.warn(f"unsupported rope_scaling type {rope_type!r}: using unscaled RoPE", stacklevel=2)
+    return inv_freq.astype(np.float32)
+
+
+def init_decoder_params(
+    cfg: dict,
+    *,
+    seed: int = 0,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cpu",
+) -> Params:
+    """Seeded random weights at ``cfg``'s shapes, drawn on ``device`` from a
+    ``torch.Generator``: the JAX package's distributions (matrices N(0, 1) /
+    sqrt(fan_in) drawn in f32 then cast, embeddings N(0, 0.02^2), unit
+    norms), not its bits.  Matrices keep the JAX layout [in, out]."""
+    d, ff, vocab = cfg["d_model"], cfg["d_ff"], cfg["vocab"]
+    heads, kv_heads = cfg["heads"], cfg["kv_heads"]
+    head_dim = d // heads
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def normal(shape, std: float) -> torch.Tensor:
+        x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
+        return x.mul_(std).to(dtype)
+
+    def dense(shape) -> torch.Tensor:
+        return normal(shape, 1.0 / math.sqrt(shape[0]))
+
+    def ones() -> torch.Tensor:
+        return torch.ones(d, dtype=torch.float32, device=device)
+
+    params: Params = {
+        "tok_emb": normal((vocab, d), 0.02),
+        "final_norm": ones(),
+        "lm_head": dense((d, vocab)),
+        "layers": [],
+    }
+    for _ in range(cfg["layers"]):
+        params["layers"].append({
+            "attn_norm": ones(),
+            "wq": dense((d, heads * head_dim)),
+            "wk": dense((d, kv_heads * head_dim)),
+            "wv": dense((d, kv_heads * head_dim)),
+            "wo": dense((heads * head_dim, d)),
+            "mlp_norm": ones(),
+            "w_gate": dense((d, ff)),
+            "w_up": dense((d, ff)),
+            "w_down": dense((ff, d)),
+        })
+    return params
+
+
+#: Parameters that stay f32 whatever the matrices' dtype (norm scales and
+#: attention biases, as the JAX package stores them).
+_F32_LEAVES = frozenset({
+    "final_norm", "attn_norm", "mlp_norm", "post_attn_norm", "post_mlp_norm",
+    "q_norm", "k_norm", "bq", "bk", "bv",
+})
+
+
+def params_from_jax(
+    params: Params, *, dtype: torch.dtype = torch.bfloat16, device: str | torch.device = "cpu"
+) -> Params:
+    """A ``JaxChatLLM.params`` tree (any arrays numpy can read, dense
+    weights only) -> this module's parameter dict: the same names and
+    layouts, matrices in ``dtype``, norms and biases in f32."""
+
+    def leaf(name: str, x) -> torch.Tensor:
+        t = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
+        return t.to(device=device, dtype=torch.float32 if name in _F32_LEAVES else dtype)
+
+    for layer in params["layers"]:
+        if "wqkv" in layer or "w_gate_up" in layer:
+            msg = "params_from_jax: @int8 weights are not ported (ROADMAP queue 1 item 9)"
+            raise NotImplementedError(msg)
+    out: Params = {k: leaf(k, v) for k, v in params.items() if k != "layers"}
+    out["layers"] = [{k: leaf(k, v) for k, v in layer.items()} for layer in params["layers"]]
+    return out
+
+
+class DecoderModel:
+    """Forward passes over an explicit KV cache; the family knobs of the JAX
+    ``DecoderModel``: ``head_dim``, ``rope_base``, ``rms_eps``, ``emb_scale``,
+    ``hidden_act`` (SwiGLU or GeGLU), ``attn_scale``, ``attn_softcap`` /
+    ``final_softcap``, ``sliding_window`` + ``layer_sliding``,
+    ``rope_local_base``; layer params optionally carry q/k/v biases, q/k
+    norms and sandwich norms."""
+
+    def __init__(self, cfg: dict) -> None:
+        self.cfg = cfg
+        self.head_dim = cfg.get("head_dim") or cfg["d_model"] // cfg["heads"]
+        self.rms_eps = float(cfg.get("rms_eps", 1e-6))
+        self.attn_scale = float(cfg.get("attn_scale") or self.head_dim**-0.5)
+        self.emb_scale = float(cfg.get("emb_scale") or 1.0)
+        self.attn_softcap = cfg.get("attn_softcap")
+        self.final_softcap = cfg.get("final_softcap")
+        self.hidden_act = cfg.get("hidden_act", "silu")
+        self.sliding_window = cfg.get("sliding_window")
+        self.layer_sliding = cfg.get("layer_sliding") or [False] * cfg["layers"]
+        self._inv_freq = torch.from_numpy(compute_inv_freq(cfg))
+        if cfg.get("rope_local_base"):
+            local_cfg = {**cfg, "rope_base": cfg["rope_local_base"], "rope_scaling": None}
+            self._inv_freq_local = torch.from_numpy(compute_inv_freq(local_cfg))
+        else:
+            self._inv_freq_local = self._inv_freq
+        self._tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _freqs(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        if device not in self._tables:
+            self._tables[device] = (self._inv_freq.to(device), self._inv_freq_local.to(device))
+        return self._tables[device]
+
+    def init_cache(
+        self, batch: int, max_len: int, dtype: torch.dtype = torch.bfloat16, device: str | torch.device = "cpu"
+    ) -> dict:
+        """Per-layer K and V buffers ``[B, KVH, hd, S]``, sequence minor-most
+        (the layout both attention contractions read).  ``forward`` writes
+        them IN PLACE: a cache passed to it is updated, not copied (the JAX
+        package gets the same effect by donating the buffers)."""
+        shape = (batch, self.cfg["kv_heads"], self.head_dim, max_len)
+        layers = self.cfg["layers"]
+        return {
+            "k": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
+            "v": [torch.zeros(shape, dtype=dtype, device=device) for _ in range(layers)],
+        }
+
+    def forward(
+        self,
+        params: Params,
+        ids: torch.Tensor,  # [B, T] integer
+        cache: dict,
+        cache_len: int | torch.Tensor,  # tokens already in the cache: scalar or [B]
+        last_positions: torch.Tensor | None = None,  # [B]: emit logits only there
+    ) -> tuple[torch.Tensor, dict]:
+        """Run T tokens starting at ``cache_len``; returns logits [B, T, V]
+        f32 (or [B, V] at ``last_positions``) and the cache, updated in
+        place.  Row b writes its keys and values at ``min(cache_len[b], S -
+        T)``, the clamp of JAX's ``dynamic_update_slice``.  Attention takes
+        the decode kernel at T = 1, the verify kernel at T <= 16 and the
+        prefill kernel above; on CPU tensors each is its plain version."""
+        cfg = self.cfg
+        heads, kv_heads, hd = cfg["heads"], cfg["kv_heads"], self.head_dim
+        rep = heads // kv_heads
+        b, t = ids.shape
+        device = ids.device
+        s = cache["k"][0].shape[3]
+        row_offsets = torch.as_tensor(cache_len, device=device).to(torch.int64)
+        if row_offsets.ndim == 0:
+            row_offsets = row_offsets.expand(b)
+        steps = torch.arange(t, device=device)
+        positions = row_offsets[:, None] + steps[None, :]  # [B, T]
+        # KV write columns: the clamped start per row, then T consecutive slots.
+        write_cols = (torch.clamp(row_offsets, max=s - t)[:, None] + steps[None, :])
+        write_cols = write_cols[:, None, None, :].expand(b, kv_heads, hd, t)
+        inv_freq_global, inv_freq_local = self._freqs(device)
+        x = params["tok_emb"][ids]
+        if self.emb_scale != 1.0:
+            x = x * torch.tensor(self.emb_scale, dtype=x.dtype)
+        for li, layer in enumerate(params["layers"]):
+            sliding = self.layer_sliding[li] and self.sliding_window
+            inv_freq = inv_freq_local if self.layer_sliding[li] else inv_freq_global
+            h = _rms_norm(x, layer["attn_norm"], self.rms_eps)
+            q = h @ layer["wq"]
+            k = h @ layer["wk"]
+            v = h @ layer["wv"]
+            if "bq" in layer:
+                q = q + layer["bq"]
+                k = k + layer["bk"]
+                v = v + layer["bv"]
+            q = q.reshape(b, t, heads, hd).transpose(1, 2)
+            k = k.reshape(b, t, kv_heads, hd).transpose(1, 2)
+            v = v.reshape(b, t, kv_heads, hd).transpose(1, 2)
+            if "q_norm" in layer:
+                q = _rms_norm(q, layer["q_norm"], self.rms_eps)
+                k = _rms_norm(k, layer["k_norm"], self.rms_eps)
+            q = _rope(q, positions, inv_freq)
+            k = _rope(k, positions, inv_freq)
+            k_cache, v_cache = cache["k"][li], cache["v"][li]
+            k_cache.scatter_(3, write_cols, k.transpose(2, 3).to(k_cache.dtype))
+            v_cache.scatter_(3, write_cols, v.transpose(2, 3).to(v_cache.dtype))
+            qg = q.reshape(b, kv_heads, rep, t, hd).to(k_cache.dtype)
+            kw = dict(
+                scale=self.attn_scale,
+                softcap=float(self.attn_softcap or 0.0),
+                window=int(self.sliding_window if sliding else 0),
+            )
+            if t == 1:
+                ctx = gqa_decode_attention(qg[:, :, :, 0], k_cache, v_cache, row_offsets, **kw)[:, :, :, None]
+            elif t <= _VERIFY_KERNEL_MAX_T:
+                ctx = gqa_verify_attention(qg, k_cache, v_cache, row_offsets, **kw)
+            else:
+                ctx = gqa_prefill_attention(qg, k_cache, v_cache, row_offsets, **kw)
+            ctx = ctx.reshape(b, heads, t, hd).transpose(1, 2).reshape(b, t, heads * hd).to(x.dtype)
+            attn_out = ctx @ layer["wo"]
+            if "post_attn_norm" in layer:
+                attn_out = _rms_norm(attn_out, layer["post_attn_norm"], self.rms_eps)
+            x = x + attn_out
+            # Gated MLP, gate and up in f32: SwiGLU or GeGLU.
+            h = _rms_norm(x, layer["mlp_norm"], self.rms_eps)
+            gate_pre = (h @ layer["w_gate"]).to(torch.float32)
+            up = (h @ layer["w_up"]).to(torch.float32)
+            gate = (
+                F.gelu(gate_pre, approximate="tanh")
+                if self.hidden_act == "gelu_pytorch_tanh"
+                else F.silu(gate_pre)
+            )
+            mlp_out = (gate * up).to(x.dtype) @ layer["w_down"]
+            if "post_mlp_norm" in layer:
+                mlp_out = _rms_norm(mlp_out, layer["post_mlp_norm"], self.rms_eps)
+            x = x + mlp_out
+        x = _rms_norm(x, params["final_norm"], self.rms_eps)
+        if last_positions is not None:
+            x = x[torch.arange(b, device=device), last_positions.to(device)]  # [B, d]
+        logits = (x @ params["lm_head"]).to(torch.float32)
+        if self.final_softcap:
+            logits = self.final_softcap * torch.tanh(logits / self.final_softcap)
+        return logits, cache
+
+
+def _prefill_last(model: DecoderModel, params: Params, ids, cache, lens):
+    """Prefill emitting only each row's last-prompt-position logits [B, V]:
+    the rows before are gathered away ahead of the lm_head (a [1, 8192,
+    151936] f32 logits tensor would be 5 GB)."""
+    return model.forward(params, ids, cache, 0, last_positions=lens - 1)
+
+
+def _bucket(n: int, minimum: int = 64) -> int:  # prompt buckets start small
+    return _bucket_any(n, minimum)
+
+
+def _max_new(sampling: dict, default: int) -> int:
+    """Generation budget: ``max_tokens`` (OpenAI-style), ``max_new_tokens``
+    accepted as an alias."""
+    return int(sampling.get("max_tokens", sampling.get("max_new_tokens", default)))
+
+
+def _decode_chunk_device(  # noqa: PLR0913
+    model: DecoderModel,
+    cache,
+    params,
+    cache_lens: torch.Tensor,  # [B] int64
+    last_logits: torch.Tensor,  # [B, V] f32: logits the next token is sampled from
+    logits_mask: torch.Tensor,  # [V] f32 additive mask (0 / -inf), applied every step
+    done: torch.Tensor,  # [B] bool
+    stop_ids: torch.Tensor,  # [K] int64 (padded with -7)
+    gen: torch.Generator,
+    *,
+    num_steps: int,
+    temperature: float,
+    top_p: float,
+    top_k: int,
+    min_p: float,
+):
+    """``num_steps`` decode iterations: sample (the host sampler's
+    temperature/top-k/top-p/min-p semantics), stop check, KV append, next
+    forward.  The JAX version is a ``lax.while_loop`` that also ends once
+    every row is done; this host loop runs a FIXED trip count instead and
+    lets done rows idle (feed 0, no cache advance, ``_NO_TOKEN`` out), so
+    the chunk needs no host read until its one fetch of the tokens.  Returns
+    (tokens [B, num_steps], cache, cache_lens, last_logits, done)."""
+    b = last_logits.shape[0]
+    out = torch.full((b, num_steps), _NO_TOKEN, dtype=torch.int64, device=last_logits.device)
+    logits = last_logits
+    for step in range(num_steps):
+        masked = logits + logits_mask[None, :]
+        if temperature == 0.0:
+            token = torch.argmax(masked, dim=-1)
+        else:
+            probs = _filtered_probs(masked, temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p)
+            token = _categorical(probs, gen)
+        is_stop = (token[:, None] == stop_ids[None, :]).any(dim=1)
+        done = done | is_stop
+        out[:, step] = torch.where(done, _NO_TOKEN, token)
+        feed = torch.where(done, 0, token)
+        new_logits, cache = model.forward(params, feed[:, None], cache, cache_lens)
+        cache_lens = cache_lens + (~done).to(cache_lens.dtype)
+        logits = new_logits[:, -1]
+    return out, cache, cache_lens, logits, done
+
+
+class TorchChatLLM:
+    """Chat LLM over the port's decoder: the ``jax:<preset>`` provider
+    (ChatML prompts, streamed unconstrained generation, the
+    ``<tool_call>{json}</tool_call>`` tool protocol).  Weights are seeded
+    random at the preset's shapes."""
+
+    supports_function_calling = True
+    #: JSON response formats need the grammar automata (not ported yet).
+    supports_response_format = False
+
+    _PRESETS = {
+        "tiny": dict(layers=2, d_model=128, heads=4, kv_heads=2, d_ff=256, vocab=512, max_len=1024),
+        "small": dict(layers=8, d_model=512, heads=8, kv_heads=4, d_ff=1408, vocab=32768, max_len=4096),
+        "base": dict(layers=24, d_model=1024, heads=16, kv_heads=8, d_ff=2816, vocab=151936, max_len=8192),
+        # 4B-class (the reference's default local LLM is a Qwen3-4B-class
+        # model): 36 layers x d2560, GQA 20q/4kv (head_dim 128), SwiGLU ff
+        # 9728, untied 151936 lm_head; 8.06 GB of bf16 weights.
+        "large": dict(layers=36, d_model=2560, heads=20, kv_heads=4, d_ff=9728, vocab=151936, max_len=8192),
+    }
+
+    #: Recommended sampling for Qwen-class models; not applied implicitly
+    #: (generation defaults to greedy).
+    RECOMMENDED_SAMPLING = {"temperature": 0.7, "top_p": 0.8, "top_k": 20, "min_p": 0.0}
+
+    def __init__(
+        self,
+        spec: str = "tiny",
+        *,
+        seed: int = 0,
+        dtype: torch.dtype = torch.bfloat16,
+        device: str | torch.device = "cuda",
+    ) -> None:
+        if spec.endswith("@int8"):
+            msg = "@int8 decoder weights (W8A8/W8A16, ops/quant_matmul.py) are not ported: ROADMAP queue 1 item 9"
+            raise NotImplementedError(msg)
+        if spec.startswith(("hf:", "ckpt:")):
+            msg = f"{spec.split(':')[0]}: checkpoints are not ported (no checkpoint in the repo): ROADMAP queue 1 item 9"
+            raise NotImplementedError(msg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            msg = f"device={str(device)!r} but CUDA is not available (pass device='cpu')"
+            raise RuntimeError(msg)
+        cfg = dict(self._PRESETS.get(spec, self._PRESETS["tiny"]))
+        self.cfg = cfg
+        self.params = init_decoder_params(cfg, seed=seed, dtype=dtype, device=self.device)
+        self.tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
+        self.model = DecoderModel(cfg)
+        self.context_size = cfg["max_len"]
+        self._stop_ids = {self.tokenizer.EOS, *self.tokenizer.EOS_IDS}
+        self.spec_stats: dict | None = None
+
+    # --- Prompting --------------------------------------------------------
+
+    def _format_messages(self, messages: list[dict[str, Any]], tools: list[dict[str, Any]] | None) -> str:
+        """ChatML with an embedded tool manifest."""
+        parts = []
+        if tools:
+            manifest = "\n".join(
+                f"- {t['function']['name']}: {t['function'].get('description', '')}" for t in tools
+            )
+            parts.append(
+                "<|im_start|>system\nYou may call tools by emitting "
+                '<tool_call>{"name": ..., "arguments": {...}}</tool_call>.\n'
+                f"Available tools:\n{manifest}<|im_end|>\n"
+            )
+        for m in messages:
+            role = m.get("role", "user")
+            content = m.get("content") or ""
+            parts.append(f"<|im_start|>{role}\n{content}<|im_end|>\n")
+        parts.append("<|im_start|>assistant\n")
+        return "".join(parts)
+
+    # --- Generation -------------------------------------------------------
+
+    def _stop_ids_device(self) -> torch.Tensor:
+        stops = torch.full((8,), -7, dtype=torch.int64)  # -7 matches no sampled token
+        for i, sid in enumerate(sorted(self._stop_ids)[:8]):
+            stops[i] = sid
+        return stops.to(self.device)
+
+    def _device_token_stream(  # noqa: PLR0913
+        self,
+        cache,
+        cache_lens: torch.Tensor,
+        first_logits: torch.Tensor,  # [1, V]
+        done: torch.Tensor,
+        *,
+        max_new_tokens: int,
+        logits_mask: torch.Tensor,
+        temperature: float,
+        top_p: float,
+        top_k: int,
+        min_p: float,
+        seed: int,
+        hist: np.ndarray | None = None,
+        hist_len: int = 0,
+        speculate: bool = False,
+    ) -> Iterator[int]:
+        """Stream tokens from the decode loop, one fetch per DECODE_CHUNK
+        tokens; with ``speculate`` (and ``hist``, the prompt history) each
+        chunk runs prompt-lookup speculative decoding."""
+        stops = self._stop_ids_device()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        last = first_logits
+        emitted = 0
+        if speculate and hist is not None:
+            hist_dev = torch.as_tensor(hist, dtype=torch.int64, device=self.device)[None, :]
+            hl = torch.tensor([hist_len], dtype=torch.int64, device=self.device)
+            reject = torch.full((1,), -1, dtype=torch.int64, device=self.device)
+            tot_iters = 0
+            while emitted < max_new_tokens:
+                out, cache, cache_lens, last, reject, done, hist_dev, hl, n_iters = speculate_chunk_device(
+                    self.model, cache, self.params, cache_lens, last, reject, logits_mask, done,
+                    stops, gen, hist_dev, hl,
+                    num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(self.tokenizer.PAD),
+                    temperature=float(temperature), top_p=float(top_p), top_k=int(top_k), min_p=float(min_p),
+                )
+                fetched = torch.cat([out[0], done[:1].to(out.dtype)]).tolist()
+                tokens, row_done = fetched[:-1], bool(fetched[-1])
+                tot_iters += n_iters
+                for token in tokens:
+                    if token == _NO_TOKEN or emitted >= max_new_tokens:
+                        break
+                    yield int(token)
+                    emitted += 1
+                # Verified tokens per forward, for benchmarks and tests.
+                self.spec_stats = {"tokens": emitted, "verify_iters": tot_iters}
+                if emitted >= max_new_tokens or row_done:
+                    return
+                if all(token == _NO_TOKEN for token in tokens):
+                    return  # budget-capped chunk emitted nothing new
+            return
+        while emitted < max_new_tokens:
+            out, cache, cache_lens, last, done = _decode_chunk_device(
+                self.model, cache, self.params, cache_lens, last, logits_mask, done, stops, gen,
+                num_steps=DECODE_CHUNK, temperature=float(temperature), top_p=float(top_p),
+                top_k=int(top_k), min_p=float(min_p),
+            )
+            fetched = torch.cat([out[0], done[:1].to(out.dtype)]).tolist()
+            for token in fetched[:-1]:
+                if token == _NO_TOKEN or emitted >= max_new_tokens:
+                    return
+                yield int(token)
+                emitted += 1
+            if fetched[-1]:
+                return
+
+    def _generate_tokens(
+        self,
+        prompt: str,
+        *,
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_p: float = 0.0,
+        json_constrained: bool = False,
+        automaton=None,
+        seed: int = 0,
+    ) -> Iterator[int]:
+        """Unconstrained generation of ``prompt``'s continuation (greedy
+        decode speculates unless ``RAGLITE_TPU_SPECULATE=0``; sampled decode
+        speculates only with ``=always``/``=1``)."""
+        if json_constrained or automaton is not None:
+            msg = "grammar-constrained decode (json/schema automata) is not ported: ROADMAP queue 1 item 7"
+            raise NotImplementedError(msg)
+        tok = self.tokenizer
+        # Clamp the budget to the window, then keep the newest prompt tokens
+        # that fit.
+        max_new_tokens = max(1, min(max_new_tokens, self.context_size - 32))
+        budget = max(self.context_size - max_new_tokens - 1, 16)
+        ids = [tok.BOS, *tok.encode(prompt)[-budget:]]
+        pad = _bucket(len(ids))
+        batch_ids = torch.full((1, pad), tok.PAD, dtype=torch.int64)
+        batch_ids[0, : len(ids)] = torch.tensor(ids)
+        # DECODE_CHUNK headroom: a speculative chunk commits up to
+        # DECODE_CHUNK tokens of KV before the host sees the budget spent.
+        max_total = pad + _bucket(max_new_tokens) + DECODE_CHUNK
+        cache = self.model.init_cache(1, max_total, device=self.device)  # bf16, as the JAX package's
+        lens = torch.tensor([len(ids)], dtype=torch.int64, device=self.device)
+        last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, lens)
+        # Only byte tokens and EOS are valid outputs of the byte tokenizer.
+        mask = torch.full((self.cfg["vocab"],), -math.inf, dtype=torch.float32)
+        mask[tok._OFFSET : tok._OFFSET + 256] = 0.0
+        mask[tok.EOS] = 0.0
+        spec_mode = os.environ.get("RAGLITE_TPU_SPECULATE", "auto")
+        speculate = spec_mode != "0" and (temperature == 0.0 or spec_mode in ("1", "always"))
+        hist0 = None
+        if speculate:
+            hist0 = np.full((max_total,), tok.PAD, dtype=np.int64)
+            hist0[: len(ids)] = ids
+        yield from self._device_token_stream(
+            cache, lens, last, torch.zeros((1,), dtype=torch.bool, device=self.device),
+            max_new_tokens=max_new_tokens, logits_mask=mask.to(self.device),
+            temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+            hist=hist0, hist_len=len(ids), speculate=speculate,
+        )
+
+    # --- LLM protocol -----------------------------------------------------
+
+    def _decode_stream(self, tokens: Iterator[int]) -> Iterator[str]:
+        """Incremental UTF-8 decode of generated byte tokens."""
+        buffer = bytearray()
+        for token in tokens:
+            if token >= ByteTokenizer._OFFSET:
+                buffer.append(token - ByteTokenizer._OFFSET)
+                try:
+                    yield buffer.decode("utf-8")
+                    buffer.clear()
+                except UnicodeDecodeError:
+                    continue  # wait for more continuation bytes
+        if buffer:
+            yield buffer.decode("utf-8", errors="replace")
+
+    def stream(self, messages, *, tools=None, tool_choice=None, **sampling):
+        from raglite_tpu_torch.models.llm import ToolCall
+
+        if tool_choice == "none":
+            tools = None  # "none" produces no tool calls: no manifest, no parsing
+        if tools and (tool_choice == "required" or isinstance(tool_choice, dict)):
+            msg = "forced tool calls need the grammar automata, not ported: ROADMAP queue 1 item 7"
+            raise NotImplementedError(msg)
+        prompt = self._format_messages(messages, tools)
+        text_parts: list[str] = []
+        # Incremental tool-tag filter: text inside <tool_call>...</tool_call>
+        # never reaches the stream (it becomes ToolCall items), all text
+        # outside it does, and a partial "<tool_call" at the tail is held
+        # back until it completes or turns out to be plain text.
+        OPEN, CLOSE = "<tool_call>", "</tool_call>"
+        pending = ""
+        in_tool = False
+
+        def drain(pending: str, in_tool: bool, final: bool):
+            emit = []
+            while True:
+                if in_tool:
+                    end = pending.find(CLOSE)
+                    if end < 0:
+                        if final:
+                            pending = ""
+                        break
+                    pending = pending[end + len(CLOSE) :]
+                    in_tool = False
+                    continue
+                start = pending.find(OPEN)
+                if start >= 0:
+                    emit.append(pending[:start])
+                    pending = pending[start + len(OPEN) :]
+                    in_tool = True
+                    continue
+                hold = 0
+                if not final:
+                    for k in range(min(len(OPEN) - 1, len(pending)), 0, -1):
+                        if pending.endswith(OPEN[:k]):
+                            hold = k
+                            break
+                cut = len(pending) - hold
+                emit.append(pending[:cut])
+                pending = pending[cut:]
+                break
+            return "".join(emit), pending, in_tool
+
+        for piece in self._decode_stream(
+            self._generate_tokens(
+                prompt,
+                max_new_tokens=_max_new(sampling, 128),
+                temperature=float(sampling.get("temperature", 0.0)),
+                top_p=float(sampling.get("top_p", 1.0)),
+                top_k=int(sampling.get("top_k", 0)),
+                min_p=float(sampling.get("min_p", 0.0)),
+                seed=int(sampling.get("seed", 0)),
+            )
+        ):
+            text_parts.append(piece)
+            if tools:
+                pending += piece
+                emit, pending, in_tool = drain(pending, in_tool, final=False)
+                if emit:
+                    yield emit
+            else:
+                yield piece
+        if not tools:
+            return
+        emit, pending, in_tool = drain(pending, in_tool, final=True)
+        if emit:
+            yield emit
+        for m in re.finditer(r"<tool_call>(.*?)</tool_call>", "".join(text_parts), flags=re.S):
+            try:
+                call = json.loads(m.group(1))
+                yield ToolCall(
+                    id=f"call_{uuid.uuid4().hex[:8]}",
+                    name=str(call.get("name", "")),
+                    arguments=json.dumps(call.get("arguments", {})),
+                )
+            except (ValueError, TypeError, AttributeError):
+                continue
+
+    def complete(self, messages, *, tools=None, tool_choice=None, response_format=None, **sampling):
+        from raglite_tpu_torch.models.llm import ChatResponse, ToolCall
+
+        if response_format is not None:
+            msg = "response_format needs the grammar automata, not ported: ROADMAP queue 1 item 7"
+            raise NotImplementedError(msg)
+        parts: list[str] = []
+        tool_calls: list[ToolCall] = []
+        for item in self.stream(messages, tools=tools, tool_choice=tool_choice, **sampling):
+            if isinstance(item, ToolCall):
+                tool_calls.append(item)
+            else:
+                parts.append(item)
+        return ChatResponse(content="".join(parts) or None, tool_calls=tool_calls)

@@ -10,8 +10,9 @@
 - ``load_tokenizer``: the ``BPETokenizer`` of a checkpoint's
   ``tokenizer.json``.
 
-The encoders only encode: decoding and special-token ids come with the
-decoder LLM (ROADMAP queue 1 item 9).
+``ByteTokenizer`` also decodes and carries the special ids the decoder LLM
+stops on; the HF tokenizers of pretrained decoders wait with ``hf:``
+checkpoints (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ class ByteTokenizer:
     """UTF-8 bytes shifted past the 3 special ids (pad, bos, eos) of the JAX
     package's byte tokenizer; deterministic and lossless."""
 
+    PAD, BOS, EOS = 0, 1, 2
+    EOS_IDS = (2,)
     _OFFSET = 3
 
     def __init__(self, vocab_size: int = 8192) -> None:
@@ -37,6 +40,12 @@ class ByteTokenizer:
 
     def encode(self, text: str) -> list[int]:
         return [b + self._OFFSET for b in text.encode("utf-8")]
+
+    def decode(self, ids: list[int]) -> str:
+        # Ids in [259, vocab_size) are unused vocabulary: skipped, since
+        # unconstrained sampling can emit any id of the vocabulary.
+        data = bytes(i - self._OFFSET for i in ids if self._OFFSET <= i < self._OFFSET + 256)
+        return data.decode("utf-8", errors="replace")
 
 
 @lru_cache(maxsize=1)

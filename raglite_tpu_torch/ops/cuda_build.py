@@ -6,6 +6,10 @@ plain C interface (no PyTorch headers, so a build takes seconds), for
 ``.gitignore``).  The library name carries a digest of the sources and
 flags, so an edited kernel never loads a stale build.  :func:`build_all`
 starts one ``nvcc`` per source, all at once, and waits for them.
+
+Every wrapper calls its kernel the same way: :func:`function` binds a
+launcher's C signature once, :func:`launch` calls it on the current CUDA
+stream, raises on a cudaError and counts the launch.
 """
 
 from __future__ import annotations
@@ -18,13 +22,18 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["BUILD_DIR", "SOURCES", "build_all", "library"]
+import torch
+
+__all__ = ["BUILD_DIR", "FLOAT", "INT", "LONG", "SOURCES", "VOID", "build_all", "function", "launch", "library"]
+
+#: C types of the launchers: pointers are void*, shapes int, sizes long long.
+VOID, INT, FLOAT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 #: One library per kernel source.
-SOURCES = ("bucket_scan", "int4_scan")
+SOURCES = ("bucket_scan", "int4_scan", "decode_attention", "prefill_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas", "-v",
@@ -32,6 +41,7 @@ NVCC_FLAGS = (
 )
 
 _libs: dict[str, ctypes.CDLL] = {}
+_functions: dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -87,3 +97,26 @@ def library(name: str) -> ctypes.CDLL:
             build_all((name,))
             lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         return lib
+
+
+def function(source: str, symbol: str, argtypes: list, restype=INT):
+    """``symbol`` of the library of ``csrc/<source>.cu``, with its C
+    signature bound when it is first asked for."""
+    fn = _functions.get(symbol)
+    if fn is None:
+        fn = getattr(library(source), symbol)
+        fn.argtypes, fn.restype = argtypes, restype
+        _functions[symbol] = fn
+    return fn
+
+
+def launch(counts: dict[str, int], name: str, fn, args: list, device: torch.device) -> None:
+    """Call the launcher ``fn`` with ``args`` and, as its last argument, the
+    current CUDA stream of ``device``; raise if it returns a cudaError, else
+    add one to ``counts[name]`` (the one place a kernel launch is counted)."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        msg = f"{name}: kernel launch failed with cudaError {err}"
+        raise RuntimeError(msg)
+    counts[name] += 1

@@ -21,10 +21,11 @@ versions; bf16/f32 agree to a tolerance (summation order).
 from __future__ import annotations
 
 import contextlib
-import ctypes
 
 import torch
 
+from raglite_tpu_torch.ops import cuda_build
+from raglite_tpu_torch.ops.cuda_build import INT, LONG, VOID
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
 __all__ = [
@@ -142,40 +143,30 @@ def _check_scan_args(name, q, rows, rscale, bias, num_buckets) -> None:
         raise ValueError(msg)
 
 
-_VOID, _INT = ctypes.c_void_p, ctypes.c_int
-#: C signatures of the kernels' launchers (csrc/*.cu): pointers are void*,
-#: shapes int; then outputs, scratch and the CUDA stream.  The *_scratch
-#: functions take the shape arguments and return the scratch size.
+#: C signatures of the kernels' launchers (csrc/*.cu): operands and shapes,
+#: then outputs, scratch and the CUDA stream.  The *_scratch functions take
+#: the shape arguments and return the scratch size.
 _SIGNATURES = {
-    "rlt_bucketed_max_scan": [_INT, *[_VOID] * 4, *[_INT] * 4, *[_VOID] * 4],
-    "rlt_int4_bucket_scan": [*[_VOID] * 4, *[_INT] * 4, *[_VOID] * 4],
+    "rlt_bucketed_max_scan": [INT, *[VOID] * 4, *[INT] * 4, *[VOID] * 4],
+    "rlt_int4_bucket_scan": [*[VOID] * 4, *[INT] * 4, *[VOID] * 4],
 }
 
 
 def _launch(name: str, source: str, symbol: str, args: list, shape: list, device, num_buckets: int):
     """Allocate the outputs and the kernel's scratch, launch ``symbol`` of
-    ``csrc/<source>.cu`` on the current stream, raise if the launch
-    failed, count it.  ``shape`` holds the launcher's shape arguments
-    (those of ``args`` after the pointers: [kind,] B, d, N, L)."""
-    from raglite_tpu_torch.ops.cuda_build import library
-
-    lib = library(source)
-    fn = getattr(lib, symbol)
-    fn.argtypes, fn.restype = _SIGNATURES[symbol], ctypes.c_int
-    size = getattr(lib, symbol + "_scratch")
-    size.argtypes, size.restype = [_INT] * len(shape), ctypes.c_longlong
+    ``csrc/<source>.cu`` (:func:`cuda_build.launch`).  ``shape`` holds the
+    launcher's shape arguments (those of ``args`` after the pointers:
+    [kind,] B, d, N, L)."""
+    fn = cuda_build.function(source, symbol, _SIGNATURES[symbol])
+    size = cuda_build.function(source, symbol + "_scratch", [INT] * len(shape), LONG)
     batch = shape[-4]
     scores = torch.empty((batch, num_buckets), dtype=torch.float32, device=device)
     ids = torch.empty((batch, num_buckets), dtype=torch.int32, device=device)
     # Per-split partial maxima (f32 scores, then i32 ids) of the split scan.
     scratch = torch.empty(2 * max(size(*shape), 1), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, scores.data_ptr(), ids.data_ptr(), scratch.data_ptr(), stream)
-    if err != 0:
-        msg = f"{name}: kernel launch failed with cudaError {err}"
-        raise RuntimeError(msg)
-    launch_counts[name] += 1
+    cuda_build.launch(
+        launch_counts, name, fn, [*args, scores.data_ptr(), ids.data_ptr(), scratch.data_ptr()], device
+    )
     return scores, ids
 
 

@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package (nor markdown-it, tokenizers, msgpack or filelock on the
-in-memory path), its config asks for the card by default, and asking for the
-card where there is none raises instead of running on the CPU."""
+"""The PyTorch port stands alone: importing it (the retrieval modules, the
+decoder LLM, speculation, the LLM factory, rag and the attention ops) loads
+neither JAX nor the JAX package (nor markdown-it, tokenizers, msgpack or
+filelock on the in-memory path), its config asks for the card by default,
+and asking for the card where there is none raises instead of running on
+the CPU."""
 
 import subprocess
 import sys
@@ -21,6 +23,9 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch
         import raglite_tpu_torch.index.dense, raglite_tpu_torch.models.encoder
         import raglite_tpu_torch.ops.cuda_build, raglite_tpu_torch.search
+        import raglite_tpu_torch.models.decoder, raglite_tpu_torch.models.speculative
+        import raglite_tpu_torch.models.llm, raglite_tpu_torch.rag
+        import raglite_tpu_torch.ops.decode_attention, raglite_tpu_torch.ops.prefill_attention
         bad = [
             m for m in sys.modules
             if m in ("jax", "raglite_tpu") or m.startswith(("jax.", "raglite_tpu."))
