@@ -13,11 +13,15 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    bit; bf16 bucketed_max_scan to a stated tolerance.
 2b. The three attention kernels against their plain versions (bf16 caches;
    decode at B in {1, 4}, (KVH, REP, hd) in {(4, 5, 128), (2, 1, 64),
-   (2, 4, 32)}, S in {2208, 1003}, per-row positions, soft-cap and window on
-   and off; verify at T in {2, 8, 16}, every row bit-equal to a decode call
-   at pos0 + t; prefill at T in {24, 64, 2048} with nonzero offsets, S a
-   multiple of 8 and not), each output within attention_tolerance (the
-   smaller of a sound and a statistical bound on bf16 probability rounding).
+   (2, 4, 32), (1, 2, 256)}, S in {2208, 1003}, per-row positions (position
+   0 and S - 1 in one batch among them), soft-cap and window on and off;
+   verify at T in {2, 8, 16}, every row bit-equal to a decode call at
+   pos0 + t; back-to-back calls with different S on one stream, which share
+   the kernel's scratch and counters; a window at the end of a 34,824-key
+   cache; prefill at T in {24, 64, 2048} with
+   nonzero offsets, S a multiple of 8 and not), each output within
+   attention_tolerance (the smaller of a sound and a statistical bound on
+   bf16 probability rounding).
 3. Serve with the default config (packaged 8-layer d=768 encoder, bf16
    rows, ":memory:" store): insert the repo's README, SURVEY, MIGRATION and
    PARITY documents, add seeded unit-vector background chunks until the
@@ -43,8 +47,13 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    its plain version and timed against its bound, its plain version and one
    scaled_dot_product_attention call, on 36 rotating per-layer caches (more
    than L2 holds, as the decoder's layers are): decode at the answer's S and
-   at S = 8352, verify T = 8, prefill at the answer's own prompt bucket and S
-   (the launches that served it) and at T = 2048.
+   at S = 8352, verify at T = 8 and T = 16, prefill at the answer's own
+   prompt bucket and S (the launches that served it) and at T = 2048; every
+   verify row is again held bit-equal to a decode call.  Every kernel's time
+   ("ms") is that of calls enqueued one by one; decode and verify are timed
+   once more replayed from a CUDA graph of 36 calls ("graph_ms": the device's
+   time without the host's), each beside an empty kernel launched with the
+   same grid and shared memory (the launch floor).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -52,6 +61,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -100,6 +110,38 @@ def median_ms(fn, reps: int = 20, inner: int = 10, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def graph_ms(fn, calls: int = 36, reps: int = 20) -> float:
+    """Median over ``reps`` replays of the CUDA-event time of a CUDA graph of
+    ``calls`` back-to-back calls of ``fn``, divided by ``calls``: the device's
+    time for one call with no host work between launches.  ``fn`` runs
+    ``calls`` times on the capture stream first, so whatever it keeps per
+    stream exists before the capture."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        for _ in range(calls):
+            fn()
+    stream.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -193,7 +235,7 @@ def check_attention_kernels(seed: int) -> dict[str, float]:
     import torch
 
     from raglite_tpu_torch.ops import decode_attention as da
-    from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
+    from raglite_tpu_torch.ops.prefill_attention import HEAD_DIMS, gqa_prefill_attention
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     errs = {"gqa_decode_attention": 0.0, "gqa_verify_attention": 0.0, "gqa_prefill_attention": 0.0}
@@ -204,29 +246,71 @@ def check_attention_kernels(seed: int) -> dict[str, float]:
         errs[name], shares[name] = max(errs[name], err), max(shares[name], share)
 
     knobs = ((0.0, 0), (50.0, 0), (0.0, 512), (30.0, 300))
-    for kvh, rep, hd in ((4, 5, 128), (2, 1, 64), (2, 4, 32)):
+
+    def first_positions(kind, batch, s, t):
+        """The first window position per row.  "spread": rows far apart;
+        "edges": position 0 and a window that ends on the cache's last key
+        S - 1 in one batch."""
+        rows = [1234, 0, 700, s - 17] if kind == "spread" else [0, s - t, 1, s - t - 1]
+        return torch.tensor(rows[:batch], device="cuda", dtype=torch.int32)
+
+    # hd = 256 is the widest head the decode kernel is built for (the prefill
+    # kernel stops at 128); REP 5 at T = 16 is 80 rows (five row tiles), REP 1
+    # at T = 1 a tile with 15 padded rows.
+    for kvh, rep, hd in ((4, 5, 128), (2, 1, 64), (2, 4, 32), (1, 2, 256)):
         scale = hd**-0.5
-        for batch, s in ((1, 2208), (4, 2208), (4, 1003)):
+        for batch, s, kind in ((1, 2208, "spread"), (4, 2208, "spread"), (4, 1003, "spread"), (4, 2208, "edges"), (4, 1003, "edges")):
             k, v = _cache(g, batch, kvh, hd, s)
-            pos = torch.tensor([1234, 0, 700, s - 17][:batch], device="cuda", dtype=torch.int32)
             for softcap, window in knobs:
                 kw = dict(scale=scale, softcap=softcap, window=window)
-                what = (kvh, rep, hd, batch, s, softcap, window)
+                what = (kvh, rep, hd, batch, s, kind, softcap, window)
                 # Decode.
+                pos = first_positions(kind, batch, s, 1)
                 q = torch.randn((batch, kvh, rep, hd), generator=g, device="cuda").to(torch.bfloat16)
                 got = da.gqa_decode_attention(q, k, v, pos, **kw)
                 q5 = q[:, :, :, None]
                 check("gqa_decode_attention", ("decode", *what), got, da.gqa_attention_plain(q5, k, v, pos, **kw), q5, k, v, pos, **kw)
                 # Verify windows: each row t bit-equal to decode at pos0 + t.
                 for t in (2, 8, 16):
+                    pos = first_positions(kind, batch, s, t)
                     qv = torch.randn((batch, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
                     got = da.gqa_verify_attention(qv, k, v, pos, **kw)
                     for i in range(t):
                         one = da.gqa_decode_attention(qv[:, :, :, i], k, v, pos + i, **kw)
                         assert torch.equal(got[:, :, :, i], one), ("verify != decode", *what, t, i)
                     check("gqa_verify_attention", ("verify", *what, t), got, da.gqa_attention_plain(qv, k, v, pos, **kw), qv, k, v, pos, **kw)
-            log(f"attention check KVH={kvh} REP={rep} hd={hd} B={batch} S={s}: decode and verify ok "
+            log(f"attention check KVH={kvh} REP={rep} hd={hd} B={batch} S={s} positions {kind}: decode and verify ok "
                 f"(verify rows bit-equal to decode), max_abs_err so far {errs}, share of limit {shares}")
+        # Back-to-back calls on one stream with different S, growing and
+        # shrinking, nothing synchronised between them: they share the
+        # kernel's scratch and ticket counters.  Checked after the last.
+        kw = dict(scale=scale, softcap=0.0, window=0)
+        queued = []
+        for s in (1003, 4160, 264, 2208, 4160):
+            k, v = _cache(g, 2, kvh, hd, s)
+            pos = torch.tensor([s - 9, s // 2], device="cuda", dtype=torch.int32)
+            q = torch.randn((2, kvh, rep, hd), generator=g, device="cuda").to(torch.bfloat16)
+            qv = torch.randn((2, kvh, rep, 8, hd), generator=g, device="cuda").to(torch.bfloat16)
+            queued.append(("gqa_decode_attention", q[:, :, :, None], k, v, pos, da.gqa_decode_attention(q, k, v, pos, **kw)))
+            queued.append(("gqa_verify_attention", qv, k, v, pos, da.gqa_verify_attention(qv, k, v, pos, **kw)))
+        for name, q5, k, v, pos, got in queued:
+            check(name, ("back to back", name, kvh, rep, hd, k.shape[3]), got, da.gqa_attention_plain(q5, k, v, pos, **kw), q5, k, v, pos, **kw)
+        log(f"attention check KVH={kvh} REP={rep} hd={hd}: {len(queued)} back-to-back calls at S in (1003, 4160, 264, 2208, 4160) ok")
+        # A long cache, read to its end: 273 splits in 35 chunks, so the final
+        # merge takes several rounds of loads and, at hd = 32 with 64 rows,
+        # its weights no longer fit shared memory at once (rows in batches).
+        s = 34_824
+        k, v = _cache(g, 1, kvh, hd, s)
+        pos = torch.tensor([s - 16], device="cuda", dtype=torch.int32)
+        qv = torch.randn((1, kvh, rep, 16, hd), generator=g, device="cuda").to(torch.bfloat16)
+        got = da.gqa_verify_attention(qv, k, v, pos, **kw)
+        for i in range(16):
+            one = da.gqa_decode_attention(qv[:, :, :, i], k, v, pos + i, **kw)
+            assert torch.equal(got[:, :, :, i], one), ("verify != decode", kvh, rep, hd, s, i)
+        check("gqa_verify_attention", ("long cache", kvh, rep, hd, s), got, da.gqa_attention_plain(qv, k, v, pos, **kw), qv, k, v, pos, **kw)
+        log(f"attention check KVH={kvh} REP={rep} hd={hd} B=1 S={s}: verify T=16 at the cache's end ok (rows bit-equal to decode)")
+        if hd not in HEAD_DIMS:
+            continue
         # Prefill: T in {24, 64, 2048} at nonzero offsets (T = 24 is a verify
         # window wider than 16); S = T + 160 leaves room for the offsets, and
         # S = T + 163 (not a multiple of 8) takes the kernel's scalar staging.
@@ -257,7 +341,75 @@ def _sdpa(q, k, v, mask):
     )
 
 
-def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str) -> list[dict]:
+@functools.lru_cache(maxsize=None)
+def _stamped_decode_library():
+    """``csrc/decode_attention.cu`` compiled a second time with -DRLT_STAMPS
+    into a directory of this script's own (the package builds and loads the
+    plain kernel only).  Returns (launcher, scratch floats, counters, stamp
+    reader), bound with ctypes."""
+    import ctypes
+    import shutil
+
+    from raglite_tpu_torch.ops import cuda_build
+
+    out = cuda_build.BUILD_DIR / "chip_smoke" / "libdecode_attention_stamps.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    source = cuda_build.CSRC / "decode_attention.cu"
+    subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-DRLT_STAMPS", "-o", str(out), str(source)], check=True, capture_output=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    void, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.rlt_gqa_decode.argtypes = [*[void] * 4, *[i32] * 6, f32, f32, i32, *[void] * 4]
+    lib.rlt_gqa_decode_scratch.argtypes, lib.rlt_gqa_decode_scratch.restype = [i32] * 5, ctypes.c_longlong
+    lib.rlt_gqa_decode_counters.argtypes, lib.rlt_gqa_decode_counters.restype = [i32] * 3, ctypes.c_longlong
+    lib.rlt_gqa_decode_stamps.argtypes = [void]
+    return lib.rlt_gqa_decode, lib.rlt_gqa_decode_scratch, lib.rlt_gqa_decode_counters, lib.rlt_gqa_decode_stamps
+
+
+def attention_phases(q5, warm, cache, pos, scale: float, what: str, card: str) -> None:
+    """``--profile``: where one decode or verify launch spends its time.  In
+    the kernel's -DRLT_STAMPS build thread 0 of every block notes the card's
+    nanosecond timer at seven points.  Launches on the ``warm`` caches (more
+    bytes than L2 holds) load the code and push ``cache`` (K, V) out of L2;
+    then one launch on ``cache`` is read back and printed as microseconds
+    after the first block's start (median and latest over the blocks that
+    passed the point)."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.ops import decode_attention as da
+
+    launch, scratch_floats, counter_ints, read = _stamped_decode_library()
+    b, kvh, rep, t, hd = q5.shape
+    k, v = cache
+    s = k.shape[3]
+    scratch = torch.empty(scratch_floats(b, kvh, rep * t, hd, s), dtype=torch.float32, device="cuda")
+    counters = torch.zeros(counter_ints(b, kvh, s), dtype=torch.int32, device="cuda")
+    out = torch.empty(q5.shape, dtype=torch.float32, device="cuda")
+    host = np.zeros((7, 4096), np.uint64)
+    for cache_k, cache_v in (*warm, cache):
+        rc = launch(
+            q5.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), b, kvh, rep * t, t, hd, s,
+            float(scale), 0.0, 0, out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+        assert rc == 0, f"rlt_gqa_decode (stamped): cudaError {rc}"
+        torch.cuda.synchronize()
+        assert read(host.ctypes.data) == 0
+    assert torch.equal(out, da.gqa_verify_attention(q5, k, v, pos, scale=scale)), "the stamped build disagrees"
+    blocks = min(b * kvh * -(-s // 128), host.shape[1])
+    stamps = host[:, :blocks].astype(np.float64)
+    start = stamps[0].min()
+    points = ("start", "K and Q landed", "split done", "ticket 1 known", "chunk merge done", "ticket 2 known", "final merge done")
+    parts = []
+    for point, row in zip(points[1:], stamps[1:]):
+        at = (row[row > 0] - start) / 1e3
+        parts.append(f"{point} {np.median(at):.2f} / {at.max():.2f} ({at.size} blocks)")
+    log(f"phases of one {what} launch on {card}, microseconds after the first block's start, "
+        f"median / latest over the blocks that reached the point: " + "; ".join(parts))
+
+
+def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *, profile: bool = False) -> list[dict]:
     """Phase 7: each attention kernel at the ``large`` preset's shapes (B=1,
     KVH=4, REP=5, hd=128), first at the RAG answer's own (decode and verify
     at its S and position, prefill at its prompt bucket ``rag_t`` and S),
@@ -265,15 +417,21 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str) -
     checked against its plain version, then timed against its bound, its
     plain version and one scaled_dot_product_attention call, every call on
     the next of 36 per-layer caches: as in a decoder forward, no cache is
-    still in L2 when it is read again."""
+    still in L2 when it is read again.  ``ms`` is the time of calls enqueued
+    one by one for every kernel; decode and verify are also timed replayed
+    from a CUDA graph (``graph_ms``), beside their launch floor; ``profile`` adds a
+    torch.profiler window over 36 calls of each (every device operation a
+    call makes) and the phases inside one launch (:func:`attention_phases`)."""
     import itertools
 
     import torch
 
+    from raglite_tpu_torch.ops import cuda_build
     from raglite_tpu_torch.ops import decode_attention as da
     from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
 
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
+    floor_fn = cuda_build.function("decode_attention", "rlt_gqa_decode_floor", [*[cuda_build.INT] * 5, cuda_build.VOID])
     kvh, rep, hd, layers = 4, 5, 128, 36
     heads, scale = kvh * rep, hd**-0.5
     cases = [
@@ -281,6 +439,7 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str) -
         ("gqa_verify_attention", 8, rag_s, rag_pos),
         ("gqa_prefill_attention", rag_t, rag_s, 0),
         ("gqa_decode_attention", 1, 8352, 8192 + 40),
+        ("gqa_verify_attention", 16, 8352, 8192),
         ("gqa_prefill_attention", 2048, 2208, 0),
     ]
     kernels = {
@@ -310,6 +469,13 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str) -
         want = da.gqa_attention_plain(q5, k0, v0, pos, scale=scale)
         err, share = _attention_check((name, t, s), kernels[name](q5, k0, v0, pos), want, q5, k0, v0, pos, scale=scale)
         lib_err = float((_sdpa(qh, k0, v0, mask).reshape(want.shape).float() - want).abs().max())
+        if name == "gqa_verify_attention":
+            # At the answer's own shapes too: every window row bit-equal to
+            # the decode kernel at pos0 + t.
+            got = kernels[name](q5, k0, v0, pos)
+            for i in range(t):
+                one = da.gqa_decode_attention(q5[:, :, :, i], k0, v0, pos + i, scale=scale)
+                assert torch.equal(got[:, :, :, i], one), ("verify != decode", t, s, p0, i)
         del want
         torch.cuda.empty_cache()
         ms = median_ms(kernel)
@@ -323,16 +489,37 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str) -
         moved = int(valid.max()) * kvh * hd * 2 * 2 + q5.numel() * 2 + q5.numel() * 4
         bound = {"bytes": moved / PEAK_BYTES_PER_S * 1e3, "operations": 4 * hd * pairs / PEAK_BF16_FLOPS * 1e3}
         bound_by = max(bound, key=bound.get)
+        entry = {
+            "name": name, "T": t, "S": s, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound[bound_by], "bound_by": bound_by, "max_abs_err": err,
+        }
+        floor_text = ""
+        if name != "gqa_prefill_attention":
+            # Decode and verify take microseconds, so the host's time to enqueue
+            # a call can exceed the kernel's and "ms" then reads the host: time
+            # them again replayed from a CUDA graph, and an empty kernel with
+            # the same grid, block and shared memory both ways (the launch floor).
+            def floor():
+                rc = floor_fn(1, kvh, rep * t, hd, s, torch.cuda.current_stream().cuda_stream)
+                assert rc == 0, f"rlt_gqa_decode_floor: cudaError {rc}"
+
+            entry["graph_ms"] = graph_ms(kernel)
+            entry["floor_ms"], entry["floor_graph_ms"] = median_ms(floor), graph_ms(floor)
+            floor_text = (
+                f"enqueued call by call, {entry['graph_ms']:.4f} ms replayed from a CUDA graph of 36 calls; "
+                f"launch floor (empty kernel, same grid and shared memory) {entry['floor_ms']:.4f} ms "
+                f"enqueued, {entry['floor_graph_ms']:.4f} ms from the graph; "
+            )
         log(
             f"timing {name} B=1 T={t} S={s} pos0={p0} (KVH {kvh}, REP {rep}, hd {hd}; {layers} rotating caches) "
-            f"on {card}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms "
+            f"on {card}: kernel {ms:.4f} ms, {floor_text}plain {plain_ms:.4f} ms, library (sdpa) {library_ms:.4f} ms "
             f"(max_abs_err vs plain {lib_err:.3g}), bound {bound[bound_by]:.4f} ms ({bound_by}); "
             f"max_abs_err {err}, share of limit {share:.4f}"
         )
-        out.append({
-            "name": name, "T": t, "S": s, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound[bound_by], "bound_by": bound_by, "max_abs_err": err,
-        })
+        out.append(entry)
+        if profile and name != "gqa_prefill_attention":
+            _profile_window(lambda: [kernel() for _ in range(layers)], f"{layers} {name} calls (T = {t}, S = {s})", card)
+            attention_phases(q5, caches[:4], caches[layers // 2], pos, scale, f"{name} (T = {t}, S = {s}, pos0 = {p0})", card)
         del caches, kernel, plain, library
         torch.cuda.empty_cache()
     return out
@@ -729,7 +916,8 @@ def main() -> int:
     parser.add_argument(
         "--profile", action="store_true",
         help="also trace 8 warm vector_search calls of each route, the large preset's "
-        "prefill and one decode chunk with torch.profiler",
+        "prefill, one decode chunk and 36 decode and verify attention calls with "
+        "torch.profiler, and print the phases inside one decode and one verify launch",
     )
     args = parser.parse_args()
 
@@ -821,7 +1009,7 @@ def main() -> int:
     launches.update(answer["launches"])
 
     # 7. Attention kernel timings at the `large` shapes.
-    timings += time_attention(args.seed, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card)
+    timings += time_attention(args.seed, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card, profile=args.profile)
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -840,6 +1028,9 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            # Beside the contract's keys: decode and verify replayed from a CUDA
+            # graph (their "ms" reads the host's enqueue time), else null.
+            "graph_ms": t.get("graph_ms"),
         })
     log(f"kernels: {json.dumps([k['name'] for k in kernels])} (scans at B=1, N={index_bf16.capacity}, "
         f"d={D}; decode and verify at S={answer['rag_s']}, prefill at T={answer['rag_t']}, S={answer['rag_s']})")

@@ -264,6 +264,9 @@ class DecoderModel:
         row_offsets = torch.as_tensor(cache_len, device=device).to(torch.int64)
         if row_offsets.ndim == 0:
             row_offsets = row_offsets.expand(b)
+        # The attention kernels read int32 positions: made once a forward, not
+        # once a layer.
+        attn_offsets = row_offsets.to(torch.int32).contiguous()
         steps = torch.arange(t, device=device)
         positions = row_offsets[:, None] + steps[None, :]  # [B, T]
         # KV write columns: the clamped start per row, then T consecutive slots.
@@ -302,11 +305,11 @@ class DecoderModel:
                 window=int(self.sliding_window if sliding else 0),
             )
             if t == 1:
-                ctx = gqa_decode_attention(qg[:, :, :, 0], k_cache, v_cache, row_offsets, **kw)[:, :, :, None]
+                ctx = gqa_decode_attention(qg[:, :, :, 0], k_cache, v_cache, attn_offsets, **kw)[:, :, :, None]
             elif t <= _VERIFY_KERNEL_MAX_T:
-                ctx = gqa_verify_attention(qg, k_cache, v_cache, row_offsets, **kw)
+                ctx = gqa_verify_attention(qg, k_cache, v_cache, attn_offsets, **kw)
             else:
-                ctx = gqa_prefill_attention(qg, k_cache, v_cache, row_offsets, **kw)
+                ctx = gqa_prefill_attention(qg, k_cache, v_cache, attn_offsets, **kw)
             ctx = ctx.reshape(b, heads, t, hd).transpose(1, 2).reshape(b, t, heads * hd).to(x.dtype)
             attn_out = ctx @ layer["wo"]
             if "post_attn_norm" in layer:

@@ -17,11 +17,18 @@ masked logits are -1e9 and the softmax runs over all of S.
 Both launch ``csrc/decode_attention.cu`` for CUDA tensors and take
 :func:`gqa_attention_plain` for CPU tensors, and nothing else: there is no
 fallback from the card to the plain version.  The kernel splits the sequence
+into 128-key splits (both products on the tensor cores), merges them in the
+same launch (eight splits to a chunk, then the chunks, in ascending order)
 and rounds unnormalised probabilities to bf16, the plain version normalised
-ones, so they agree to the limit of :func:`attention_tolerance`.
+ones, so they agree to the limit of :func:`attention_tolerance`.  A call is
+one kernel launch and one allocation (its output): the scratch and the
+merge's ticket counters are kept per device and stream (:func:`_scratch_for`
+says what that asks of a captured CUDA graph).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -52,8 +59,15 @@ TOL_SIGMAS = 8.0
 #: the plain versions).
 launch_counts = {"gqa_decode_attention": 0, "gqa_verify_attention": 0}
 
-_DECODE = ("decode_attention", "rlt_gqa_decode", [*[VOID] * 4, *[INT] * 6, FLOAT, FLOAT, INT, *[VOID] * 3])
+_DECODE = ("decode_attention", "rlt_gqa_decode", [*[VOID] * 4, *[INT] * 6, FLOAT, FLOAT, INT, *[VOID] * 4])
 _DECODE_SCRATCH = ("decode_attention", "rlt_gqa_decode_scratch", [INT] * 5, LONG)
+_DECODE_COUNTERS = ("decode_attention", "rlt_gqa_decode_counters", [INT] * 3, LONG)
+#: Head widths the kernel is built for (register-resident Q fragments, the
+#: output dims split over the block's warps).
+HEAD_DIMS = (32, 64, 128, 256)
+#: Scratch and ticket counters per (device index, CUDA stream): the last pair
+#: of a list is in use; the pairs it outgrew stay alive before it.
+_scratch: dict[tuple[int, int], list[tuple[torch.Tensor, torch.Tensor]]] = {}
 
 
 def reset_launch_counts() -> None:
@@ -141,7 +155,8 @@ def attention_tolerance(
 def check_operands(name, q, k_cache, v_cache, positions) -> tuple[torch.Tensor, torch.Tensor]:
     """The operands of an attention kernel, checked: a contiguous bf16 cache
     [B, KVH, hd, S] on CUDA for q [B, KVH, REP, T, hd] and positions [B] on
-    its device.  Returns (q as contiguous bf16, positions as int32)."""
+    its device.  Returns (q as contiguous bf16, positions as int32): the
+    tensors themselves, without a copy, where they already are that."""
     if k_cache.device.type != "cuda" or k_cache.dtype != torch.bfloat16:
         msg = f"{name}: the kernel takes a bf16 cache on CUDA, got {k_cache.dtype} on {k_cache.device}"
         raise ValueError(msg)
@@ -155,6 +170,8 @@ def check_operands(name, q, k_cache, v_cache, positions) -> tuple[torch.Tensor, 
             msg = f"{name}: the cache must be contiguous on {k_cache.device}"
             raise ValueError(msg)
     qb = q.to(torch.bfloat16).contiguous()
+    if qb.data_ptr() % 16:  # the kernels copy q in 16-byte pieces
+        qb = qb.clone()
     pos = positions.to(device=k_cache.device, dtype=torch.int32).contiguous()
     if qb.device != k_cache.device or pos.shape != (b,):
         msg = f"{name}: q and positions [{b}] must lie on {k_cache.device}"
@@ -162,25 +179,60 @@ def check_operands(name, q, k_cache, v_cache, positions) -> tuple[torch.Tensor, 
     return qb, pos
 
 
-def _launch(name, q, k_cache, v_cache, positions, scale, softcap, window) -> torch.Tensor:
+@functools.lru_cache(maxsize=1024)
+def _scratch_sizes(b: int, kvh: int, rows: int, hd: int, s: int) -> tuple[int, int]:
+    """What one call needs: (scratch floats, ticket counters), asked of the
+    library once per shape."""
+    floats = cuda_build.function(*_DECODE_SCRATCH)(b, kvh, rows, hd, s)
+    return floats, cuda_build.function(*_DECODE_COUNTERS)(b, kvh, s)
+
+
+def _scratch_for(device: torch.device, floats: int, counters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scratch (f32, contents arbitrary) and the ticket counters (int32,
+    zero between launches) of ``device``'s current stream, kept from call to
+    call.  Launches of one stream run in order, so they may share both; the
+    kernel leaves every counter zero.  A call that needs more gets a larger
+    pair, and the pair it outgrew is kept, never freed: a CUDA graph captured
+    earlier holds its addresses.  Such a graph owns the pair of its capture
+    stream; it must not run at the same time as another graph captured on
+    that stream or as eager calls on it (they would share the counters).
+    Entries live as long as the process: a stream's handle is all that
+    names it."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    pairs = _scratch.setdefault(key, [])
+    if not pairs or pairs[-1][0].numel() < floats or pairs[-1][1].numel() < counters:
+        held = pairs[-1] if pairs else None
+        pairs.append((
+            torch.empty(max(floats, held[0].numel() if held else 0), dtype=torch.float32, device=device),
+            torch.zeros(max(counters, held[1].numel() if held else 0), dtype=torch.int32, device=device),
+        ))
+    return pairs[-1]
+
+
+def _launch(name, q, k_cache, v_cache, positions, out, scale, softcap, window) -> torch.Tensor:
     """Launch ``rlt_gqa_decode`` (:func:`cuda_build.launch`) on checked
-    operands.  q: [B, KVH, REP, T, hd]."""
+    operands into ``out`` (contiguous f32, [B, KVH, REP, T, hd] in memory
+    order).  q: [B, KVH, REP, T, hd].  One kernel launch and no other device
+    work: bf16 q and int32 positions on the cache's device are taken as they
+    are, and the scratch is the stream's own."""
     qb, pos = check_operands(name, q, k_cache, v_cache, positions)
     b, kvh, rep, t, hd = q.shape
     s = k_cache.shape[3]
-    if hd % 8 or hd > 256:
-        msg = f"{name}: head_dim {hd} must be a multiple of 8 and at most 256"
+    if hd not in HEAD_DIMS:
+        msg = f"{name}: head_dim {hd} not in {HEAD_DIMS}"
         raise ValueError(msg)
     rows = rep * t
-    out = torch.empty((b, kvh, rep, t, hd), dtype=torch.float32, device=k_cache.device)
-    size = cuda_build.function(*_DECODE_SCRATCH)(b, kvh, rows, hd, s)
-    scratch = torch.empty(max(size, 1), dtype=torch.float32, device=k_cache.device)
+    scratch, counters = _scratch_for(k_cache.device, *_scratch_sizes(b, kvh, rows, hd, s))
     args = [
         qb.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
         b, kvh, rows, t, hd, s, float(scale), float(softcap), int(window),
-        out.data_ptr(), scratch.data_ptr(),
+        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
     ]
-    cuda_build.launch(launch_counts, name, cuda_build.function(*_DECODE), args, k_cache.device)
+    try:
+        cuda_build.launch(launch_counts, name, cuda_build.function(*_DECODE), args, k_cache.device)
+    except RuntimeError:
+        counters.zero_()  # a launch that did not run to its end may leave tickets behind
+        raise
     return out
 
 
@@ -199,10 +251,9 @@ def gqa_decode_attention(
     :func:`gqa_attention_plain`."""
     q5 = q[:, :, :, None, :]
     if k_cache.device.type == "cpu":
-        out = gqa_attention_plain(q5, k_cache, v_cache, positions, scale=scale, softcap=softcap, window=window)
-    else:
-        out = _launch("gqa_decode_attention", q5, k_cache, v_cache, positions, scale, softcap, window)
-    return out[:, :, :, 0, :]
+        return gqa_attention_plain(q5, k_cache, v_cache, positions, scale=scale, softcap=softcap, window=window)[:, :, :, 0, :]
+    out = torch.empty(q.shape, dtype=torch.float32, device=k_cache.device)  # the call's one allocation
+    return _launch("gqa_decode_attention", q5, k_cache, v_cache, positions, out, scale, softcap, window)
 
 
 def gqa_verify_attention(
@@ -222,4 +273,5 @@ def gqa_verify_attention(
     :func:`gqa_attention_plain`."""
     if k_cache.device.type == "cpu":
         return gqa_attention_plain(q, k_cache, v_cache, positions, scale=scale, softcap=softcap, window=window)
-    return _launch("gqa_verify_attention", q, k_cache, v_cache, positions, scale, softcap, window)
+    out = torch.empty(q.shape, dtype=torch.float32, device=k_cache.device)  # the call's one allocation
+    return _launch("gqa_verify_attention", q, k_cache, v_cache, positions, out, scale, softcap, window)

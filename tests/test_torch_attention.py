@@ -113,36 +113,81 @@ def test_wrappers_refuse_other_devices(which: str) -> None:
         fn()
 
 
-def _split_rounding(q, k, v, pos, *, scale, softcap, split=128, drop=None):
-    """The CUDA decode kernel's arithmetic on the CPU (f32, bf16 caches):
-    per 128-key split, bf16(exp(logit - m_split)) @ v and its sum of
-    exp, merged with weights exp(m_split - M); ``drop`` zeroes one split's
-    weight, a fault the tolerance must catch."""
-    probs_args = dict(scale=scale, softcap=softcap)
-    # log-probabilities are the logits less a constant per row; masked keys
-    # return to -1e9, as the kernel masks them.
-    logits = torch.log(da.gqa_attention_probs_plain(q, k, pos, **probs_args)).clamp(min=-1e9)
-    vf = v.to(torch.float32)
-    ms, ls, accs = [], [], []
-    for s0 in range(0, k.shape[3], split):
+def _f32_of_f64(fn, x):
+    """An f32 function evaluated in f64 and rounded: the result of an element
+    then does not depend on where it sits in the tensor (vectorised CPU loops
+    may round a tail element otherwise)."""
+    return fn(x.double()).float()
+
+
+def _merge(ms, ls, accs, live, drop=None):
+    """One level of the kernel's merge tree, in ascending entry order: the
+    entries' (m, l, unnormalised context) with weights exp(m - M) over the
+    live entries; returns the merged (M, L, context).  ``drop`` zeroes one
+    entry's weight, a fault the tolerance must catch."""
+    m = torch.stack([torch.where(lv, x, -torch.inf) for x, lv in zip(ms, live)], -1)
+    big = m.amax(dim=-1)
+    total, acc = torch.zeros_like(big), torch.zeros_like(accs[0])
+    for j, (l, a) in enumerate(zip(ls, accs)):
+        w = torch.where(live[j], _f32_of_f64(torch.exp, m[..., j] - big), 0.0)
+        if j == drop:
+            w = torch.zeros_like(w)
+        total = total + w * l
+        acc = acc + w[..., None] * torch.where(live[j][..., None], a, 0.0)
+    return big, total, acc
+
+
+def _split_rounding(q, k, v, pos, *, scale, softcap, window=0, split=128, chunk=8, drop=None, drop_chunk=None):
+    """The CUDA decode/verify kernel's arithmetic on the CPU (bf16 caches):
+    per 128-key split, f32 logits, bf16(exp(logit - m_split)) @ v and the f32
+    sum of exp; the splits of a chunk of 8 merged in ascending order with
+    weights exp(m_split - M_chunk), then the chunks likewise, then one
+    division.  A row skips the splits and chunks none of whose keys it can
+    see.  Products are taken in f64 and rounded to f32 (the tensor cores'
+    f32 accumulation, up to summation order).  q: [B, G, R, T, hd]."""
+    t, s = q.shape[3], k.shape[3]
+    qf, kf, vf = (x.to(torch.bfloat16).double() for x in (q, k, v))
+    logits = torch.einsum("bgrtd,bgds->bgrts", qf, kf).float() * scale
+    if softcap:
+        logits = softcap * _f32_of_f64(torch.tanh, logits / softcap)
+    key = torch.arange(s)
+    p = (pos.to(torch.int64)[:, None] + torch.arange(t))[:, None, None, :, None]  # [B, 1, 1, T, 1]
+    ok = key <= p
+    lo = torch.zeros_like(p)
+    if window:
+        ok = ok & (key > p - window)
+        lo = (p - window + 1).clamp(min=0)
+    hi = p.clamp(max=s - 1)
+    logits = torch.where(ok, logits, -1e9)
+
+    def live(k0, k1):  # [B, 1, 1, T] -> broadcast over groups and heads
+        return ((lo > hi) | ((k0 <= hi) & (k1 >= lo)))[..., 0].expand(logits.shape[:-1])
+
+    parts = []
+    for s0 in range(0, s, split):
         x = logits[..., s0 : s0 + split]
-        m = x.amax(dim=-1, keepdim=True)
-        e = torch.exp(x - m)
-        ms.append(m[..., 0])
-        ls.append(e.sum(dim=-1))
-        accs.append(torch.einsum("bgrts,bgds->bgrtd", e.to(torch.bfloat16).float(), vf[..., s0 : s0 + split]))
-    m = torch.stack(ms, -1)
-    w = torch.exp(m - m.amax(dim=-1, keepdim=True))
-    if drop is not None:
-        w[..., drop] = 0.0
-    total = (w * torch.stack(ls, -1)).sum(dim=-1)
-    return (w[..., None] * torch.stack(accs, -2)).sum(dim=-2) / total[..., None]
+        m = x.amax(dim=-1)
+        e = _f32_of_f64(torch.exp, x - m[..., None])
+        acc = torch.einsum("bgrts,bgds->bgrtd", e.to(torch.bfloat16).double(), vf[..., s0 : s0 + split]).float()
+        parts.append((m, e.double().sum(dim=-1).float(), acc, live(s0, min(s0 + split, s) - 1)))
+    chunks = []
+    for c0 in range(0, len(parts), chunk):
+        group = parts[c0 : c0 + chunk]
+        ms, ls, accs, lives = zip(*group)
+        inner = drop - c0 if drop is not None and c0 <= drop < c0 + chunk else None
+        k0, k1 = c0 * split, min((c0 + len(group)) * split, s) - 1
+        chunks.append((*_merge(ms, ls, accs, lives, inner), live(k0, k1)))
+    ms, ls, accs, lives = zip(*chunks)
+    _, total, acc = _merge(ms, ls, accs, lives, drop_chunk)
+    return acc / total[..., None]
 
 
 @pytest.mark.parametrize(("s", "pos", "softcap"), [(2208, 1234, 0.0), (2208, 2000, 30.0), (1003, 700, 50.0)])
-def test_tolerance_separates_split_rounding_from_a_dropped_split(s: int, pos: int, softcap: float) -> None:
-    """attention_tolerance holds the split kernel's rounding against the
-    plain version, and is exceeded once a live split is dropped."""
+@pytest.mark.parametrize("fault", ["split", "chunk"])
+def test_tolerance_separates_split_rounding_from_a_dropped_split(s: int, pos: int, softcap: float, fault: str) -> None:
+    """attention_tolerance holds the split kernel's rounding and two-level
+    merge against the plain version, and is exceeded once a live split, or a
+    live chunk's partial, is dropped."""
     rng = np.random.default_rng(s + pos)
     b, g, r, hd = 1, 2, 5, 128
     q = torch.from_numpy(rng.standard_normal((b, g, r, 1, hd)).astype(np.float32)).to(torch.bfloat16)
@@ -152,5 +197,50 @@ def test_tolerance_separates_split_rounding_from_a_dropped_split(s: int, pos: in
     want = da.gqa_attention_plain(q, k, v, p, **kw)
     limit = da.attention_tolerance(q, k, v, p, **kw)
     assert ((_split_rounding(q, k, v, p, **kw) - want).abs() <= limit).all()
-    dropped = _split_rounding(q, k, v, p, **kw, drop=0)
+    dropped = _split_rounding(q, k, v, p, **kw, **({"drop": 0} if fault == "split" else {"drop_chunk": 0}))
     assert not ((dropped - want).abs() <= limit).all()
+
+
+@pytest.mark.parametrize(("softcap", "window"), [(0.0, 0), (50.0, 0), (0.0, 300), (30.0, 40)])
+@pytest.mark.parametrize(("s", "pos0"), [(1100, 1000), (1100, 0), (300, 292)])
+def test_emulated_verify_window_equals_decode_steps(softcap: float, window: int, s: int, pos0: int) -> None:
+    """The property the kernel's design must keep: a T = 8 window computed
+    together equals eight T = 1 calls at pos0 + t exactly, because split and
+    chunk boundaries depend on S only and a row's mask, max, sum and merge
+    weights on its own position only.  It also stays within the tolerance of
+    the plain version, windows and rows near position 0 included."""
+    rng = np.random.default_rng(s + pos0 + window)
+    b, g, r, t, hd = 2, 2, 3, 8, 32
+    q = torch.from_numpy(rng.standard_normal((b, g, r, t, hd)).astype(np.float32)).to(torch.bfloat16)
+    k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in _cache(rng, b, g, hd, s))
+    p = torch.tensor([pos0, max(pos0 - 5, 0)], dtype=torch.int32)
+    kw = dict(scale=hd**-0.5, softcap=softcap, window=window)
+    got = _split_rounding(q, k, v, p, **kw)
+    for i in range(t):
+        one = _split_rounding(q[:, :, :, i : i + 1], k, v, p + i, **kw)
+        assert torch.equal(got[:, :, :, i : i + 1], one), i
+    want = da.gqa_attention_plain(q, k, v, p, **kw)
+    assert ((got - want).abs() <= da.attention_tolerance(q, k, v, p, **kw)).all()
+
+
+def test_outgrown_scratch_stays_alive(monkeypatch: pytest.MonkeyPatch) -> None:
+    """A call that needs more scratch gets a larger pair, and the pair it
+    outgrew is kept (a CUDA graph captured earlier holds its addresses); a
+    smaller call reuses the larger pair, and another stream has its own."""
+
+    class _Stream:
+        def __init__(self, handle: int) -> None:
+            self.cuda_stream = handle
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(da, "_scratch", {})
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream(7))
+    small = da._scratch_for(cpu, 10, 2)
+    addresses = (small[0].data_ptr(), small[1].data_ptr())
+    large = da._scratch_for(cpu, 100, 1)
+    assert large[0].numel() == 100 and large[1].numel() == 2 and not large[1].any()
+    assert da._scratch_for(cpu, 10, 2) is large
+    (kept, current), = da._scratch.values()
+    assert (kept[0].data_ptr(), kept[1].data_ptr()) == addresses and current is large
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: _Stream(8))
+    assert da._scratch_for(cpu, 10, 2) is not large and len(da._scratch) == 2

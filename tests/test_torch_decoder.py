@@ -117,6 +117,30 @@ def test_forward_logits_match_jax(which: str, jax_llm) -> None:
             np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("t", [1, 8, 24])
+def test_forward_takes_int32_and_int64_offsets_alike(t: int, torch_llm) -> None:
+    """The forward makes the attention kernels' int32 positions itself, once:
+    int32 and int64 ``cache_len`` give the same logits and the same cache, at
+    T = 1 (decode), 8 (verify) and 24 (prefill)."""
+    model, params = torch_llm.model, torch_llm.params
+    rng = np.random.default_rng(t)
+    ids = torch.from_numpy(rng.integers(3, 259, (2, t)))
+    offsets = np.array([5, 17])
+    logits, caches = [], []
+    for dtype in (torch.int32, torch.int64):
+        cache = model.init_cache(2, 48, dtype=torch.float32)
+        for name in ("k", "v"):
+            for layer in cache[name]:
+                layer.copy_(torch.from_numpy(np.random.default_rng(7).standard_normal(layer.shape).astype(np.float32)))
+        out, cache = model.forward(params, ids, cache, torch.as_tensor(offsets, dtype=dtype))
+        logits.append(out)
+        caches.append(cache)
+    assert torch.equal(logits[0], logits[1])
+    for name in ("k", "v"):
+        for a, b in zip(caches[0][name], caches[1][name]):
+            assert torch.equal(a, b)
+
+
 def test_prefill_last_matches_jax(jax_llm, torch_llm) -> None:
     """The generation prefill (bf16 cache, last-position logits only).
     Tolerance 2e-3: keys, values and probabilities are rounded to bf16 (a
