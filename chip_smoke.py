@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval and answer path once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -18,10 +18,13 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    verify at T in {2, 8, 16}, every row bit-equal to a decode call at
    pos0 + t; back-to-back calls with different S on one stream, which share
    the kernel's scratch and counters; a window at the end of a 34,824-key
-   cache; prefill at T in {24, 64, 2048} with
-   nonzero offsets, S a multiple of 8 and not), each output within
-   attention_tolerance (the smaller of a sound and a statistical bound on
-   bf16 probability rounding).
+   cache; prefill at the same (KVH, REP, hd) and at (2, 9, 64) and (1, 130,
+   32), T in {24, 64, 333, 2048} with nonzero offsets, S a multiple of 8
+   (tiles by TMA, and once more staged by threads) and not (staged), whole
+   key tiles skipped below a window, a negative offset beside a positive
+   one, back-to-back calls on caches of different S, and the RAG prompt's
+   own T = 8192 at S = 8352), each output within attention_tolerance (the
+   smaller of a sound and a statistical bound on bf16 probability rounding).
 3. Serve with the default config (packaged 8-layer d=768 encoder, bf16
    rows, ":memory:" store): insert the repo's README, SURVEY, MIGRATION and
    PARITY documents, add seeded unit-vector background chunks until the
@@ -53,7 +56,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    ("ms") is that of calls enqueued one by one; decode and verify are timed
    once more replayed from a CUDA graph of 36 calls ("graph_ms": the device's
    time without the host's), each beside an empty kernel launched with the
-   same grid and shared memory (the launch floor).
+   same grid and shared memory (the launch floor); prefill is timed once more
+   with its tiles staged by threads, and its TFLOP/s printed beside the bound.
+``--only prefill`` is a partial run for work on that kernel (its checks of
+phase 2b and its rows of phase 7; no result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -227,15 +233,15 @@ def _cache(g, b, kvh, hd, s):
     return k, v
 
 
-def check_attention_kernels(seed: int) -> dict[str, float]:
+def check_attention_kernels(seed: int, *, prefill_only: bool = False) -> dict[str, float]:
     """Phase 2b: the three attention kernels against their plain versions
     on the card (bf16 caches, ragged S, per-row positions, soft-cap and
     window on and off), and every verify row against a decode call at
-    ``pos0 + t``, bit for bit.  Returns the max abs error per kernel."""
+    ``pos0 + t``, bit for bit.  Returns the max abs error per kernel.
+    ``prefill_only`` leaves out decode and verify."""
     import torch
 
     from raglite_tpu_torch.ops import decode_attention as da
-    from raglite_tpu_torch.ops.prefill_attention import HEAD_DIMS, gqa_prefill_attention
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     errs = {"gqa_decode_attention": 0.0, "gqa_verify_attention": 0.0, "gqa_prefill_attention": 0.0}
@@ -245,8 +251,6 @@ def check_attention_kernels(seed: int) -> dict[str, float]:
         err, share = _attention_check(what, got, want, q, k, v, offsets, **kw)
         errs[name], shares[name] = max(errs[name], err), max(shares[name], share)
 
-    knobs = ((0.0, 0), (50.0, 0), (0.0, 512), (30.0, 300))
-
     def first_positions(kind, batch, s, t):
         """The first window position per row.  "spread": rows far apart;
         "edges": position 0 and a window that ends on the cache's last key
@@ -254,14 +258,13 @@ def check_attention_kernels(seed: int) -> dict[str, float]:
         rows = [1234, 0, 700, s - 17] if kind == "spread" else [0, s - t, 1, s - t - 1]
         return torch.tensor(rows[:batch], device="cuda", dtype=torch.int32)
 
-    # hd = 256 is the widest head the decode kernel is built for (the prefill
-    # kernel stops at 128); REP 5 at T = 16 is 80 rows (five row tiles), REP 1
-    # at T = 1 a tile with 15 padded rows.
-    for kvh, rep, hd in ((4, 5, 128), (2, 1, 64), (2, 4, 32), (1, 2, 256)):
+    # hd = 256 is the widest head the kernels are built for; REP 5 at T = 16
+    # is 80 rows (five row tiles), REP 1 at T = 1 a tile with 15 padded rows.
+    for kvh, rep, hd in () if prefill_only else ((4, 5, 128), (2, 1, 64), (2, 4, 32), (1, 2, 256)):
         scale = hd**-0.5
         for batch, s, kind in ((1, 2208, "spread"), (4, 2208, "spread"), (4, 1003, "spread"), (4, 2208, "edges"), (4, 1003, "edges")):
             k, v = _cache(g, batch, kvh, hd, s)
-            for softcap, window in knobs:
+            for softcap, window in KNOBS:
                 kw = dict(scale=scale, softcap=softcap, window=window)
                 what = (kvh, rep, hd, batch, s, kind, softcap, window)
                 # Decode.
@@ -309,24 +312,88 @@ def check_attention_kernels(seed: int) -> dict[str, float]:
             assert torch.equal(got[:, :, :, i], one), ("verify != decode", kvh, rep, hd, s, i)
         check("gqa_verify_attention", ("long cache", kvh, rep, hd, s), got, da.gqa_attention_plain(qv, k, v, pos, **kw), qv, k, v, pos, **kw)
         log(f"attention check KVH={kvh} REP={rep} hd={hd} B=1 S={s}: verify T=16 at the cache's end ok (rows bit-equal to decode)")
-        if hd not in HEAD_DIMS:
-            continue
-        # Prefill: T in {24, 64, 2048} at nonzero offsets (T = 24 is a verify
-        # window wider than 16); S = T + 160 leaves room for the offsets, and
-        # S = T + 163 (not a multiple of 8) takes the kernel's scalar staging.
-        for batch, t, s in ((2, 24, 184), (2, 64, 227), (1, 2048, 2208), (2, 2048, 2211)):
-            k, v = _cache(g, batch, kvh, hd, s)
-            off = torch.tensor([160, 37][:batch], device="cuda", dtype=torch.int32)
-            q = torch.randn((batch, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
-            for softcap, window in knobs:
-                kw = dict(scale=scale, softcap=softcap, window=window)
-                got = gqa_prefill_attention(q, k, v, off, **kw)
-                want = da.gqa_attention_plain(q, k, v, off, **kw)
-                check("gqa_prefill_attention", ("prefill", kvh, rep, hd, batch, t, s, softcap, window), got, want, q, k, v, off, **kw)
-                del want
-            log(f"attention check prefill KVH={kvh} REP={rep} hd={hd} B={batch} T={t} S={s}: ok, "
-                f"max_abs_err so far {errs['gqa_prefill_attention']}, share of limit {shares['gqa_prefill_attention']:.4f}")
+    # Prefill at the same shapes; REP 9 (18 query heads on 2 KV heads: 14
+    # positions a tile, two rows unused); REP 130 (one position a tile, the
+    # heads in two chunks).
+    for kvh, rep, hd in ((4, 5, 128), (2, 1, 64), (2, 4, 32), (1, 2, 256), (2, 9, 64), (1, 130, 32)):
+        check_prefill_kernel(g, check, kvh, rep, hd)
+        log(f"attention check prefill KVH={kvh} REP={rep} hd={hd}: ok, max_abs_err so far "
+            f"{errs['gqa_prefill_attention']}, share of limit {shares['gqa_prefill_attention']:.4f}")
     return errs
+
+
+#: (softcap, window) pairs every attention check runs.
+KNOBS = ((0.0, 0), (50.0, 0), (0.0, 512), (30.0, 300))
+
+
+def _prefill_staged(q, k, v, off, *, scale: float, softcap: float = 0.0, window: int = 0):
+    """The prefill kernel with its tiles staged by the producer's threads
+    whatever S is (``rlt_gqa_prefill_staged``; a measurement's entry, which
+    the package never calls): the path S % 8 != 0 takes, at any S."""
+    import torch
+
+    from raglite_tpu_torch.ops import cuda_build
+    from raglite_tpu_torch.ops import prefill_attention as pa
+
+    fn = cuda_build.function("prefill_attention", "rlt_gqa_prefill_staged", pa._PREFILL[2])
+    b, kvh, rep, t, hd = q.shape
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(), b, kvh, rep, t, hd, k.shape[3],
+        float(scale), float(softcap), int(window), out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+    )
+    assert rc == 0, f"rlt_gqa_prefill_staged: cudaError {rc}"
+    return out
+
+
+def check_prefill_kernel(g, check, kvh: int, rep: int, hd: int) -> None:
+    """Phase 2b, prefill: the kernel against its plain version at one (KVH,
+    REP, hd).  T in {24, 64, 2048} at nonzero offsets (T = 24 is a verify
+    window wider than 16, one tile of rows); S = T + 160 leaves room for the
+    offsets and takes the TMA path, S = T + 163 (not a multiple of 8) the
+    staged one; T = 333 (no multiple of a tile's positions) at offsets that
+    leave whole key tiles skipped below the windows; a negative offset (rows
+    with no valid key: the uniform softmax) beside a positive one; two calls
+    back to back on caches of different shapes; the staged path at an S that
+    TMA takes; at the `large` preset's (4, 5, 128) the RAG prompt's own T
+    8,192 at S 8,352."""
+    import torch
+
+    from raglite_tpu_torch.ops import decode_attention as da
+    from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
+
+    scale = hd**-0.5
+    cases = [
+        (2, 24, 184, [160, 37]), (2, 64, 227, [160, 37]), (1, 2048, 2208, [160]), (2, 2048, 2211, [160, 37]),
+        (2, 333, 2208, [1500, 900]), (2, 333, 2211, [1500, 900]), (2, 64, 184, [-5, 40]), (2, 64, 187, [-70, 123]),
+    ]
+    if (kvh, rep, hd) == (4, 5, 128):
+        cases.append((1, 8192, 8352, [0]))
+    for batch, t, s, offsets in cases:
+        k, v = _cache(g, batch, kvh, hd, s)
+        off = torch.tensor(offsets, device="cuda", dtype=torch.int32)
+        q = torch.randn((batch, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
+        for softcap, window in KNOBS if t < 8192 else KNOBS[:1]:
+            kw = dict(scale=scale, softcap=softcap, window=window)
+            what = ("prefill", kvh, rep, hd, batch, t, s, tuple(offsets), softcap, window)
+            want = da.gqa_attention_plain(q, k, v, off, **kw)
+            check("gqa_prefill_attention", what, gqa_prefill_attention(q, k, v, off, **kw), want, q, k, v, off, **kw)
+            if s % 8 == 0 and t <= 2048:
+                check("gqa_prefill_attention", ("staged", *what), _prefill_staged(q, k, v, off, **kw), want, q, k, v, off, **kw)
+            del want
+        log(f"attention check prefill KVH={kvh} REP={rep} hd={hd} B={batch} T={t} S={s} offsets {offsets}: ok "
+            f"({'TMA and staged tiles' if s % 8 == 0 else 'staged tiles'})")
+    # Back to back on one stream, nothing synchronised between: caches of
+    # different S behind each other (each its own tensor map), checked after.
+    kw = dict(scale=scale, softcap=0.0, window=0)
+    queued = []
+    for s in (264, 1008, 264):
+        k, v = _cache(g, 1, kvh, hd, s)
+        off = torch.tensor([s - 100], device="cuda", dtype=torch.int32)
+        q = torch.randn((1, kvh, rep, 100, hd), generator=g, device="cuda").to(torch.bfloat16)
+        queued.append((q, k, v, off, gqa_prefill_attention(q, k, v, off, **kw)))
+    for q, k, v, off, got in queued:
+        check("gqa_prefill_attention", ("back to back", kvh, rep, hd, k.shape[3]), got, da.gqa_attention_plain(q, k, v, off, **kw), q, k, v, off, **kw)
 
 
 def _sdpa(q, k, v, mask):
@@ -409,7 +476,81 @@ def attention_phases(q5, warm, cache, pos, scale: float, what: str, card: str) -
         f"median / latest over the blocks that reached the point: " + "; ".join(parts))
 
 
-def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *, profile: bool = False) -> list[dict]:
+@functools.lru_cache(maxsize=None)
+def _stamped_prefill_library():
+    """``csrc/prefill_attention.cu`` compiled a second time with -DRLT_STAMPS
+    into this script's own directory (the package builds and loads the plain
+    kernel only).  Returns (launcher, stamp reader), bound with ctypes."""
+    import ctypes
+    import shutil
+
+    from raglite_tpu_torch.ops import cuda_build
+    from raglite_tpu_torch.ops import prefill_attention as pa
+
+    out = cuda_build.BUILD_DIR / "chip_smoke" / "libprefill_attention_stamps.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    source = cuda_build.CSRC / "prefill_attention.cu"
+    subprocess.run([nvcc, *cuda_build.NVCC_FLAGS, "-DRLT_STAMPS", "-o", str(out), str(source)], check=True, capture_output=True, timeout=900)
+    lib = ctypes.CDLL(str(out))
+    lib.rlt_gqa_prefill.argtypes = pa._PREFILL[2]
+    lib.rlt_gqa_prefill_stamps.argtypes = [ctypes.c_void_p]
+    return lib.rlt_gqa_prefill, lib.rlt_gqa_prefill_stamps
+
+
+def prefill_phases(q5, warm, cache, pos, scale: float, what: str, card: str) -> None:
+    """``--profile``: where one prefill launch spends its time.  In the
+    kernel's -DRLT_STAMPS build every block notes the card's nanosecond timer
+    at its start, when its first K tile has landed and at its end, and sums
+    the SM clocks one consumer warpgroup spends waiting for tiles, waiting
+    for its own products, queueing them and in the softmax, the clocks of the
+    whole block, and the clocks the producer waits for an empty stage.
+    Launches on the ``warm`` caches load the code and push ``cache`` out of
+    L2; then one launch on ``cache`` is read back."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.ops import decode_attention as da
+
+    launch, read = _stamped_prefill_library()
+    b, kvh, rep, t, hd = q5.shape
+    s = cache[0].shape[3]
+    out = torch.empty(q5.shape, dtype=torch.float32, device="cuda")
+    host = np.zeros((10, 4096), np.uint64)
+    for cache_k, cache_v in (*warm, cache):
+        rc = launch(
+            q5.data_ptr(), cache_k.data_ptr(), cache_v.data_ptr(), pos.data_ptr(), b, kvh, rep, t, hd, s,
+            float(scale), 0.0, 0, out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+        assert rc == 0, f"rlt_gqa_prefill (stamped): cudaError {rc}"
+        torch.cuda.synchronize()
+        assert read(host.ctypes.data) == 0
+    want = da.gqa_attention_plain(q5, *cache, pos, scale=scale)
+    _attention_check(("stamped prefill", t, s), out, want, q5, *cache, pos, scale=scale)
+    del want
+    start, first_tile, end, tiles, wait_tile, product, softmax, producer_wait, queueing, block_clocks = host.astype(np.float64)
+    ran = end > 0
+    blocks = int(ran.sum())
+    t0 = start[ran].min()
+    ends = np.sort(end[ran] - t0) / 1e3
+    total_tiles = tiles[ran].sum()
+    clocks = {
+        "waiting for a K or V tile": wait_tile[ran].sum(), "queueing its wgmma": queueing[ran].sum(),
+        "waiting for its own products": product[ran].sum(), "softmax, scaling and packing": softmax[ran].sum(),
+        "all of the block": block_clocks[ran].sum(), "producer waiting for an empty stage": producer_wait[ran].sum(),
+    }
+    ghz = block_clocks[ran].sum() / (end - start)[ran].sum()
+    log(f"phases of one {what} launch on {card}: {blocks} blocks noted (of the first 4096), {int(total_tiles)} key tiles; "
+        f"first K tile landed {np.median((first_tile - start)[ran]) / 1e3:.2f} us after a block's start (median; latest "
+        f"{((first_tile - start)[ran]).max() / 1e3:.2f}); a block lasts {np.median((end - start)[ran]) / 1e3:.2f} us (median; "
+        f"longest {((end - start)[ran]).max() / 1e3:.2f}); blocks end at {ends[0]:.1f} (first), {np.median(ends):.1f} (median), "
+        f"{ends[int(0.9 * (blocks - 1))]:.1f} (90 %), {ends[-1]:.1f} us (last) after the first block's start; SM clocks a "
+        f"key tile (the SM ran at {ghz:.3f} GHz), one consumer warpgroup: " + ", ".join(f"{k} {v / total_tiles:.0f}" for k, v in clocks.items()))
+
+
+def time_attention(
+    seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *, profile: bool = False, only: str | None = None
+) -> list[dict]:
     """Phase 7: each attention kernel at the ``large`` preset's shapes (B=1,
     KVH=4, REP=5, hd=128), first at the RAG answer's own (decode and verify
     at its S and position, prefill at its prompt bucket ``rag_t`` and S),
@@ -419,9 +560,13 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *
     the next of 36 per-layer caches: as in a decoder forward, no cache is
     still in L2 when it is read again.  ``ms`` is the time of calls enqueued
     one by one for every kernel; decode and verify are also timed replayed
-    from a CUDA graph (``graph_ms``), beside their launch floor; ``profile`` adds a
-    torch.profiler window over 36 calls of each (every device operation a
-    call makes) and the phases inside one launch (:func:`attention_phases`)."""
+    from a CUDA graph (``graph_ms``), beside their launch floor; prefill is
+    timed once more with its tiles staged by threads (``staged_ms``: what TMA
+    buys) and its rate in TFLOP/s is printed beside the bound's.  ``profile``
+    adds a torch.profiler window over 36 calls of each (every device
+    operation a call makes) and the phases inside one launch
+    (:func:`attention_phases`, :func:`prefill_phases`).  ``only`` keeps the
+    cases of one kernel."""
     import itertools
 
     import torch
@@ -449,6 +594,8 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *
     }
     out = []
     for name, t, s, p0 in cases:
+        if only not in (None, name):
+            continue
         caches = [_cache(g, 1, kvh, hd, s) for _ in range(layers)]
         pos = torch.tensor([p0], device="cuda", dtype=torch.int32)
         q5 = torch.randn((1, kvh, rep, t, hd), generator=g, device="cuda").to(torch.bfloat16)
@@ -494,7 +641,16 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *
             "bound_ms": bound[bound_by], "bound_by": bound_by, "max_abs_err": err,
         }
         floor_text = ""
-        if name != "gqa_prefill_attention":
+        if name == "gqa_prefill_attention":
+            staged = rotating(lambda k, v: _prefill_staged(q5, k, v, pos, scale=scale))
+            entry["staged_ms"] = median_ms(staged)
+            flops = 4 * hd * pairs
+            floor_text = (
+                f"= {flops / ms / 1e9:.1f} TFLOP/s of the card's {PEAK_BF16_FLOPS / 1e12:.0f} "
+                f"({flops / 1e9:.1f} GFLOP for the valid keys; the bound is {bound['operations']:.4f} ms), "
+                f"{entry['staged_ms']:.4f} ms with its tiles staged by threads instead of TMA, "
+            )
+        else:
             # Decode and verify take microseconds, so the host's time to enqueue
             # a call can exceed the kernel's and "ms" then reads the host: time
             # them again replayed from a CUDA graph, and an empty kernel with
@@ -517,8 +673,11 @@ def time_attention(seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *
             f"max_abs_err {err}, share of limit {share:.4f}"
         )
         out.append(entry)
-        if profile and name != "gqa_prefill_attention":
+        if profile:
             _profile_window(lambda: [kernel() for _ in range(layers)], f"{layers} {name} calls (T = {t}, S = {s})", card)
+        if profile and name == "gqa_prefill_attention":
+            prefill_phases(q5, caches[:4], caches[layers // 2], pos, scale, f"{name} (T = {t}, S = {s})", card)
+        elif profile:
             attention_phases(q5, caches[:4], caches[layers // 2], pos, scale, f"{name} (T = {t}, S = {s}, pos0 = {p0})", card)
         del caches, kernel, plain, library
         torch.cuda.empty_cache()
@@ -916,8 +1075,14 @@ def main() -> int:
     parser.add_argument(
         "--profile", action="store_true",
         help="also trace 8 warm vector_search calls of each route, the large preset's "
-        "prefill, one decode chunk and 36 decode and verify attention calls with "
-        "torch.profiler, and print the phases inside one decode and one verify launch",
+        "prefill, one decode chunk and 36 decode, verify and prefill attention calls with "
+        "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
+    )
+    parser.add_argument(
+        "--only", choices=["prefill"],
+        help="a partial run for work on one kernel: build it, hold it against its plain version "
+        "(phase 2b's cases) and time it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / S 2,208); "
+        "prints no result line",
     )
     args = parser.parse_args()
 
@@ -947,6 +1112,12 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+
+    if args.only == "prefill":
+        check_attention_kernels(args.seed, prefill_only=True)
+        time_attention(args.seed, 8352, 8064, 8192, card, profile=args.profile, only="gqa_prefill_attention")
+        log("partial run (--only prefill): no result line")
+        return 0
 
     # 2. Kernels vs plain versions.
     errs = check_kernels(args.seed)

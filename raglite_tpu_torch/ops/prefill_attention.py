@@ -6,14 +6,19 @@ Counterpart of raglite_tpu/ops/prefill_attention.py (replaces
 ``offsets[b] + t`` and attends key ``s`` iff ``s <= offsets[b] + t`` and,
 with a window ``w > 0``, ``s > offsets[b] + t - w``; logit soft-capping as in
 the decode kernels.  The TPU version gates on a VMEM budget
-(``prefill_kernel_viable``); the Hopper kernel runs a flash (online) softmax
-over key tiles and takes every S, so there is no gate.
+(``prefill_kernel_viable``) and the JAX decoder takes its einsum where the
+gate says no; the Hopper kernel runs a flash (online) softmax over key tiles
+and takes every S, every REP (the heads of a group are packed into its
+128-row tiles) and the head widths of :data:`HEAD_DIMS`, so there is no gate.
 
 ``gqa_prefill_attention`` launches ``csrc/prefill_attention.cu`` for CUDA
 tensors and takes the plain version (:func:`~raglite_tpu_torch.ops.
 decode_attention.gqa_attention_plain`) for CPU tensors, and nothing else.
-The kernel rounds unnormalised probabilities to bf16 and rescales as it
-goes, so it agrees with the plain version to the limit of
+The kernel forms both products with ``wgmma``; its K/V tiles come by TMA
+where ``S % 8 == 0`` (what TMA asks of the cache's rows) and are staged by
+the producer warpgroup's threads for any other S: one kernel, one count.  It
+rounds unnormalised probabilities to bf16 and rescales as it goes, so it
+agrees with the plain version to the limit of
 :func:`~raglite_tpu_torch.ops.decode_attention.attention_tolerance`.
 """
 
@@ -30,10 +35,9 @@ __all__ = ["gqa_prefill_attention", "launch_counts", "reset_launch_counts"]
 #: Launches of the kernel, counted where it launches.
 launch_counts = {"gqa_prefill_attention": 0}
 
-_PREFILL = ("prefill_attention", "rlt_gqa_prefill", [*[VOID] * 4, *[INT] * 6, FLOAT, FLOAT, INT, VOID])
-#: Head widths the kernel is built for (register-resident Q and O tiles).
-HEAD_DIMS = (32, 64, 128)
-MAX_REP = 8
+_PREFILL = ("prefill_attention", "rlt_gqa_prefill", [*[VOID] * 4, *[INT] * 6, FLOAT, FLOAT, INT, VOID, VOID])
+#: Head widths the kernel is built for (the output tile lives in registers).
+HEAD_DIMS = (32, 64, 128, 256)
 
 
 def reset_launch_counts() -> None:
@@ -59,8 +63,8 @@ def gqa_prefill_attention(
     name = "gqa_prefill_attention"
     qb, off = check_operands(name, q, k_cache, v_cache, offsets)
     b, kvh, rep, t, hd = q.shape
-    if hd not in HEAD_DIMS or rep > MAX_REP:
-        msg = f"{name}: head_dim {hd} not in {HEAD_DIMS} or REP {rep} > {MAX_REP}"
+    if hd not in HEAD_DIMS:
+        msg = f"{name}: head_dim {hd} not in {HEAD_DIMS}"
         raise ValueError(msg)
     out = torch.empty((b, kvh, rep, t, hd), dtype=torch.float32, device=k_cache.device)
     args = [

@@ -332,3 +332,40 @@ def test_rag_answers_from_the_decoder_on_cpu() -> None:
     assert all(isinstance(p, str) for p in pieces)
     assert messages[-1] == {"role": "assistant", "content": "".join(pieces)}
     assert _make_llm("jax:tiny", "cpu").spec_stats is not None
+
+
+#: Shapes the JAX decoder prefills (its einsum where its kernel is not viable)
+#: and the port's prefill kernel is built for: a 256-wide head, and 18 query
+#: heads on 2 KV heads (REP 9).
+WIDE_CFGS = {
+    "head_dim_256": dict(
+        layers=2, d_model=512, heads=2, kv_heads=1, head_dim=256, d_ff=96, vocab=300, max_len=128,
+        rope_base=10000.0, rms_eps=1e-5,
+    ),
+    "rep_9": dict(
+        layers=2, d_model=288, heads=18, kv_heads=2, d_ff=96, vocab=300, max_len=128,
+        rope_base=10000.0, rms_eps=1e-5,
+    ),
+}
+
+
+@pytest.mark.parametrize("which", list(WIDE_CFGS))
+def test_prefill_logits_match_jax_at_wide_heads_and_groups(which: str) -> None:
+    """The port takes what the JAX decoder takes: a T = 24 prefill (the
+    prefill attention route) at head_dim 256 and at REP 9, then a T = 24
+    window at per-row offsets over that cache; logits agree."""
+    cfg = WIDE_CFGS[which]
+    jparams = jdec.init_decoder_params(cfg, seed=2, dtype=jnp.float32)
+    jmodel, tmodel = jdec.DecoderModel(cfg), tdec.DecoderModel(cfg)
+    assert tmodel.head_dim == jmodel.head_dim and cfg["heads"] // cfg["kv_heads"] in (2, 9)
+    tparams = tdec.params_from_jax(jparams, dtype=torch.float32)
+    b, s, t = 2, 64, 24
+    jcache = jmodel.init_cache(b, s, dtype=jnp.float32)
+    tcache = tmodel.init_cache(b, s, dtype=torch.float32)
+    rng = np.random.default_rng(6)
+    for offsets in (0, np.array([24, 17])):
+        ids = rng.integers(3, cfg["vocab"], (b, t))
+        jl, jcache = jax.jit(jmodel.forward)(jparams, jnp.asarray(ids), jcache, jnp.asarray(offsets, jnp.int32))
+        tl, _ = tmodel.forward(tparams, torch.from_numpy(ids).long(), tcache, torch.as_tensor(offsets))
+        assert tl.shape == (b, t, cfg["vocab"])
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
