@@ -27,13 +27,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    smaller of a sound and a statistical bound on bf16 probability rounding).
 3. Serve with the default config (packaged 8-layer d=768 encoder, bf16
    rows, ":memory:" store): insert the repo's README, SURVEY, MIGRATION and
-   PARITY documents, add seeded unit-vector background chunks until the
-   index holds ``--rows`` rows, answer 8 queries through vector_search and
-   4 through search_and_rerank_chunk_spans.  Asserts the int4 two-stage
-   route served them, chunk recall@10 >= 0.99 against the exact route, and
-   a real document chunk as every top hit.
+   PARITY documents, add seeded background chunks of 2 unit-vector rows each
+   until the index holds ``--rows`` rows (624,580 chunks at the default),
+   each with a body of 12 terms drawn as bench.py's hybrid section draws
+   them (zipf(1.3) mod 30,000, "w<t>"), answer 8 queries through
+   vector_search and 4 through search_and_rerank_chunk_spans with
+   search=vector_search.  Asserts the int4 two-stage route served them,
+   chunk recall@10 >= 0.99 against the exact route, and a real document
+   chunk as every top hit.
 4. Serve single-stage (int8 rows, use_pallas, no int4 stage): the same
    queries, asserting the single-stage kernel served them.
+4b. Keyword and hybrid search on the default config: sync the keyword index
+   over the whole store (the native C++ postings builder, asserted) and
+   build its resident postings on the card (build time, postings, bytes);
+   the 8 sentences through hybrid_search and keyword_search and the 4
+   rerank sentences through search_and_rerank_chunk_spans with its default
+   search (hybrid), asserting the fused device route and the int4 route
+   served every hybrid call and a document chunk as every top hit; 256
+   tail-term queries (bench.py's recipe) where the resident BM25 must equal
+   the host-gather route (ids equal, scores within rtol 1e-4) and, on 32 of
+   them, the device RRF must equal reciprocal_rank_fusion over the same
+   per-side lists (0 mismatches); p50s of keyword_search and hybrid_search
+   at B = 1, hybrid_search's split (encode, dense side, BM25 side, RRF and
+   fetch), queries per second of the batch forms at B = 256 (and hybrid at
+   B = 32), and each torch-op program's time per call (CUDA events) beside
+   its bytes bound; ``--profile`` counts the device operations of one
+   hybrid_search call.
 5. Timings at the index's own arrays (B = 1 and 32): each kernel, its plain
    version and one PyTorch library computation of the same function (CUDA
    events, median of 20 runs of 10 launches), the kernels' bound,
@@ -713,10 +732,11 @@ def _timed_tokens(tokens) -> tuple[list[int], float, float]:
     return out, first or 0.0, (time.perf_counter() - t0) * 1e3
 
 
-def _profile_window(fn, what: str, card: str) -> None:
+def _profile_window(fn, what: str, card: str) -> int:
     """One torch.profiler window over ``fn`` (warm): the device's busy time
     by kernel and its idle share of the window (the profiler's own host
-    overhead is inside the window, so the idle share is an upper bound)."""
+    overhead is inside the window, so the idle share is an upper bound).
+    Returns the number of device operations in the window."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -739,6 +759,7 @@ def _profile_window(fn, what: str, card: str) -> None:
     )
     for name, us, count in kernels[:12]:
         log(f"  profile: {us / 1e3:9.3f} ms  {count:5d}x  {name[:110]}")
+    return sum(k[2] for k in kernels)
 
 
 def profile_decode(llm, ids, lens, rag_s: int, card: str) -> None:
@@ -891,27 +912,43 @@ def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
 
 
 def pick_queries(texts: list[str], count: int, seed: int) -> list[str]:
-    """``count`` distinct sentences of 40-240 characters from the documents."""
+    """``count`` distinct sentences (40-240 characters, ending in a full
+    stop, question or exclamation mark) from the documents, each of at most
+    RESIDENT_MAX_TERMS unique words (a longer query leaves the fused hybrid
+    route for host RRF by design; phase 4b sends one)."""
     import numpy as np
 
+    from raglite_tpu_torch.index.keyword import KeywordIndex, tokenize
     from raglite_tpu_torch.sentences import split_sentences
 
     pool = []
     for text in texts:
         for sentence in split_sentences(text):
             s = " ".join(sentence.split())
-            if 40 <= len(s) <= 240 and not s.startswith(("#", "|", "`", "-")):
+            if (
+                40 <= len(s) <= 240
+                and not s.startswith(("#", "|", "`", "-"))
+                and s.endswith((".", "?", "!"))
+                and len(set(tokenize(s))) <= KeywordIndex.RESIDENT_MAX_TERMS
+            ):
                 pool.append(s)
     pool = sorted(set(pool))
     rng = np.random.default_rng(seed)
     return [pool[i] for i in rng.choice(len(pool), size=count, replace=False)]
 
 
+#: bench.py's hybrid section: a 30,000-term vocabulary, bodies of 12
+#: zipf(1.3) terms, queries of 4 terms from the informative tail (rank >= 200).
+VOCAB = 30_000
+
+
 def add_background(
-    store, rows_needed: int, seed: int, *, rows_per_chunk: int = 16, device: str = "cuda"
+    store, rows_needed: int, seed: int, *, rows_per_chunk: int = 2, device: str = "cuda"
 ) -> set[str]:
-    """Seeded unit-vector background chunks (made on ``device``, in bulk),
-    added through Store.add_chunks; returns their ids."""
+    """Seeded background chunks (unit-vector rows made on ``device`` in bulk,
+    ``rows_per_chunk`` to a chunk; bodies of 12 zipf(1.3) terms, as bench.py
+    builds its keyword corpus), added through Store.add_chunks; returns
+    their ids."""
     import numpy as np
     import torch
 
@@ -926,12 +963,26 @@ def add_background(
     counts = np.full(n_chunks, rows_per_chunk)
     counts[-1] = rows_needed - rows_per_chunk * (n_chunks - 1)
     bounds = np.concatenate([[0], np.cumsum(counts)])
+    terms = np.random.default_rng(seed).zipf(1.3, size=(n_chunks, 12)).astype(np.int64) % VOCAB
     chunks, mats = [], []
     for i in range(n_chunks):
-        chunks.append(Chunk(id=f"bg-{i}", document_id=doc.id, index=i, headings="", body=f"bg {i}\n"))
+        body = " ".join(f"w{t}" for t in terms[i]) + "\n"
+        chunks.append(Chunk(id=f"bg-{i}", document_id=doc.id, index=i, headings="", body=body))
         mats.append(vecs[bounds[i] : bounds[i + 1]])
     store.add_chunks(chunks, mats)
     return {c.id for c in chunks}
+
+
+def tail_queries(count: int, seed: int) -> list[str]:
+    """bench.py's keyword queries: 4 terms from the informative tail (rank
+    >= 200) of the background's vocabulary."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    return [
+        " ".join(f"w{200 + (t % (VOCAB - 200))}" for t in rng.zipf(1.3, size=4).astype(np.int64))
+        for _ in range(count)
+    ]
 
 
 def serve(cfg, queries: list[str], rerank_queries: list[str], background: set[str]):
@@ -982,6 +1033,220 @@ def serve(cfg, queries: list[str], rerank_queries: list[str], background: set[st
         search_ms.append((time.perf_counter() - t1) * 1e3)
     layers = {"embed": statistics.median(embed_ms), "index search": statistics.median(search_ms)}
     return routes, launches, statistics.mean(recalls), latencies, layers
+
+
+def _p50_ms(fn, items) -> float:
+    """Median host-clock time of ``fn(item)`` over ``items``, each call
+    ended by a device synchronize."""
+    import torch
+
+    times = []
+    for item in items:
+        t0 = time.perf_counter()
+        fn(item)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], background: set[str], seed: int, card: str, *, profile: bool = False) -> dict:
+    """Phase 4b: keyword and hybrid search over the phase-3 store through
+    the user entry points, checked at scale, then timed.  Returns the
+    numbers of the summary."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.index.dense import fetch_scored
+    from raglite_tpu_torch.index.keyword import keyword_index_from_config
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.ops.rrf import rrf_fuse_topk
+    from raglite_tpu_torch.search import (
+        corrected_num_hits,
+        hybrid_search,
+        hybrid_search_batch,
+        keyword_search,
+        keyword_search_batch,
+        reciprocal_rank_fusion,
+        search_and_rerank_chunk_spans,
+    )
+
+    # 1. Build: postings over the whole store, then the resident arrays.
+    dense = dense_index_from_config(cfg)
+    t0 = time.perf_counter()
+    kw = keyword_index_from_config(cfg)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    assert kw.resident_prepare(["w1"]) is not None
+    torch.cuda.synchronize()
+    resident_s = time.perf_counter() - t0
+    assert kw.backend == "native", kw.backend
+    n = len(kw.chunk_ids)
+    assert n == len(dense.chunk_ids), (n, len(dense.chunk_ids))
+    postings = kw._native.num_postings
+    resident_postings = int(kw._res["df_host"].sum())
+    resident_bytes = sum(kw._res[k].numel() * kw._res[k].element_size() for k in ("offsets", "chunk", "w"))
+    log(f"keyword index on {card}: {n} chunks, postings backend {kw.backend}, {postings} postings "
+        f"({resident_postings} resident, {len(kw._res['df_host'])} terms, lcap {kw._res['lcap']}); sync {sync_s:.3f} s, "
+        f"resident build and upload {resident_s:.3f} s, {resident_bytes} bytes of resident postings on the card")
+
+    # 2. The user path: hybrid (the fused route, the int4 kernel on its dense
+    # side), keyword, and spans with the default search.
+    fs.reset_launch_counts()
+    for query in queries:
+        ids, _ = hybrid_search(query, num_results=10, config=cfg)
+        assert kw.last_route == "hybrid_fused" and dense.last_route == "int4_two_stage", (kw.last_route, dense.last_route)
+        assert len(ids) == 10 and ids[0] not in background, f"top hybrid hit of {query!r} is a background chunk"
+        ids, _ = keyword_search(query, num_results=10, config=cfg)
+        assert kw.last_route == "resident", kw.last_route
+        assert ids and ids[0] not in background, f"top keyword hit of {query!r} is a background chunk"
+    for query in rerank_queries:
+        spans = search_and_rerank_chunk_spans(query, num_results=4, config=cfg)
+        assert kw.last_route == "hybrid_fused" and dense.last_route == "int4_two_stage", (kw.last_route, dense.last_route)
+        assert spans and all(c.id not in background for c in spans[0].chunks), query
+    launches = dict(fs.launch_counts)
+    assert launches["int4_bucket_scan"] == len(queries) + len(rerank_queries), launches
+    log(f"hybrid path: {len(queries)} hybrid_search, {len(queries)} keyword_search and {len(rerank_queries)} "
+        f"search_and_rerank_chunk_spans calls (default search) through the fused route, int4 route on the dense "
+        f"side, document chunks on top; launches {launches}")
+    # A query of more unique terms than the resident postings take: host RRF
+    # over the two searches, still a document chunk on top.
+    wide = " ".join([*queries, *rerank_queries])
+    ids, _ = hybrid_search(wide, num_results=10, config=cfg)
+    assert kw.last_route == "host_gather" and ids and ids[0] not in background, (kw.last_route, ids[:1])
+    log(f"a {len(wide.split())}-word query: host RRF fallback (keyword side {kw.last_route}), document chunk on top")
+
+    # 3. Correctness at scale: 256 tail-term queries.
+    tail = tail_queries(256, seed)
+    term_ids = kw.resident_prepare(tail)
+    assert term_ids is not None
+    full_df = np.diff(kw._native_csr()["offsets"])
+    max_df = int(full_df[term_ids[term_ids >= 0]].max())
+    assert max_df < kw.RESIDENT_LCAP, max_df  # no truncation enters
+    k_side, num_results = 20, 10
+    resident = kw.search_batch(tail, num_hits=k_side)
+    assert kw.last_route == "resident"
+    kw.use_resident = False
+    try:
+        host = kw.search_batch(tail, num_hits=k_side)
+        assert kw.last_route == "host_gather"
+    finally:
+        kw.use_resident = True
+    bit_equal = True
+    for (r_ids, r_scores), (h_ids, h_scores) in zip(resident, host, strict=True):
+        assert r_ids == h_ids
+        np.testing.assert_allclose(r_scores, h_scores, rtol=1e-4)
+        bit_equal &= r_scores == h_scores
+    hits = sum(len(ids) for ids, _ in resident)
+    log(f"resident BM25 = host gather on 256 tail-term queries: ids equal ({hits} hits, max df of their terms "
+        f"{max_df}), scores within rtol 1e-4 (bit-equal: {bit_equal})")
+    # The device RRF on 32 queries: the 12 sentences, whose two sides share
+    # document chunks, and 20 tail-term queries.
+    mixed = [*queries, *rerank_queries, *tail][:32]
+    emb = embed_queries(mixed, config=cfg).astype(np.float32)
+    num_hits = min(corrected_num_hits(4, k_side, cfg), dense.num_rows)
+    mask, masked = kw.resident_device_mask(None)
+    dense_side = dense.search_chunks_device(emb, num_hits=num_hits, num_results=k_side)
+    assert dense.last_route == "int4_two_stage"
+    kw_side = kw.resident_block_device(kw.resident_prepare(mixed), num_hits=k_side, mask=mask, masked=masked)
+    fused_scores, fused_ords = fetch_scored(*rrf_fuse_topk(dense_side, kw_side, num_chunks=n, num_results=num_results))
+    d_scores, d_ords = fetch_scored(*dense_side)
+    k_scores, k_ords = fetch_scored(*kw_side)
+    mismatches, overlap = 0, 0
+    for i in range(32):
+        v_ids = [kw.chunk_ids[o] for o in d_ords[i] if o >= 0]
+        order = np.lexsort((k_ords[i], -k_scores[i]))
+        k_ids = [kw.chunk_ids[k_ords[i][j]] for j in order if k_scores[i][j] > 0 and k_ords[i][j] < n]
+        want, want_scores = reciprocal_rank_fusion([v_ids, k_ids], weights=[0.75, 0.25])
+        got = [kw.chunk_ids[o] for o in fused_ords[i] if o >= 0]
+        mismatches += got != want[:num_results]
+        overlap += len(set(v_ids) & set(k_ids))
+        np.testing.assert_allclose(fused_scores[i][: len(got)], want_scores[: len(got)], rtol=1e-6)
+    log(f"device RRF vs reciprocal_rank_fusion over the same per-side lists of 32 queries (12 sentences, 20 "
+        f"tail-term): {mismatches} mismatches ({overlap} chunks on both sides)")
+    assert mismatches == 0
+
+    # 4. Timing.
+    for query in tail[:4]:
+        hybrid_search(query, num_results=10, config=cfg)
+        keyword_search(query, num_results=10, config=cfg)
+    out = {
+        "keyword_p50_ms": _p50_ms(lambda q: keyword_search(q, num_results=10, config=cfg), tail[:32]),
+        "hybrid_p50_ms": _p50_ms(lambda q: hybrid_search(q, num_results=10, config=cfg), tail[:32]),
+        "keyword_p50_ms_sentences": _p50_ms(lambda q: keyword_search(q, num_results=10, config=cfg), queries),
+        "hybrid_p50_ms_sentences": _p50_ms(lambda q: hybrid_search(q, num_results=10, config=cfg), queries),
+    }
+    log(f"keyword_search p50 {out['keyword_p50_ms']:.3f} ms, hybrid_search p50 {out['hybrid_p50_ms']:.3f} ms over 32 "
+        f"tail-term queries; {out['keyword_p50_ms_sentences']:.3f} and {out['hybrid_p50_ms_sentences']:.3f} ms over the "
+        f"8 sentences (B = 1, host clock, embed included) on {card}")
+    # hybrid_search's layers apart, each ended by a synchronize.
+    stages = {"encode": [], "dense side": [], "BM25 side": [], "RRF and fetch": []}
+    hits1 = min(corrected_num_hits(4, k_side, cfg), dense.num_rows)
+    for query in [*queries, *tail[:32]]:
+        t0 = time.perf_counter()
+        q_emb = embed_queries([query], config=cfg).astype(np.float32)
+        t1 = time.perf_counter()
+        d_side = dense.search_chunks_device(q_emb, num_hits=hits1, num_results=k_side)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k_side_dev = kw.resident_block_device(kw.resident_prepare([query]), num_hits=k_side, mask=mask, masked=False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fetch_scored(*rrf_fuse_topk(d_side, k_side_dev, num_chunks=n, num_results=num_results))
+        t4 = time.perf_counter()
+        for name, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[name].append(dt * 1e3)
+    out["split_ms"] = {k: statistics.median(v) for k, v in stages.items()}
+    log(f"hybrid_search split p50 over 40 queries (ms, host clock, each stage synchronized) on {card}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out["split_ms"].items()))
+    # Batch throughput.
+    for name, fn, batch in (
+        ("keyword_search_batch", keyword_search_batch, 256),
+        ("hybrid_search_batch", hybrid_search_batch, 256),
+        ("hybrid_search_batch", hybrid_search_batch, 32),
+    ):
+        fn(tail[:batch], num_results=10, config=cfg)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(tail[:batch], num_results=10, config=cfg)
+            times.append(time.perf_counter() - t0)
+        out[f"{name}_qps_b{batch}"] = batch / statistics.median(times)
+        route = f"; dense side {dense.last_route}" if name.startswith("hybrid") else ""
+        log(f"{name} B = {batch} tail-term queries: {batch / statistics.median(times):.1f} queries/s (median of 5, "
+            f"{statistics.median(times) * 1e3:.2f} ms a call{route}) on {card}")
+    # Each torch-op program's time per call (CUDA events), beside its bytes.
+    programs = []
+    for batch in (1, 256):
+        block = term_ids[:batch]
+        valid = block[block >= 0]
+        lcap_b = 128
+        while lcap_b < int(kw._res["df_host"][valid].max()):
+            lcap_b *= 2
+        read = int(np.minimum(kw._res["df_host"][valid], lcap_b).sum())
+        moved = block.size * 4 + valid.size * 16 + read * 8 + batch * k_side * 12
+        ms = median_ms(lambda: kw.resident_block_device(block, num_hits=k_side, mask=mask, masked=False))
+        programs.append({"name": "bm25_topk_resident", "batch": batch, "ms": ms, "bytes": moved,
+                         "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "postings": read, "lcap": lcap_b})
+    for batch in (1, 32):
+        d_b = tuple(x[:batch] for x in dense_side)
+        k_b = tuple(x[:batch] for x in kw_side)
+        moved = batch * 2 * k_side * 12 + batch * num_results * 12
+        ms = median_ms(lambda: rrf_fuse_topk(d_b, k_b, num_chunks=n, num_results=num_results))
+        programs.append({"name": "rrf_fuse_topk", "batch": batch, "ms": ms, "bytes": moved,
+                         "bound_ms": moved / PEAK_BYTES_PER_S * 1e3})
+    for p in programs:
+        log(f"timing {p['name']} (torch ops) B={p['batch']} on {card}: {p['ms']:.4f} ms a call (CUDA events, calls "
+            f"enqueued back to back), {p['bytes']} bytes, bound {p['bound_ms']:.6f} ms (bytes)"
+            + (f", {p['postings']} postings read, lcap {p['lcap']}" if "postings" in p else ""))
+    out["programs"] = programs
+    if profile:
+        ops = _profile_window(
+            lambda: [hybrid_search(q, num_results=10, config=cfg) for q in queries], f"{len(queries)} hybrid_search calls", card
+        )
+        log(f"device operations per hybrid_search call: {ops / len(queries):.1f} on {card}")
+    return out
 
 
 def time_kernels(index_bf16, index_i8, q_emb, card: str) -> list[dict]:
@@ -1074,7 +1339,7 @@ def main() -> int:
     parser.add_argument("--rows", type=int, default=1_249_280)
     parser.add_argument(
         "--profile", action="store_true",
-        help="also trace 8 warm vector_search calls of each route, the large preset's "
+        help="also trace 8 warm vector_search calls of each route, 8 hybrid_search calls, the large preset's "
         "prefill, one decode chunk and 36 decode, verify and prefill attention calls with "
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
@@ -1133,7 +1398,9 @@ def main() -> int:
     store = store_from_config(cfg)
     doc_rows = sum(m.shape[0] for m in store.embeddings.values())
     log(f"inserted 4 documents: {len(store.chunk_order)} chunks, {doc_rows} rows in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     background = add_background(store, args.rows - doc_rows, args.seed)
+    log(f"added {len(background)} background chunks ({args.rows - doc_rows} rows) in {time.perf_counter() - t0:.1f} s")
     queries = pick_queries(texts, 8 + 4 + 32, args.seed)
     vs_q, rr_q, bench_q = queries[:8], queries[8:12], queries[12:]
     fs.reset_launch_counts()
@@ -1165,6 +1432,10 @@ def main() -> int:
     log(f"vector_search layers p50 (single-stage int8 route): {layers8} ms on {card}")
     if args.profile:
         profile_search(cfg8, vs_q, card)
+
+    # 4b. Keyword and hybrid search, default config.
+    hybrid = keyword_and_hybrid(cfg, vs_q, rr_q, background, args.seed, card, profile=args.profile)
+    log(f"phase 4b summary on {card}: {json.dumps(hybrid)}")
 
     # 5. Timings at the served index's arrays.
     from raglite_tpu_torch.embed import embed_queries

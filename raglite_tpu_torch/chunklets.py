@@ -111,6 +111,17 @@ def split_chunklets(
     pref_stmt = np.concatenate(([0.0], np.cumsum(statements)))
 
     custom = boundary_cost is not None or statement_cost is not None
+    if not custom:
+        from raglite_tpu_torch.native import split_chunklet_cuts
+
+        native_cuts = split_chunklet_cuts(
+            probas, pref_proba, pref_stmt, pref_len, max_size=max_size
+        )
+        if native_cuts is not None:  # C++ fast path (native/postings.cpp)
+            return [
+                "".join(sentences[i:j])
+                for i, j in zip([0, *native_cuts], [*native_cuts, n])
+            ]
     dp = np.full(n + 1, np.inf)
     dp[0] = 0.0
     back = np.full(n + 1, -1, dtype=np.int64)

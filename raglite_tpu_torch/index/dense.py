@@ -164,6 +164,14 @@ def _int4_two_stage_chunks(
     return _group_max_topk(sc, ridx, row_chunk, num_results=num_results)
 
 
+def fetch_scored(scores: torch.Tensor, ordinals: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+    """(scores [B, k] f32, ordinals [B, k] int64) to the host in ONE
+    device-to-host copy (f64 holds both exactly)."""
+    b = scores.shape[0]
+    both = torch.cat([scores.to(torch.float64), ordinals.to(torch.float64)]).cpu().numpy()
+    return both[:b].astype(np.float32), both[b:].astype(np.int64)
+
+
 class DenseIndex:
     """Host-mirrored, device-resident dense index synced from a Store."""
 
@@ -481,9 +489,7 @@ class DenseIndex:
         scores, ordinals = self.search_chunks_device(
             queries, num_hits=num_hits, num_results=num_results, row_mask=row_mask, adapter=adapter
         )
-        both = torch.cat([scores.to(torch.float64), ordinals.to(torch.float64)]).cpu().numpy()
-        chunk_scores = both[:b].astype(np.float32)
-        chunk_ordinals = both[b:].astype(np.int64)
+        chunk_scores, chunk_ordinals = fetch_scored(scores, ordinals)
         chunk_ordinals[~np.isfinite(chunk_scores)] = -1
         if chunk_scores.shape[1] < num_results:
             pad = num_results - chunk_scores.shape[1]

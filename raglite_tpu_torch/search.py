@@ -1,21 +1,26 @@
-"""Vector search, retrieval, and reranking (counterpart of raglite_tpu/search.py).
+"""Vector / keyword / hybrid search, retrieval, and reranking (counterpart
+of raglite_tpu/search.py).
 
 - ``vector_search``: query embed -> adapter matmul -> device scan + top-k
   over the dense index (index/dense.py, the CUDA scan kernels on large
   indexes) -> multi-vector group-max, one host fetch.
+- ``keyword_search``: BM25 on the device over the keyword index's postings
+  (index/keyword.py, ops/bm25.py).
+- ``hybrid_search``: the dense route, then the resident BM25, then weighted
+  RRF (ops/rrf.py), chained on the device with one host fetch; host RRF
+  serves what the resident postings cannot (a query of more than
+  RESIDENT_MAX_TERMS unique terms) and gives the same results.
 - ``rerank_chunks``: token-level late-interaction MaxSim on the device
   (models/encoder.py:TransformerEncoder.rerank_maxsim), selected per
   language, in place of the reference's cross-encoders.
 
-``keyword_search``, ``hybrid_search`` (and their batch forms), the
-self-query filter and ``rag`` are not ported yet: ``hybrid_search`` raises
-``NotImplementedError`` (ROADMAP queue 1 item 6).  ``search_and_rerank_*``
-keep ``search=hybrid_search`` as their default, so callers pass
-``search=vector_search``, the config's default ``search_method``.
+The self-query filter is not ported yet (it needs the LLM extraction
+surface, ROADMAP queue 1 item 7): a config with ``self_query`` raises.
 """
 
 from __future__ import annotations
 
+from collections import defaultdict
 from itertools import groupby
 from typing import Any
 
@@ -24,7 +29,8 @@ import numpy as np
 from raglite_tpu_torch.config import RAGLiteConfig
 from raglite_tpu_torch.documents import Chunk, ChunkSpan, adapt_metadata
 from raglite_tpu_torch.embed import embed_queries, embed_strings
-from raglite_tpu_torch.index.dense import dense_index_from_config
+from raglite_tpu_torch.index.dense import dense_index_from_config, fetch_scored
+from raglite_tpu_torch.index.keyword import RESIDENT_BLOCK, keyword_index_from_config
 from raglite_tpu_torch.ops.maxsim import maxsim_rank
 from raglite_tpu_torch.store import store_from_config
 from raglite_tpu_torch.types import BasicSearchMethod, ChunkId, FloatVector, MetadataFilter
@@ -33,7 +39,11 @@ from raglite_tpu_torch.utils.lang import detect_language
 __all__ = [
     "vector_search",
     "vector_search_batch",
+    "keyword_search",
+    "keyword_search_batch",
     "hybrid_search",
+    "hybrid_search_batch",
+    "reciprocal_rank_fusion",
     "retrieve_chunks",
     "retrieve_chunk_spans",
     "rerank_chunks",
@@ -177,6 +187,155 @@ def vector_search_batch(
     return results
 
 
+def keyword_search(
+    query: str,
+    *,
+    num_results: int = 3,
+    metadata_filter: MetadataFilter | None = None,
+    config: RAGLiteConfig | None = None,
+) -> tuple[list[ChunkId], list[float]]:
+    """BM25 keyword search on the device (reference: _search.py:156-230)."""
+    config = config or RAGLiteConfig()
+    _self_query_unported(config)
+    store = store_from_config(config)
+    metadata_filter = adapt_metadata(metadata_filter)
+    index = keyword_index_from_config(config)
+    # Tombstoned chunks are masked twice over: the keyword index masks its
+    # own dead ordinals (and amortizes postings rebuilds at >30% dead,
+    # KeywordIndex._sync_locked); the store's alive mask covers any sync
+    # lag.  The dense index masks via its device valid bits.
+    chunk_mask = _chunk_mask(store, metadata_filter) if metadata_filter else store.alive_mask()
+    ids, scores = index.search(query, num_hits=num_results, chunk_mask=chunk_mask)
+    return ids[:num_results], scores[:num_results]
+
+
+def keyword_search_batch(
+    queries: list[str],
+    *,
+    num_results: int = 3,
+    metadata_filter: MetadataFilter | None = None,
+    config: RAGLiteConfig | None = None,
+) -> list[tuple[list[ChunkId], list[float]]]:
+    """Batched BM25: one device program scores all B queries (no reference
+    analogue; its SQL engine executes per query)."""
+    config = config or RAGLiteConfig()
+    _self_query_unported(config)
+    store = store_from_config(config)
+    metadata_filter = adapt_metadata(metadata_filter)
+    index = keyword_index_from_config(config)
+    chunk_mask = _chunk_mask(store, metadata_filter) if metadata_filter else store.alive_mask()
+    results = index.search_batch(queries, num_hits=num_results, chunk_mask=chunk_mask)
+    return [(ids[:num_results], scores[:num_results]) for ids, scores in results]
+
+
+def reciprocal_rank_fusion(
+    rankings: list[list[ChunkId]], *, k: int = 60, weights: list[float] | None = None
+) -> tuple[list[ChunkId], list[float]]:
+    """Weighted RRF (reference: _search.py:233-254)."""
+    if weights is None:
+        weights = [1.0] * len(rankings)
+    if len(weights) != len(rankings):
+        msg = "The number of weights must match the number of rankings."
+        raise ValueError(msg)
+    score: defaultdict[str, float] = defaultdict(float)
+    for ranking, weight in zip(rankings, weights):
+        for i, chunk_id in enumerate(ranking):
+            score[chunk_id] += weight / (k + i)
+    if not score:
+        return [], []
+    ranked = sorted(score.items(), key=lambda kv: kv[1], reverse=True)
+    return [cid for cid, _ in ranked], [s for _, s in ranked]
+
+
+def _hybrid_fused_batch(  # noqa: PLR0913
+    queries: list[str],
+    *,
+    num_results: int,
+    oversample: int,
+    vector_search_weight: float,
+    keyword_search_weight: float,
+    metadata_filter: MetadataFilter | None,
+    config: RAGLiteConfig,
+) -> list[tuple[list[ChunkId], list[float]]] | None:
+    """Device-fused hybrid search: the dense route
+    (``DenseIndex.search_chunks_device``), the resident BM25
+    (``KeywordIndex.resident_block_device``) and weighted RRF
+    (``rrf_fuse_topk``) chained on the device, with ONE host fetch per block
+    of up to RESIDENT_BLOCK queries (the reference fuses on the host with a
+    Python dict loop, raglite/_search.py:233-280).
+
+    Returns None when the fused path cannot serve the batch (resident
+    postings disabled, a query over RESIDENT_MAX_TERMS unique terms): the
+    caller falls back to the host-RRF path, which handles every input.
+    Output matches the host oracle exactly (ops/rrf.py documents the
+    rank/tie parity argument).  Sets the keyword index's ``last_route`` to
+    "hybrid_fused" when it serves.
+    """
+    from raglite_tpu_torch.ops.rrf import rrf_fuse_topk
+
+    store = store_from_config(config)
+    dense = dense_index_from_config(config)
+    kw = keyword_index_from_config(config)
+    n = len(kw.chunk_ids)
+    if dense.num_rows == 0 or n == 0:
+        return [([], []) for _ in queries]
+    # Both indexes sync from the same store just above, so their ordinal
+    # spaces are both prefix-aligned copies of store.chunk_order: equal
+    # lengths imply identical id lists (an O(n) list compare per call would
+    # cost more than the search).
+    if len(dense.chunk_ids) != n:
+        return None
+    term_ids = kw.resident_prepare(queries)
+    if term_ids is None:
+        return None
+    embeddings = embed_queries(queries, config=config).astype(np.float32)
+    adapter = (
+        store.index_metadata.get("query_adapter")
+        if config.vector_search_query_adapter
+        else None
+    )
+    cmask = None
+    if metadata_filter:
+        cmask = _chunk_mask(store, metadata_filter)
+        if not cmask.any():
+            return [([], []) for _ in queries]
+    kw_mask, masked = kw.resident_device_mask(cmask)
+    row_mask = cmask[dense.row_chunk] if cmask is not None else None
+    # Per-side candidate depth and the dense sub-vector oversample match the
+    # host path (hybrid_search -> vector_search with its default oversample).
+    k_each = oversample * num_results
+    num_hits = corrected_num_hits(4, k_each, config)
+    results: list[tuple[list[ChunkId], list[float]]] = []
+    for start in range(0, len(queries), RESIDENT_BLOCK):
+        stop = start + RESIDENT_BLOCK
+        dense_side = dense.search_chunks_device(
+            embeddings[start:stop],
+            num_hits=min(num_hits, dense.num_rows),
+            num_results=min(k_each, n),
+            row_mask=row_mask,
+            adapter=adapter,
+        )
+        kw_side = kw.resident_block_device(
+            term_ids[start:stop], num_hits=min(k_each, n), mask=kw_mask, masked=masked
+        )
+        fused = rrf_fuse_topk(
+            dense_side,
+            kw_side,
+            num_chunks=n,
+            num_results=num_results,
+            w_dense=vector_search_weight,
+            w_kw=keyword_search_weight,
+        )
+        scores_b, ords_b = fetch_scored(*fused)  # ONE fetch for the whole block
+        for scores, ords in zip(scores_b, ords_b):
+            # ops/rrf.py pins empty/out-of-range slots to -1; the upper bound
+            # here keeps a regression a short list, not a host IndexError.
+            keep = (ords >= 0) & (ords < n)
+            results.append(([kw.chunk_ids[int(o)] for o in ords[keep]], [float(s) for s in scores[keep]]))
+    kw.last_route = "hybrid_fused"
+    return results
+
+
 def hybrid_search(  # noqa: PLR0913
     query: str,
     *,
@@ -187,9 +346,78 @@ def hybrid_search(  # noqa: PLR0913
     metadata_filter: MetadataFilter | None = None,
     config: RAGLiteConfig | None = None,
 ) -> tuple[list[ChunkId], list[float]]:
-    """Vector + keyword search fused with RRF: not ported yet."""
-    msg = "keyword and hybrid search are not ported yet (ROADMAP queue 1 item 6); pass search=vector_search"
-    raise NotImplementedError(msg)
+    """Vector + keyword search fused with RRF (reference: _search.py:257-280).
+
+    The common path runs entirely on the device (:func:`_hybrid_fused_batch`);
+    the host-RRF fallback covers inputs the resident postings can't serve.
+    """
+    config = config or RAGLiteConfig()
+    _self_query_unported(config)
+    metadata_filter = adapt_metadata(metadata_filter)
+    fused = _hybrid_fused_batch(
+        [query],
+        num_results=num_results,
+        oversample=oversample,
+        vector_search_weight=vector_search_weight,
+        keyword_search_weight=keyword_search_weight,
+        metadata_filter=metadata_filter,
+        config=config,
+    )
+    if fused is not None:
+        return fused[0]
+    vs_ids, _ = vector_search(
+        query, num_results=oversample * num_results, metadata_filter=metadata_filter, config=config
+    )
+    ks_ids, _ = keyword_search(
+        query, num_results=oversample * num_results, metadata_filter=metadata_filter, config=config
+    )
+    ids, scores = reciprocal_rank_fusion(
+        [vs_ids, ks_ids], weights=[vector_search_weight, keyword_search_weight]
+    )
+    return ids[:num_results], scores[:num_results]
+
+
+def hybrid_search_batch(  # noqa: PLR0913
+    queries: list[str],
+    *,
+    num_results: int = 3,
+    oversample: int = 2,
+    vector_search_weight: float = 0.75,
+    keyword_search_weight: float = 0.25,
+    metadata_filter: MetadataFilter | None = None,
+    config: RAGLiteConfig | None = None,
+) -> list[tuple[list[ChunkId], list[float]]]:
+    """Batched :func:`hybrid_search`: the fused device chain per block of
+    queries with one host fetch each; the fallback runs the two batched
+    halves and fuses on the host."""
+    config = config or RAGLiteConfig()
+    if not queries:
+        return []
+    _self_query_unported(config)
+    fused = _hybrid_fused_batch(
+        queries,
+        num_results=num_results,
+        oversample=oversample,
+        vector_search_weight=vector_search_weight,
+        keyword_search_weight=keyword_search_weight,
+        metadata_filter=adapt_metadata(metadata_filter),
+        config=config,
+    )
+    if fused is not None:
+        return fused
+    vector_results = vector_search_batch(
+        queries, num_results=oversample * num_results, metadata_filter=metadata_filter, config=config
+    )
+    keyword_results = keyword_search_batch(
+        queries, num_results=oversample * num_results, metadata_filter=metadata_filter, config=config
+    )
+    results: list[tuple[list[ChunkId], list[float]]] = []
+    for (vs_ids, _), (ks_ids, _) in zip(vector_results, keyword_results):
+        ids, scores = reciprocal_rank_fusion(
+            [vs_ids, ks_ids], weights=[vector_search_weight, keyword_search_weight]
+        )
+        results.append((ids[:num_results], scores[:num_results]))
+    return results
 
 
 def retrieve_chunks(

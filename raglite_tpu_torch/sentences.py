@@ -6,9 +6,8 @@ model that produces per-character boundary probabilities is replaced by a
 fast rule-based probability model (`heuristic_sentence_boundaries`); the
 optimization itself — maximize the sum of above-threshold boundary
 probabilities subject to min/max sentence lengths — is solved exactly with
-a sliding-window-maximum DP.  The JAX package also runs this DP in C++
-(raglite_tpu/native/postings.cpp); the port runs the Python DP, which that
-C++ code is held to.
+a sliding-window-maximum DP, in C++ (native/postings.cpp) when the native
+library builds, else in Python; the tests hold the two equal.
 """
 
 from __future__ import annotations
@@ -136,6 +135,13 @@ def _solve_boundaries(
     _split_sentences.py:115-131).  Uses a monotone-deque sliding-window
     maximum for O(n) (an infinite window degenerates to a running max).
     """
+    from raglite_tpu_torch.native import solve_boundaries as native_solve
+
+    native = native_solve(
+        np.asarray(probas), min_len=min_len, window=max_len, threshold=SENTENCE_THRESHOLD
+    )
+    if native is not False:  # C++ fast path (native/postings.cpp)
+        return native
     n = len(probas)
     window = max_len if max_len is not None else n + 1
     lo, hi = min_len - 1, n - min_len - 1

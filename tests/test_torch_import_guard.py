@@ -1,4 +1,5 @@
 """The PyTorch port stands alone: importing it (the retrieval modules, the
+keyword index with its native loader, BM25 and RRF ops, deletes, the
 decoder LLM, speculation, the LLM factory, rag and the attention ops) loads
 neither JAX nor the JAX package (nor markdown-it, tokenizers, msgpack or
 filelock on the in-memory path), its config asks for the card by default,
@@ -26,6 +27,8 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.models.decoder, raglite_tpu_torch.models.speculative
         import raglite_tpu_torch.models.llm, raglite_tpu_torch.rag
         import raglite_tpu_torch.ops.decode_attention, raglite_tpu_torch.ops.prefill_attention
+        import raglite_tpu_torch.native, raglite_tpu_torch.index.keyword, raglite_tpu_torch.delete
+        import raglite_tpu_torch.ops.bm25, raglite_tpu_torch.ops.rrf
         bad = [
             m for m in sys.modules
             if m in ("jax", "raglite_tpu") or m.startswith(("jax.", "raglite_tpu."))

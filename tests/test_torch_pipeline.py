@@ -5,8 +5,9 @@ Both packages get the same documents and the same f32 2-layer encoder (the
 JAX package's tiny preset; the port's encoder carries its weights over), so
 the host pipeline (sentences, chunklets, chunks, late chunking) must give
 identical chunk ids and bodies, embeddings within 1e-4, and the same
-search and rerank orders.  The JAX package may run its C++ sentence and
-chunklet DPs; the port runs the Python DPs they are held to.
+search and rerank orders.  Both packages run their C++ sentence and
+chunklet DPs (the port its own copy, held to its Python DPs in
+tests/test_torch_keyword.py).
 """
 
 import dataclasses
@@ -136,7 +137,11 @@ def test_batch_search_and_spans_match(configs) -> None:
     assert tspans[0].to_xml() == jspans[0].to_xml()
 
 
-def test_hybrid_search_is_not_ported_yet(configs) -> None:
-    _, tcfg = configs
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tsearch.search_and_rerank_chunks(QUERIES[0], config=tcfg)
+def test_search_and_rerank_defaults_to_hybrid(configs) -> None:
+    """``search_and_rerank_chunks`` with its default ``search`` (hybrid
+    search) gives the JAX package's chunks."""
+    jcfg, tcfg = configs
+    for query in QUERIES:
+        assert [c.id for c in tsearch.search_and_rerank_chunks(query, num_results=4, config=tcfg)] == [
+            c.id for c in jsearch.search_and_rerank_chunks(query, num_results=4, config=jcfg)
+        ]
