@@ -5,10 +5,15 @@ package imports neither JAX nor it (it reads only the packaged encoder's
 data files by path).  This version covers ingestion and deletes, vector
 search on the dense index (with hand-written CUDA C++ scan kernels in
 ``csrc/``), keyword (BM25) and hybrid search on the device over
-first-party C++ postings (``native/``), the MaxSim rerank and ``rag()``
+first-party C++ postings (``native/``), the MaxSim rerank, ``rag()``
 answers from the first-party decoder LLM (with hand-written CUDA C++
-attention kernels); see ROADMAP.md for what is still to be ported.  Entry
-points run on the card unless ``RAGLiteConfig(device="cpu")``.
+attention kernels), schema-constrained, forced-tool and batched generation,
+and structured extraction (``extract_with_llm``, ``expand_document_metadata``
+and self-query search); see ROADMAP.md for what is still to be ported.
+Entry points run on the card unless ``RAGLiteConfig(device="cpu")``.
+
+The two extraction entry points are exported lazily (module ``__getattr__``):
+they need pydantic, which ``import raglite_tpu_torch`` does not load.
 """
 
 from raglite_tpu_torch.config import RAGLiteConfig
@@ -54,6 +59,19 @@ __all__ = [
     "retrieve_context",
     "add_context",
     "rag",
+    "extract_with_llm",
+    "expand_document_metadata",
 ]
+
+_LAZY = {"extract_with_llm", "expand_document_metadata"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        from raglite_tpu_torch import extract
+
+        return getattr(extract, name)
+    msg = f"module {__name__!r} has no attribute {name!r}"
+    raise AttributeError(msg)
 
 __version__ = "0.1.0"

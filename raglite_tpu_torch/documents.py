@@ -76,10 +76,10 @@ class Document:
     ) -> "Document":
         """Create a document from a Markdown or plain-text file; id defaults
         to a content hash (reference: _database.py:105-149).  PDF and office
-        formats are not ported yet (ROADMAP queue 1 item 7)."""
+        formats are not ported yet (ROADMAP queue 1 item 3)."""
         doc_path = Path(doc_path)
         if doc_path.suffix.lower() not in (".md", ".markdown", ".txt", ""):
-            msg = f"{doc_path.suffix} documents are not ported yet (ROADMAP queue 1 item 7)"
+            msg = f"{doc_path.suffix} documents are not ported yet (ROADMAP queue 1 item 3)"
             raise NotImplementedError(msg)
         metadata = adapt_metadata(
             {

@@ -10,11 +10,16 @@ raglite_tpu/models/decoder.py).
   ops/prefill_attention.py) and their plain versions on the CPU;
 - ``TorchChatLLM``: the ``jax:<preset>`` provider of models/llm.py: ChatML
   prompts, unconstrained streamed generation with prompt-lookup speculation
-  for greedy decode (models/speculative.py), the tool-tag filter.
+  for greedy decode (models/speculative.py), the tool-tag filter,
+  schema-constrained decode (``response_format``) and forced tool calls over
+  the byte-level automata (models/json_automaton.py,
+  models/schema_automaton.py: a host loop, one forward and one logits fetch
+  a token), and batched generation (``complete_batch``: one ragged [B, T]
+  prefill, then the device chunk loop or batched speculation, or the
+  constrained host loop over [B, 1] forwards).
 
-Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints,
-``@int8`` weights, grammar-constrained decode and forced tool calls,
-batched generation.
+Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints and
+``@int8`` weights.
 """
 
 from __future__ import annotations
@@ -36,10 +41,13 @@ from raglite_tpu_torch.models.speculative import (
     _filtered_probs,
     speculate_chunk_device,
 )
+from raglite_tpu_torch.models.json_automaton import JsonAutomaton
+from raglite_tpu_torch.models.schema_automaton import SchemaAutomaton
 from raglite_tpu_torch.models.tokenizer import ByteTokenizer
 from raglite_tpu_torch.ops.decode_attention import gqa_decode_attention, gqa_verify_attention
 from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
 from raglite_tpu_torch.utils.padding import bucket as _bucket_any
+from raglite_tpu_torch.utils.padding import round_up
 
 __all__ = [
     "DECODE_CHUNK",
@@ -398,15 +406,44 @@ def _decode_chunk_device(  # noqa: PLR0913
     return out, cache, cache_lens, logits, done
 
 
+def _forward_one(model: DecoderModel, params, token: int, cache, cache_len: int) -> torch.Tensor:
+    """One-token decode forward at ``cache_len``; returns the logits [V]."""
+    device = cache["k"][0].device
+    ids = torch.tensor([[token]], dtype=torch.int64, device=device)
+    logits, _ = model.forward(params, ids, cache, cache_len)
+    return logits[0, -1]
+
+
+def _forward_step_batch(model: DecoderModel, params, tokens: torch.Tensor, cache, cache_lens: torch.Tensor) -> torch.Tensor:
+    """One decode step for a batch at per-row offsets; returns the logits
+    [B, V]."""
+    logits, _ = model.forward(params, tokens[:, None], cache, cache_lens)
+    return logits[:, -1]
+
+
+def _automaton_for(response_format: dict | None):
+    """The byte automaton a response format asks for: a SchemaAutomaton for
+    a ``json_schema`` with a schema, a JsonAutomaton for any other JSON
+    format, None for none."""
+    if not response_format:
+        return None
+    schema = (response_format.get("json_schema") or {}).get("schema")
+    if schema:
+        return SchemaAutomaton(schema)
+    if response_format.get("type") in ("json_object", "json_schema"):
+        return JsonAutomaton()
+    return None
+
+
 class TorchChatLLM:
     """Chat LLM over the port's decoder: the ``jax:<preset>`` provider
-    (ChatML prompts, streamed unconstrained generation, the
-    ``<tool_call>{json}</tool_call>`` tool protocol).  Weights are seeded
-    random at the preset's shapes."""
+    (ChatML prompts, streamed generation, the ``<tool_call>{json}</tool_call>``
+    tool protocol, JSON response formats and forced tool calls under the
+    byte automata, batched completion).  Weights are seeded random at the
+    preset's shapes."""
 
     supports_function_calling = True
-    #: JSON response formats need the grammar automata (not ported yet).
-    supports_response_format = False
+    supports_response_format = True
 
     _PRESETS = {
         "tiny": dict(layers=2, d_model=128, heads=4, kv_heads=2, d_ff=256, vocab=512, max_len=1024),
@@ -545,6 +582,71 @@ class TorchChatLLM:
             if fetched[-1]:
                 return
 
+    @staticmethod
+    def _sample_host(
+        logits: np.ndarray,
+        *,
+        temperature: float,
+        top_p: float,
+        top_k: int,
+        min_p: float,
+        rng: np.random.Generator,
+    ) -> int:
+        """Temperature, top-k, min-p and nucleus (top-p) sampling over one
+        logit vector on the host (the constrained loops' sampler; the JAX
+        package's, so equal logits and seed give equal tokens)."""
+        if temperature <= 0.0:
+            return int(np.argmax(logits))
+        finite = np.isfinite(logits)
+        scaled = np.where(finite, logits / max(temperature, 1e-4), -np.inf)
+        probs = np.exp(scaled - np.max(scaled[finite]))
+        probs = np.where(finite, probs, 0.0)
+        probs /= probs.sum()
+        if top_k and top_k > 0:
+            cutoff = np.partition(probs, -top_k)[-top_k]
+            probs = np.where(probs >= cutoff, probs, 0.0)
+        if min_p and min_p > 0.0:
+            probs = np.where(probs >= min_p * probs.max(), probs, 0.0)
+        if top_p and top_p < 1.0:
+            probs /= probs.sum()  # renormalize after top-k/min-p zeroing
+            order = np.argsort(probs)[::-1]
+            sorted_probs = probs[order]
+            csum = np.cumsum(sorted_probs)
+            # Keep every token whose PRECEDING mass is below top_p (the
+            # threshold-crossing token stays in the set).
+            keep = (csum - sorted_probs) < top_p
+            mask = np.zeros_like(probs, dtype=bool)
+            mask[order[keep]] = True
+            probs = np.where(mask, probs, 0.0)
+        probs /= probs.sum()
+        return int(rng.choice(len(probs), p=probs))
+
+    def _base_mask(self) -> np.ndarray:
+        """Additive logits mask [V] f32: only byte tokens and EOS are valid
+        outputs of the byte tokenizer."""
+        mask = np.full((self.cfg["vocab"],), -np.inf, dtype=np.float32)
+        mask[ByteTokenizer._OFFSET : ByteTokenizer._OFFSET + 256] = 0.0
+        mask[self.tokenizer.EOS] = 0.0
+        return mask
+
+    def _byte_mask(self, automaton) -> np.ndarray:
+        """Additive logits mask [V] f32 of the bytes ``automaton`` allows
+        next (and EOS where it may end)."""
+        mask = np.full((self.cfg["vocab"],), -np.inf, dtype=np.float32)
+        idx = np.fromiter((b + ByteTokenizer._OFFSET for b in automaton.allowed_bytes()), dtype=np.int64)
+        if idx.size:
+            mask[idx] = 0.0
+        if automaton.can_end():
+            mask[self.tokenizer.EOS] = 0.0
+        return mask
+
+    @staticmethod
+    def _speculate(temperature: float) -> bool:
+        """Greedy decode speculates unless ``RAGLITE_TPU_SPECULATE=0``;
+        sampled decode only with ``=always``/``=1``."""
+        spec_mode = os.environ.get("RAGLITE_TPU_SPECULATE", "auto")
+        return spec_mode != "0" and (temperature == 0.0 or spec_mode in ("1", "always"))
+
     def _generate_tokens(
         self,
         prompt: str,
@@ -558,12 +660,13 @@ class TorchChatLLM:
         automaton=None,
         seed: int = 0,
     ) -> Iterator[int]:
-        """Unconstrained generation of ``prompt``'s continuation (greedy
-        decode speculates unless ``RAGLITE_TPU_SPECULATE=0``; sampled decode
-        speculates only with ``=always``/``=1``)."""
-        if json_constrained or automaton is not None:
-            msg = "grammar-constrained decode (json/schema automata) is not ported: ROADMAP queue 1 item 7"
-            raise NotImplementedError(msg)
+        """Generation of ``prompt``'s continuation.  ``automaton`` (a
+        JsonAutomaton or SchemaAutomaton) constrains the byte stream, and
+        ``json_constrained`` is the schema-less shorthand: then each token is
+        sampled on the host under the automaton's mask, one forward and one
+        logits fetch a token, and a budget that runs out mid-document ends
+        with the automaton's closing bytes.  Unconstrained decode runs in
+        device chunks (greedy speculates; see :meth:`_speculate`)."""
         tok = self.tokenizer
         # Clamp the budget to the window, then keep the newest prompt tokens
         # that fit.
@@ -579,22 +682,244 @@ class TorchChatLLM:
         cache = self.model.init_cache(1, max_total, device=self.device)  # bf16, as the JAX package's
         lens = torch.tensor([len(ids)], dtype=torch.int64, device=self.device)
         last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, lens)
-        # Only byte tokens and EOS are valid outputs of the byte tokenizer.
-        mask = torch.full((self.cfg["vocab"],), -math.inf, dtype=torch.float32)
-        mask[tok._OFFSET : tok._OFFSET + 256] = 0.0
-        mask[tok.EOS] = 0.0
-        spec_mode = os.environ.get("RAGLITE_TPU_SPECULATE", "auto")
-        speculate = spec_mode != "0" and (temperature == 0.0 or spec_mode in ("1", "always"))
-        hist0 = None
-        if speculate:
-            hist0 = np.full((max_total,), tok.PAD, dtype=np.int64)
-            hist0[: len(ids)] = ids
-        yield from self._device_token_stream(
-            cache, lens, last, torch.zeros((1,), dtype=torch.bool, device=self.device),
-            max_new_tokens=max_new_tokens, logits_mask=mask.to(self.device),
-            temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
-            hist=hist0, hist_len=len(ids), speculate=speculate,
+        if automaton is None and json_constrained:
+            automaton = JsonAutomaton()
+        if automaton is None:
+            speculate = self._speculate(temperature)
+            hist0 = None
+            if speculate:
+                hist0 = np.full((max_total,), tok.PAD, dtype=np.int64)
+                hist0[: len(ids)] = ids
+            yield from self._device_token_stream(
+                cache, lens, last, torch.zeros((1,), dtype=torch.bool, device=self.device),
+                max_new_tokens=max_new_tokens, logits_mask=torch.from_numpy(self._base_mask()).to(self.device),
+                temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+                hist=hist0, hist_len=len(ids), speculate=speculate,
+            )
+            return
+        # Constrained: the first token from the prefill logits, then one
+        # forward and one fetch a token.
+        last_logits = last[0].cpu().numpy()
+        cache_len = len(ids)
+        rng = np.random.default_rng(seed)
+        for _ in range(max_new_tokens):
+            token = self._sample_host(
+                last_logits + self._byte_mask(automaton), temperature=temperature, top_p=top_p,
+                top_k=top_k, min_p=min_p, rng=rng,
+            )
+            if token in self._stop_ids:
+                break
+            yield token
+            if token >= ByteTokenizer._OFFSET:
+                automaton.feed(token - ByteTokenizer._OFFSET)
+                if automaton.done():
+                    return
+            last_logits = _forward_one(self.model, self.params, token, cache, cache_len).cpu().numpy()
+            cache_len += 1
+        # Budget exhausted (or EOS) mid-document: the closing suffix keeps
+        # constrained output valid JSON.
+        if not automaton.done():
+            for byte in automaton.completion_bytes():
+                yield byte + ByteTokenizer._OFFSET
+
+    def _generate_batch(
+        self,
+        prompts: list[str],
+        *,
+        max_new_tokens: int = 128,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        min_p: float = 0.0,
+        automatons: list | None = None,
+        seed: int = 0,
+    ) -> list[list[int]]:
+        """Generate for many prompts at once: one ragged [B, T] prefill
+        (rows of different lengths, each row's logits at its own last
+        position), then each row decodes at its own cache offset.  B is
+        padded to a multiple of 8 with rows that start done.  Unconstrained
+        batches decode on the device (:meth:`_generate_batch_device`);
+        constrained ones sample on the host row by row (one shared numpy
+        Generator, rows in order) over one [B, 1] forward a step.  Returns
+        one token list per prompt, automaton closing bytes included."""
+        tok = self.tokenizer
+        n = len(prompts)
+        if n == 0:
+            return []
+        max_new_tokens = max(1, min(max_new_tokens, self.context_size - 32))
+        budget = max(self.context_size - max_new_tokens - 1, 16)
+        encoded = [[tok.BOS, *tok.encode(p)[-budget:]] for p in prompts]
+        bpad = round_up(n, 8)
+        pad = _bucket(max(len(ids) for ids in encoded))
+        batch_ids = torch.full((bpad, pad), tok.PAD, dtype=torch.int64)
+        lens = torch.ones((bpad,), dtype=torch.int64)
+        for i, ids in enumerate(encoded):
+            batch_ids[i, : len(ids)] = torch.tensor(ids)
+            lens[i] = len(ids)
+        # DECODE_CHUNK headroom for speculative over-commit, as in the
+        # single-prompt path.
+        max_total = pad + _bucket(max_new_tokens) + DECODE_CHUNK
+        cache = self.model.init_cache(bpad, max_total, device=self.device)
+        cache_lens = lens.to(self.device)
+        last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, cache_lens)
+        if automatons is None or all(a is None for a in automatons):
+            speculate = self._speculate(temperature)
+            hist0 = None
+            if speculate:
+                hist0 = torch.full((bpad, max_total), tok.PAD, dtype=torch.int64)
+                hist0[:, :pad] = batch_ids
+            return self._generate_batch_device(
+                cache, cache_lens, last, n, bpad, max_new_tokens=max_new_tokens,
+                logits_mask=torch.from_numpy(self._base_mask()).to(self.device),
+                temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+                hist=hist0, hist_lens=lens if speculate else None, speculate=speculate,
+            )
+        base_mask = self._base_mask()
+        last_logits = last.cpu().numpy()
+        rng = np.random.default_rng(seed)
+        outputs: list[list[int]] = [[] for _ in range(n)]
+        done = np.zeros(bpad, dtype=bool)
+        done[n:] = True  # padding rows never generate
+        step_tokens = torch.full((bpad,), tok.PAD, dtype=torch.int64)
+        for _ in range(max_new_tokens):
+            for i in range(n):
+                if done[i]:
+                    continue
+                automaton = automatons[i]
+                mask = self._byte_mask(automaton) if automaton is not None else base_mask
+                token = self._sample_host(
+                    last_logits[i] + mask, temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, rng=rng,
+                )
+                if token in self._stop_ids:
+                    done[i] = True
+                    continue
+                outputs[i].append(token)
+                step_tokens[i] = token
+                if automaton is not None and token >= ByteTokenizer._OFFSET:
+                    automaton.feed(token - ByteTokenizer._OFFSET)
+                    if automaton.done():
+                        done[i] = True
+            if done.all():
+                break
+            logits = _forward_step_batch(self.model, self.params, step_tokens.to(self.device), cache, cache_lens)
+            last_logits = logits.cpu().numpy()
+            cache_lens = cache_lens + 1
+        for i, automaton in enumerate(automatons):
+            if automaton is not None and not automaton.done():
+                outputs[i].extend(byte + ByteTokenizer._OFFSET for byte in automaton.completion_bytes())
+        return outputs
+
+    def _generate_batch_device(  # noqa: PLR0913
+        self,
+        cache,
+        cache_lens: torch.Tensor,
+        first_logits: torch.Tensor,
+        n: int,
+        bpad: int,
+        *,
+        max_new_tokens: int,
+        logits_mask: torch.Tensor,
+        temperature: float,
+        top_p: float,
+        top_k: int,
+        min_p: float,
+        seed: int,
+        hist: torch.Tensor | None = None,
+        hist_lens: torch.Tensor | None = None,
+        speculate: bool = False,
+    ) -> list[list[int]]:
+        """Batched decode on the device in DECODE_CHUNK chunks, one fetch a
+        chunk for the whole batch; padding rows start done.  With
+        ``speculate`` each chunk runs batched prompt-lookup speculation: rows
+        accept drafts at their own rates, freeze on their own and emit
+        different counts a chunk, so budgets are kept on the host and rows
+        at their budget are marked done on the device."""
+        stops = self._stop_ids_device()
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        done = torch.arange(bpad, device=self.device) >= n
+        outputs: list[list[int]] = [[] for _ in range(n)]
+        finished = np.zeros(n, dtype=bool)
+        last = first_logits
+
+        def fetch(out: torch.Tensor, done: torch.Tensor) -> tuple[list[list[int]], list[int]]:
+            rows = torch.cat([out[:n], done[:n, None].to(out.dtype)], dim=1).tolist()  # the chunk's one fetch
+            return [r[:-1] for r in rows], [r[-1] for r in rows]
+
+        if speculate and hist is not None:
+            hist_dev = hist.to(self.device)
+            hl = hist_lens.to(self.device)
+            reject = torch.full((bpad,), -1, dtype=torch.int64, device=self.device)
+            while not finished.all():
+                out, cache, cache_lens, last, reject, done, hist_dev, hl, _ = speculate_chunk_device(
+                    self.model, cache, self.params, cache_lens, last, reject, logits_mask, done,
+                    stops, gen, hist_dev, hl,
+                    num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(self.tokenizer.PAD),
+                    temperature=float(temperature), top_p=float(top_p), top_k=int(top_k), min_p=float(min_p),
+                )
+                tokens, done_rows = fetch(out, done)
+                progressed = False
+                for i in range(n):
+                    if finished[i]:
+                        continue
+                    room = max_new_tokens - len(outputs[i])
+                    for token in tokens[i][:room]:
+                        if token == _NO_TOKEN:
+                            break
+                        outputs[i].append(int(token))
+                        progressed = True
+                    if done_rows[i] or len(outputs[i]) >= max_new_tokens:
+                        finished[i] = True
+                if not progressed or finished.all():  # nothing new: every live row is stuck
+                    break
+                # Rows at their budget stop verifying.
+                done = done | torch.from_numpy(np.concatenate([finished, np.ones(bpad - n, bool)])).to(self.device)
+            return outputs
+        emitted = 0
+        while emitted < max_new_tokens and not finished.all():
+            out, cache, cache_lens, last, done = _decode_chunk_device(
+                self.model, cache, self.params, cache_lens, last, logits_mask, done, stops, gen,
+                num_steps=DECODE_CHUNK, temperature=float(temperature), top_p=float(top_p),
+                top_k=int(top_k), min_p=float(min_p),
+            )
+            tokens, done_rows = fetch(out, done)
+            room = max_new_tokens - emitted
+            for i in range(n):
+                if finished[i]:
+                    continue
+                for token in tokens[i][:room]:
+                    if token == _NO_TOKEN:
+                        finished[i] = True
+                        break
+                    outputs[i].append(int(token))
+            emitted += min(DECODE_CHUNK, room)
+            finished |= np.asarray(done_rows, dtype=bool)
+        return outputs
+
+    def complete_batch(
+        self,
+        messages_batch: list[list[dict[str, Any]]],
+        *,
+        response_format: dict[str, Any] | None = None,
+        **sampling: Any,
+    ):
+        """Batched :meth:`complete` (no tools): B conversations share one
+        prefill and one forward a decode step.  A JSON ``response_format``
+        gives every row its own automaton."""
+        from raglite_tpu_torch.models.llm import ChatResponse
+
+        prompts = [self._format_messages(m, None) for m in messages_batch]
+        automatons = [_automaton_for(response_format) for _ in prompts]
+        token_lists = self._generate_batch(
+            prompts,
+            max_new_tokens=_max_new(sampling, 512),
+            temperature=float(sampling.get("temperature", 0.0)),
+            top_p=float(sampling.get("top_p", 1.0)),
+            top_k=int(sampling.get("top_k", 0)),
+            min_p=float(sampling.get("min_p", 0.0)),
+            automatons=automatons,
+            seed=int(sampling.get("seed", 0)),
         )
+        return [ChatResponse(content="".join(self._decode_stream(iter(tokens))) or None) for tokens in token_lists]
 
     # --- LLM protocol -----------------------------------------------------
 
@@ -612,14 +937,43 @@ class TorchChatLLM:
         if buffer:
             yield buffer.decode("utf-8", errors="replace")
 
+    def _forced_tool_call(self, messages, tools, tool_choice, sampling):
+        """A tool call forced in two constrained phases: the tool's name (an
+        enum automaton, skipped when ``tool_choice`` names it or one tool is
+        offered), then its arguments under the tool's parameter schema."""
+        from raglite_tpu_torch.models.llm import ToolCall
+
+        by_name = {t["function"]["name"]: t for t in tools}
+        if isinstance(tool_choice, dict):
+            name = tool_choice.get("function", {}).get("name") or next(iter(by_name))
+        elif len(by_name) == 1:
+            name = next(iter(by_name))
+        else:
+            prompt = self._format_messages(messages, tools) + "Choose a tool.\n"
+            chooser = SchemaAutomaton({"type": "object", "properties": {"name": {"enum": list(by_name)}}})
+            tokens = self._generate_tokens(prompt, max_new_tokens=64, temperature=0.0, automaton=chooser)
+            name = json.loads("".join(self._decode_stream(tokens))).get("name", next(iter(by_name)))
+        tool = by_name.get(name) or next(iter(by_name.values()))
+        schema = tool["function"].get("parameters") or {"type": "object"}
+        prompt = self._format_messages(messages, tools) + f"Arguments for {name}:\n"
+        tokens = self._generate_tokens(
+            prompt,
+            max_new_tokens=_max_new(sampling, 128),
+            temperature=float(sampling.get("temperature", 0.0)),
+            json_constrained=True,
+            automaton=SchemaAutomaton(schema),
+        )
+        arguments = "".join(self._decode_stream(tokens))
+        return ToolCall(id=f"call_{uuid.uuid4().hex[:8]}", name=name, arguments=arguments)
+
     def stream(self, messages, *, tools=None, tool_choice=None, **sampling):
         from raglite_tpu_torch.models.llm import ToolCall
 
         if tool_choice == "none":
             tools = None  # "none" produces no tool calls: no manifest, no parsing
         if tools and (tool_choice == "required" or isinstance(tool_choice, dict)):
-            msg = "forced tool calls need the grammar automata, not ported: ROADMAP queue 1 item 7"
-            raise NotImplementedError(msg)
+            yield self._forced_tool_call(messages, tools, tool_choice, sampling)
+            return
         prompt = self._format_messages(messages, tools)
         text_parts: list[str] = []
         # Incremental tool-tag filter: text inside <tool_call>...</tool_call>
@@ -699,8 +1053,17 @@ class TorchChatLLM:
         from raglite_tpu_torch.models.llm import ChatResponse, ToolCall
 
         if response_format is not None:
-            msg = "response_format needs the grammar automata, not ported: ROADMAP queue 1 item 7"
-            raise NotImplementedError(msg)
+            # Any response format constrains to JSON; a json_schema with a
+            # schema, to that schema.
+            prompt = self._format_messages(messages, tools) + "Respond with a JSON object.\n"
+            tokens = self._generate_tokens(
+                prompt,
+                max_new_tokens=_max_new(sampling, 256),
+                temperature=float(sampling.get("temperature", 0.0)),
+                json_constrained=True,
+                automaton=_automaton_for(response_format),
+            )
+            return ChatResponse(content="".join(self._decode_stream(tokens)))
         parts: list[str] = []
         tool_calls: list[ToolCall] = []
         for item in self.stream(messages, tools=tools, tool_choice=tool_choice, **sampling):

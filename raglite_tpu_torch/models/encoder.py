@@ -5,13 +5,17 @@ kept so configs map one to one) runs the PyTorch ``EncoderModel`` on the
 configured device, with token-level outputs for late chunking and a
 device-resident MaxSim rerank.  ``"flax:sem"`` is the packaged 8-layer,
 d=768 semantic encoder; its weights are read by path from the JAX package's
-data directory.  ``HashEncoder`` ("hash:") and ``OpenAICompatEncoder``
-("openai:") are not ported yet (ROADMAP queue 1 item 2).
+data directory.  ``HashEncoder`` ("hash:<dim>") is the weightless
+feature-hashing encoder of the hermetic configs, over the JAX package's own
+Gaussian table (models/hash_table.py).  ``OpenAICompatEncoder`` ("openai:")
+is not ported yet (ROADMAP queue 1 item 2).
 """
 
 from __future__ import annotations
 
 import os
+import re
+import zlib
 from functools import lru_cache
 from pathlib import Path
 from typing import Protocol
@@ -22,7 +26,7 @@ import torch
 from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
-__all__ = ["Encoder", "TransformerEncoder", "encoder_from_config", "embedding_dim"]
+__all__ = ["Encoder", "HashEncoder", "TransformerEncoder", "encoder_from_config", "embedding_dim", "hash_pool_plain"]
 
 #: The JAX package's packaged encoder (encoder.npz, tokenizer.json, config.json).
 PACKAGED_ENCODER_DIR = (
@@ -46,6 +50,167 @@ class Encoder(Protocol):
     def embed(self, texts: list[str]) -> np.ndarray:
         """Mean-pooled embeddings [len(texts), dim]."""
         ...
+
+
+# --- Hash encoder -------------------------------------------------------------
+
+_TOKEN_RE = re.compile(r"\w+|[^\w\s]", re.UNICODE)
+
+
+@lru_cache(maxsize=2)
+def _hash_table(seed: int, rows: int, dim: int) -> np.ndarray:
+    """The f32 table per (seed, rows, dim), drawn once a process: in C++,
+    or in numpy without the native library (models/hash_table.py)."""
+    from raglite_tpu_torch.models.hash_table import normal_table_np
+    from raglite_tpu_torch.native import normal_table
+
+    table = normal_table(seed, rows, dim)
+    return table if table is not None else normal_table_np(seed, rows, dim)
+
+
+def _hash_pool(table: torch.Tensor, ids: torch.Tensor, signs: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
+    """Token embeddings [n, d] f32 on the table's device: the signed sum of
+    each token's feature rows (features ``bounds[t]:bounds[t + 1]``), L2
+    normalised (norm floored at 1e-6), as the JAX package's ``_hash_pool``.
+    Deterministic: tokens are grouped by their feature count rounded up to a
+    power of two, each group's rows gathered into [tokens, count, d] (a pad
+    slot reads the zero row appended to ``ids``) and summed along the count
+    axis; no atomics."""
+    counts = np.diff(bounds)
+    n = counts.size
+    device = table.device
+    zero_slot = ids.numel()  # rows/signs get one zero entry appended here
+    rows = table[torch.cat([ids, ids.new_zeros(1)])].to(torch.float32)
+    rows = rows * torch.cat([signs, signs.new_zeros(1)])[:, None]
+    out = torch.empty((n, table.shape[1]), dtype=torch.float32, device=device)
+    width = 1 << np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64)
+    for w in np.unique(width):
+        members = np.nonzero(width == w)[0]
+        slot = bounds[members][:, None] + np.arange(w)[None, :]
+        slot = np.where(np.arange(w)[None, :] < counts[members][:, None], slot, zero_slot)
+        gathered = rows[torch.from_numpy(slot).to(device)]  # [m, w, d]
+        out[torch.from_numpy(members).to(device)] = gathered.sum(dim=1)
+    norm = torch.linalg.vector_norm(out, dim=1, keepdim=True)
+    return out / torch.clamp(norm, min=1e-6)
+
+
+def hash_pool_plain(table: np.ndarray, ids: np.ndarray, signs: np.ndarray, bounds: np.ndarray) -> np.ndarray:
+    """The plain version of the device pool: f64 on the host, one token at a
+    time (``table`` rows as given, e.g. the bf16 table's values)."""
+    rows = table[ids].astype(np.float64) * signs[:, None]
+    out = np.stack([rows[a:b].sum(axis=0) for a, b in zip(bounds[:-1], bounds[1:])])
+    return out / np.maximum(np.linalg.norm(out, axis=1, keepdims=True), 1e-6)
+
+
+class HashEncoder:
+    """Deterministic feature-hashing encoder (``hash:<dim>``).
+
+    A token's features are the word itself and, for words of three or more
+    characters, the character trigrams of ``#word#``; each hashes (crc32) to
+    a row of a fixed Gaussian table with a sign from the hash's top bit.  A
+    token's embedding is the L2-normalised signed sum of its rows; a text's
+    embedding is the mean of its tokens'.  The table is the JAX package's
+    ``jax.random.normal(PRNGKey(seed), (2**vocab_bits, dim))``, bit for bit.
+    As in the JAX package, a CUDA device keeps it in bf16 and pools there (a
+    gather and a segment sum); the CPU keeps it in f32 and pools in C++
+    (``native.hash_embed``).
+    """
+
+    supports_token_embeddings = True
+
+    def __init__(
+        self,
+        dim: int = 1024,
+        *,
+        vocab_bits: int = 16,
+        max_tokens: int = 8192,
+        seed: int = 0,
+        device: torch.device | str = "cuda",
+    ) -> None:
+        self.dim = dim
+        self.max_tokens = max_tokens
+        self._mask = (1 << vocab_bits) - 1
+        self.device = torch.device(device)
+        self._table_np = _hash_table(seed, 1 << vocab_bits, dim)
+        self._table = (
+            torch.from_numpy(self._table_np).to(self.device, torch.bfloat16)
+            if self.device.type == "cuda"
+            else torch.from_numpy(self._table_np)
+        )
+
+    def _features(self, token: str) -> tuple[list[int], list[float]]:
+        """Python featurizer (the fallback without the native library)."""
+        feats = [token]
+        padded = f"#{token}#"
+        if len(token) > 2:
+            feats.extend(padded[i : i + 3] for i in range(len(padded) - 2))
+        ids, signs = [], []
+        for f in feats:
+            h = zlib.crc32(f.encode("utf-8"))
+            ids.append(h & self._mask)
+            signs.append(1.0 if (h >> 31) & 1 else -1.0)
+        return ids, signs
+
+    def _featurize(self, text: str) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
+        """(feature ids int32, signs f32, per-token feature bounds int64 [n +
+        1], n tokens): the C++ featurizer, else the Python one."""
+        from raglite_tpu_torch.native import hash_featurize
+
+        native = hash_featurize(text, max_tokens=self.max_tokens, mask=self._mask)
+        if native is not None:
+            return native
+        tokens = _TOKEN_RE.findall(text.lower())[: self.max_tokens]
+        ids: list[int] = []
+        signs: list[float] = []
+        bounds = [0]
+        for token in tokens:
+            f_ids, f_signs = self._features(token)
+            ids.extend(f_ids)
+            signs.extend(f_signs)
+            bounds.append(len(ids))
+        return (
+            np.asarray(ids, dtype=np.int32),
+            np.asarray(signs, dtype=np.float32),
+            np.asarray(bounds, dtype=np.int64),
+            len(tokens),
+        )
+
+    def count_tokens(self, texts: list[str]) -> list[int]:
+        from raglite_tpu_torch.native import count_tokens as native_count
+
+        counts = []
+        for text in texts:
+            n = native_count(text)
+            counts.append(n if n is not None else len(_TOKEN_RE.findall(text.lower())))
+        return counts
+
+    @torch.inference_mode()
+    def embed_token_level(self, text: str) -> np.ndarray:
+        if self.device.type == "cpu":
+            from raglite_tpu_torch.native import hash_embed
+
+            native = hash_embed(text, self._table_np, max_tokens=self.max_tokens, mask=self._mask)
+            if native is not None:
+                return native
+        ids, signs, bounds, n = self._featurize(text)
+        if n == 0:
+            return np.zeros((0, self.dim), dtype=np.float32)
+        out = _hash_pool(
+            self._table,
+            torch.from_numpy(ids.astype(np.int64)).to(self.device),
+            torch.from_numpy(signs).to(self.device),
+            bounds,
+        )
+        return out.cpu().numpy()
+
+    def embed(self, texts: list[str]) -> np.ndarray:
+        """Mean of each text's token embeddings [len(texts), dim] f32."""
+        out = np.zeros((len(texts), self.dim), dtype=np.float32)
+        for i, text in enumerate(texts):
+            tok = self.embed_token_level(text)
+            if tok.shape[0]:
+                out[i] = tok.mean(axis=0)
+        return out
 
 
 class TransformerEncoder:
@@ -276,12 +441,14 @@ def _random_encoder(cfg: dict, *, dtype: torch.dtype, seed: int):
 @lru_cache(maxsize=4)
 def _make_encoder(embedder: str, device: str) -> Encoder:
     kind, _, arg = embedder.partition(":")
+    if kind == "hash":
+        return HashEncoder(dim=int(arg) if arg else 1024, device=device)
     if kind == "flax":
         return TransformerEncoder(arg or "tiny", device=device)
-    if kind in ("hash", "openai"):
-        msg = f"the {kind!r} embedder is not ported yet (ROADMAP queue 1 item 2)"
+    if kind == "openai":
+        msg = "the 'openai' embedder is not ported yet (ROADMAP queue 1 item 2)"
         raise NotImplementedError(msg)
-    msg = f"unknown embedder {embedder!r} (expected 'flax:<preset|path>')"
+    msg = f"unknown embedder {embedder!r} (expected 'hash:<dim>' or 'flax:<preset|path>')"
     raise ValueError(msg)
 
 

@@ -8,12 +8,12 @@ config carries across unchanged:
   then answers from retrieved context) and satisfies JSON response formats
   with schema-conforming output.
 - ``jax:<preset>``: the port's own decoder (models/decoder.py:TorchChatLLM)
-  on ``config.device``, one instance per (spec, device).  The name stays
+  on ``config.device``, one instance per (spec, device), with JSON response
+  formats, forced tool calls and ``complete_batch``.  The name stays
   ``jax:`` because the configs name the model, not the framework.
 
 Not ported yet (ROADMAP queue 1 items 7 and 9): ``openai:`` endpoints,
-``hf:``/``ckpt:`` checkpoints, ``@int8`` weights, response formats and
-forced tool calls on the decoder.
+``hf:``/``ckpt:`` checkpoints and ``@int8`` weights.
 """
 
 from __future__ import annotations

@@ -5,10 +5,12 @@ raglite_tpu/native/__init__.py, which the port never imports):
 
 - ``postings.cpp``: the inverted-index builder (UTF-8 tokenizer, term
   dictionary, CSR postings export, binary serialization) that feeds the
-  device BM25 (ops/bm25.py), and the C++ fast paths of the sentence and
-  chunklet DPs (sentences.py, chunklets.py).
+  device BM25 (ops/bm25.py), the C++ fast paths of the sentence and
+  chunklet DPs (sentences.py, chunklets.py), and the hash encoder's
+  featurizer, CPU embedding and table draw (models/encoder.py,
+  models/hash_table.py).
 
-The library is built with ``g++ -O3 -shared -fPIC -std=c++17`` at first use
+The library is built with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
 into ``raglite_tpu_torch/_build/``, beside the CUDA kernels, under a file
 lock (several processes may start at once) and moved into place whole.  If
 the build fails (no toolchain), callers take the pure-Python
@@ -46,7 +48,7 @@ def _compile() -> Path | None:
         if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SOURCE.stat().st_mtime:
             return _LIB_PATH
         tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", str(_SOURCE), "-o", str(tmp)]
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", str(_SOURCE), "-o", str(tmp)]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         except (subprocess.SubprocessError, FileNotFoundError) as exc:
@@ -102,6 +104,13 @@ def load_native() -> ctypes.CDLL | None:
         lib.rlt_solve_boundaries.restype = c_i64
         lib.rlt_split_chunklets.argtypes = [c_void] * 4 + [c_i64, c_i64, c_void]
         lib.rlt_split_chunklets.restype = c_i64
+        c_u32 = ctypes.c_uint32
+        lib.rlt_hash_featurize.argtypes = [c_char_p, c_i64, c_i32, c_u32, c_void, c_void, c_void, c_i64]
+        lib.rlt_hash_featurize.restype = c_i32
+        lib.rlt_hash_embed.argtypes = [c_char_p, c_i64, c_i32, c_u32, c_void, c_i32, c_void]
+        lib.rlt_hash_embed.restype = c_i32
+        lib.rlt_normal_table.argtypes = [c_i64, c_i64, c_i64, c_void]
+        lib.rlt_normal_table.restype = None
         _LIB = lib
         return _LIB
 
@@ -256,3 +265,55 @@ def count_tokens(text: str) -> int | None:
         return None
     data = text.lower().encode("utf-8")
     return int(lib.rlt_count_tokens(data, len(data)))
+
+
+def hash_featurize(
+    text: str, *, max_tokens: int, mask: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, int] | None:
+    """C++ featurizer of the hash encoder (models/encoder.py:HashEncoder):
+    (feature ids int32, signs f32, per-token feature bounds int64 [n + 1],
+    n tokens), or None when the native library is unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    data = text.lower().encode("utf-8")
+    cap = 2 * len(data) + 64  # a token of c codepoints has at most c + 1 features
+    token_cap = min(max_tokens, max(len(data), 1))  # a token takes >= 1 byte
+    ids = np.empty(cap, np.int32)
+    signs = np.empty(cap, np.float32)
+    bounds = np.zeros(token_cap + 1, np.int64)
+    n = lib.rlt_hash_featurize(data, len(data), token_cap, mask, ids.ctypes.data, signs.ctypes.data, bounds.ctypes.data, cap)
+    if n < 0:
+        msg = "hash featurizer: feature buffer too small"
+        raise RuntimeError(msg)
+    total = int(bounds[n])
+    return ids[:total], signs[:total], bounds[: n + 1], int(n)
+
+
+def hash_embed(text: str, table: np.ndarray, *, max_tokens: int, mask: int) -> np.ndarray | None:
+    """Fused C++ hash embedding (tokenize, hash, signed row sums, L2 norm in
+    one pass); ``table`` is C-contiguous f32 [mask + 1, dim].  Returns [n
+    tokens, dim] f32, or None when the native library is unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    if table.dtype != np.float32 or not table.flags.c_contiguous:
+        msg = "hash_embed needs a C-contiguous float32 table"
+        raise ValueError(msg)
+    data = text.lower().encode("utf-8")
+    row_cap = min(max_tokens, max(len(data), 1))
+    out = np.zeros((row_cap, table.shape[1]), np.float32)
+    n = lib.rlt_hash_embed(data, len(data), row_cap, mask, table.ctypes.data, table.shape[1], out.ctypes.data)
+    return out[:n]
+
+
+def normal_table(seed: int, rows: int, dim: int) -> np.ndarray | None:
+    """``jax.random.normal(PRNGKey(seed), (rows, dim), float32)`` drawn in
+    C++ on all cores (models/hash_table.py); None when the native library is
+    unavailable."""
+    lib = load_native()
+    if lib is None:
+        return None
+    out = np.empty((rows, dim), np.float32)
+    lib.rlt_normal_table(int(seed), int(rows), int(dim), out.ctypes.data)
+    return out

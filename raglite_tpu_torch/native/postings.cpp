@@ -26,6 +26,7 @@
 #include <cstdio>
 #include <string>
 #include <string_view>
+#include <thread>
 #include <unordered_map>
 #include <vector>
 
@@ -612,6 +613,124 @@ void* rlt_builder_load(const char* data, int64_t len) {
     }
   }
   return b;
+}
+
+}  // extern "C"
+
+// The hash encoder's Gaussian table (raglite_tpu_torch/models/hash_table.py,
+// which holds the same arithmetic in numpy and says where each step comes
+// from): jax.random.normal(PRNGKey(seed), (rows, dim), float32) bit for bit.
+// threefry-2x32 bits of each flat index, a uniform on (nextafter(-1, 0), 1),
+// then sqrt(2) * erf_inv(u) with XLA's CPU polynomials for erf_inv, log1p and
+// log, fused multiply-adds (std::fma, rounded once) exactly where XLA fuses
+// them and nowhere else (ISO C++ mode: no contraction by the compiler).
+namespace {
+
+inline uint32_t rotl32(uint32_t x, int r) { return (x << r) | (x >> (32 - r)); }
+
+inline uint32_t threefry_bits(uint32_t k0, uint32_t k1, uint64_t index) {
+  static const int kRot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  uint32_t x0 = static_cast<uint32_t>(index >> 32) + ks[0];
+  uint32_t x1 = static_cast<uint32_t>(index) + ks[1];
+  for (int i = 0; i < 5; ++i) {
+    for (int r : kRot[i % 2]) {
+      x0 += x1;
+      x1 = rotl32(x1, r) ^ x0;
+    }
+    x0 += ks[(i + 1) % 3];
+    x1 += ks[(i + 2) % 3] + static_cast<uint32_t>(i + 1);
+  }
+  return x0 ^ x1;
+}
+
+inline float bits_float(uint32_t b) { float f; std::memcpy(&f, &b, 4); return f; }
+inline uint32_t float_bits(float f) { uint32_t b; std::memcpy(&b, &f, 4); return b; }
+
+float xla_log(float x) {
+  const float p[9] = {7.0376836292e-2f, -1.1514610310e-1f, 1.1676998740e-1f,
+                      -1.2420140846e-1f, 1.4249322787e-1f, -1.6668057665e-1f,
+                      2.0000714765e-1f, -2.4999993993e-1f, 3.3333331174e-1f};
+  const uint32_t bits = float_bits(std::max(x, bits_float(0x00800000u)));
+  float e = 1.0f + static_cast<float>(static_cast<int32_t>(bits >> 23) - 0x7f);
+  const float m = bits_float((bits & ~0x7f800000u) | float_bits(0.5f));
+  const bool low = m < 0.707106781186547524f;
+  e -= low ? 1.0f : 0.0f;
+  const float t = (m - 1.0f) + (low ? m : 0.0f);
+  const float x2 = t * t;
+  const float x3 = x2 * t;
+  float y = std::fma(std::fma(t, p[0], p[1]), t, p[2]);
+  const float y1 = std::fma(std::fma(t, p[3], p[4]), t, p[5]);
+  const float y2 = std::fma(std::fma(t, p[6], p[7]), t, p[8]);
+  y = std::fma(y, x3, y1);
+  y = std::fma(y, x3, y2);
+  y = std::fma(y, x3, -2.12194440e-4f * e);
+  return ((t - 0.5f * x2) + y) + 0.693359375f * e;
+}
+
+float xla_log1p(float x) {
+  if (!(std::fabs(x) < 0.41421356237309504880f)) return xla_log(x + 1.0f);
+  static const double kNum[7] = {
+      4.5270000862445199635215e-5, 4.9854102823193375972212e-1, 6.5787325942061044846969e0,
+      2.9911919328553073277375e1, 6.0949667980987787057556e1, 5.7112963590585538103336e1,
+      2.0039553499201281259648e1};
+  static const double kDen[7] = {
+      1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1, 2.2176239823732856465394e2,
+      3.0909872225312059774938e2, 2.1642788614495947685003e2, 6.0118660497603843919306e1};
+  float num = 0.0f, den = 0.0f;
+  for (int k = 0; k < 7; ++k) {
+    num = std::fma(num, x, static_cast<float>(kNum[k]));
+    den = std::fma(den, x, static_cast<float>(kDen[k]));
+  }
+  const float x2 = x * x;
+  const float small = (x * x2) * (num / den);
+  return x + std::fma(-0.5f, x2, small);
+}
+
+float xla_erf_inv(float x) {
+  static const float kLt5[9] = {2.81022636e-08f, 3.43273939e-07f, -3.5233877e-06f,
+                                -4.39150654e-06f, 0.00021858087f, -0.00125372503f,
+                                -0.00417768164f, 0.246640727f, 1.50140941f};
+  static const float kGe5[9] = {-0.000200214257f, 0.000100950558f, 0.00134934322f,
+                                -0.00367342844f, 0.00573950773f, -0.0076224613f,
+                                0.00943887047f, 1.00167406f, 2.83297682f};
+  float w = -xla_log1p(x * -x);
+  const bool lt = w < 5.0f;
+  const float* c = lt ? kLt5 : kGe5;
+  w = lt ? w - 2.5f : std::sqrt(w) - 3.0f;
+  float p = c[0];
+  for (int k = 1; k < 9; ++k) p = std::fma(p, w, c[k]);
+  return p * x;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Fills out[0 .. rows * dim) with the table; seed is JAX's PRNGKey seed.
+void rlt_normal_table(int64_t seed, int64_t rows, int64_t dim, float* out) {
+  const uint32_t k0 = static_cast<uint32_t>(static_cast<uint64_t>(seed) >> 32);
+  const uint32_t k1 = static_cast<uint32_t>(seed);
+  const int64_t n = rows * dim;
+  const float lo = std::nextafter(-1.0f, 0.0f);
+  const float span = 1.0f - lo;  // 2.0f in f32, as XLA computes it
+  const float sqrt2 = static_cast<float>(std::sqrt(2.0));
+  auto work = [&](int64_t begin, int64_t end) {
+    for (int64_t i = begin; i < end; ++i) {
+      const uint32_t b = threefry_bits(k0, k1, static_cast<uint64_t>(i));
+      const float f = bits_float((b >> 9) | float_bits(1.0f)) - 1.0f;
+      const float u = std::max(lo, f * span + lo);
+      out[i] = sqrt2 * xla_erf_inv(u);
+    }
+  };
+  const int64_t threads = std::max<int64_t>(1, std::min<int64_t>(
+      std::thread::hardware_concurrency(), n / (1 << 20)));
+  std::vector<std::thread> pool;
+  for (int64_t t = 1; t < threads; ++t) {
+    pool.emplace_back(work, n * t / threads, n * (t + 1) / threads);
+  }
+  work(0, n / threads);
+  for (auto& th : pool) th.join();
 }
 
 }  // extern "C"

@@ -14,13 +14,16 @@ of raglite_tpu/search.py).
   (models/encoder.py:TransformerEncoder.rerank_maxsim), selected per
   language, in place of the reference's cross-encoders.
 
-The self-query filter is not ported yet (it needs the LLM extraction
-surface, ROADMAP queue 1 item 7): a config with ``self_query`` raises.
+With ``config.self_query`` every search first asks the LLM for a metadata
+filter (extract.py:self_query_filter, imported at that call only: it loads
+pydantic) and merges it under the caller's; the batch forms then serve
+their queries one by one.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
+from dataclasses import replace
 from itertools import groupby
 from typing import Any
 
@@ -52,10 +55,11 @@ __all__ = [
 ]
 
 
-def _self_query_unported(config: RAGLiteConfig) -> None:
-    if config.self_query:
-        msg = "self_query needs the LLM extraction surface (ROADMAP queue 1 item 7)"
-        raise NotImplementedError(msg)
+def _with_self_query(query: str, metadata_filter: MetadataFilter | None, config: RAGLiteConfig) -> MetadataFilter | None:
+    """The LLM-extracted filter of ``query`` merged under the caller's."""
+    from raglite_tpu_torch.extract import self_query_filter
+
+    return {**self_query_filter(query, config=config), **(metadata_filter or {})}
 
 
 def _chunk_mask(store, metadata_filter: MetadataFilter) -> np.ndarray:
@@ -92,8 +96,8 @@ def vector_search(
     config = config or RAGLiteConfig()
     store = store_from_config(config)
     metadata_filter = adapt_metadata(metadata_filter)
-    if isinstance(query, str):
-        _self_query_unported(config)
+    if config.self_query and isinstance(query, str):
+        metadata_filter = _with_self_query(query, metadata_filter, config)
     # Embed the query (reference: _search.py:54-56).
     query_embedding = (
         embed_strings([query], config=config)[0, :].astype(np.float32)
@@ -149,7 +153,16 @@ def vector_search_batch(
     config = config or RAGLiteConfig()
     if not queries:
         return []
-    _self_query_unported(config)
+    if config.self_query:
+        # A filter per query: serve the queries one by one rather than drop
+        # the filters on the batch path.
+        return [
+            vector_search(
+                query, num_results=num_results, oversample=oversample,
+                metadata_filter=metadata_filter, config=config,
+            )
+            for query in queries
+        ]
     store = store_from_config(config)
     embeddings = embed_queries(queries, config=config).astype(np.float32)
     adapter = (
@@ -196,9 +209,10 @@ def keyword_search(
 ) -> tuple[list[ChunkId], list[float]]:
     """BM25 keyword search on the device (reference: _search.py:156-230)."""
     config = config or RAGLiteConfig()
-    _self_query_unported(config)
     store = store_from_config(config)
     metadata_filter = adapt_metadata(metadata_filter)
+    if config.self_query:
+        metadata_filter = _with_self_query(query, metadata_filter, config)
     index = keyword_index_from_config(config)
     # Tombstoned chunks are masked twice over: the keyword index masks its
     # own dead ordinals (and amortizes postings rebuilds at >30% dead,
@@ -219,7 +233,11 @@ def keyword_search_batch(
     """Batched BM25: one device program scores all B queries (no reference
     analogue; its SQL engine executes per query)."""
     config = config or RAGLiteConfig()
-    _self_query_unported(config)
+    if config.self_query:
+        return [
+            keyword_search(query, num_results=num_results, metadata_filter=metadata_filter, config=config)
+            for query in queries
+        ]
     store = store_from_config(config)
     metadata_filter = adapt_metadata(metadata_filter)
     index = keyword_index_from_config(config)
@@ -352,8 +370,12 @@ def hybrid_search(  # noqa: PLR0913
     the host-RRF fallback covers inputs the resident postings can't serve.
     """
     config = config or RAGLiteConfig()
-    _self_query_unported(config)
     metadata_filter = adapt_metadata(metadata_filter)
+    if config.self_query:
+        # Merge the extracted filter once, up front, for the fused path and
+        # the fallback searches below alike.
+        metadata_filter = _with_self_query(query, metadata_filter, config)
+        config = replace(config, self_query=False)
     fused = _hybrid_fused_batch(
         [query],
         num_results=num_results,
@@ -393,8 +415,9 @@ def hybrid_search_batch(  # noqa: PLR0913
     config = config or RAGLiteConfig()
     if not queries:
         return []
-    _self_query_unported(config)
-    fused = _hybrid_fused_batch(
+    # With self_query the batch halves below serve the queries one by one,
+    # each with its own extracted filter.
+    fused = None if config.self_query else _hybrid_fused_batch(
         queries,
         num_results=num_results,
         oversample=oversample,

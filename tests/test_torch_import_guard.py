@@ -1,8 +1,10 @@
 """The PyTorch port stands alone: importing it (the retrieval modules, the
 keyword index with its native loader, BM25 and RRF ops, deletes, the
-decoder LLM, speculation, the LLM factory, rag and the attention ops) loads
-neither JAX nor the JAX package (nor markdown-it, tokenizers, msgpack or
-filelock on the in-memory path), its config asks for the card by default,
+decoder LLM, speculation, the grammar automata, the hash table draw, the
+LLM factory, rag, the attention ops and, last, extraction) loads neither
+JAX nor the JAX package (nor markdown-it, tokenizers, msgpack or filelock
+on the in-memory path, nor pydantic before extraction), its config asks
+for the card by default,
 and asking for the card where there is none raises instead of running on
 the CPU."""
 
@@ -29,6 +31,10 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.ops.decode_attention, raglite_tpu_torch.ops.prefill_attention
         import raglite_tpu_torch.native, raglite_tpu_torch.index.keyword, raglite_tpu_torch.delete
         import raglite_tpu_torch.ops.bm25, raglite_tpu_torch.ops.rrf
+        import raglite_tpu_torch.models.json_automaton, raglite_tpu_torch.models.schema_automaton
+        import raglite_tpu_torch.models.hash_table
+        assert "pydantic" not in sys.modules
+        import raglite_tpu_torch.extract
         bad = [
             m for m in sys.modules
             if m in ("jax", "raglite_tpu") or m.startswith(("jax.", "raglite_tpu."))
