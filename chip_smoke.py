@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval, answer and structured-generation paths
-once on one NVIDIA GPU.
+"""Drive the PyTorch port's retrieval, answer, structured-generation, eval and
+query-adapter paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill]
 
@@ -96,7 +96,29 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    7; (d) ``hash:1024`` on the card over the phase-3 documents: token
    embeddings against the f64 plain pool over the same bf16 table (asserted
    within HASH_ATOL), vector_search and hybrid_search p50, and the top-10
-   overlap with the CPU port on the phase-3 sentences.
+   overlap with the CPU port on the phase-3 sentences.  (d) runs after
+   phase 9: its fresh ":memory:" stores replace the phase-3 store.
+9. Evals, the query adapter and async and remote RAG, on the phase-3 store
+   and phase 6's decoder object: (a) insert_evals (PHASE9_EVALS evals, 20
+   chunks at most each, 4 threads, the echo LLM), every search on the int4
+   route (one int4 launch each, asserted), every failed eval a ValueError,
+   and each threaded search equal to the same search made alone; (b)
+   update_query_adapter at d = 768 (its time split, peak memory; A
+   orthogonal within 1e-3; the first NNLS batch on the card equal to the
+   same op on the CPU within 1e-4; the op timed against its bound); (c)
+   vector_search with the stored adapter (int4 route, p50, recall@10 >=
+   RECALL_MIN against the exact route with the same adapter), then the
+   adapter removed and the plain ids asserted as before; (d) answer_evals
+   and evaluate(judge=True) through their column functions on PHASE9_JUDGED
+   evals with the `large` decoder (complete_batch calls with their B and T,
+   each judge panel asserted one batched call, peak memory); (e) async_rag
+   on the `large` decoder (the worker-thread bridge) equal to rag()'s
+   greedy answer, an early exit after PHASE9_EARLY_EXIT pieces after which
+   no kernel is launched and rag() answers the same; every kernel of the
+   path counted over (a)-(e) and asserted launched; (f), last, openai: on
+   loopback stubs (no network): a remote-embedder store with its index on
+   the card, and async_rag with ``llm="openai:..."`` and a tool round on
+   the native path.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line).
 The line before the last is a JSON object with one entry per kernel; the
@@ -999,7 +1021,7 @@ def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
         f"(sampled, {DECODE_CHUNK}-step chunks: {forwards} forwards for {len(sampled)} tokens), verify {launches_rag['gqa_verify_attention'] / stats['tokens']:.3f} "
         f"(rag greedy); prefill {launches_rag['gqa_prefill_attention']} per prefill")
     return {
-        "rag_s": rag_s, "rag_pos": prompt_tokens, "rag_t": ids.shape[1],
+        "rag_s": rag_s, "rag_pos": prompt_tokens, "rag_t": ids.shape[1], "first_piece_ms": first_piece_ms,
         "launches": {
             "gqa_prefill_attention": launches_rag["gqa_prefill_attention"],
             "gqa_verify_attention": launches_rag["gqa_verify_attention"],
@@ -1056,16 +1078,14 @@ def _within_budget(schema, tokens: list[int], budget: int) -> bool:
     return fed == budget and bytes(data[fed:]) == automaton.completion_bytes()
 
 
-def structured_generation(cfg, texts: list[str], sentences: list[str], seed: int, card: str) -> dict:
-    """Phase 8: schema-constrained, forced-tool and batched generation on the
-    `large` preset that phase 6 loaded (the same object), then the
-    ``hash:1024`` embedder on the card.  Returns the B = 8 launches and
-    kernel timings."""
+def structured_generation(cfg, sentences: list[str], seed: int, card: str) -> dict:
+    """Phase 8 (a)-(c): schema-constrained, forced-tool and batched
+    generation on the `large` preset that phase 6 loaded (the same object).
+    Returns the B = 8 launches and kernel timings."""
     import dataclasses
 
     import torch
 
-    from raglite_tpu_torch import Document, RAGLiteConfig, hybrid_search, insert_documents, vector_search
     from raglite_tpu_torch.models.decoder import DECODE_CHUNK, _bucket, _prefill_last
     from raglite_tpu_torch.models.llm import ToolCall, llm_from_config
 
@@ -1203,17 +1223,38 @@ def structured_generation(cfg, texts: list[str], sentences: list[str], seed: int
         ],
     )
 
-    # (d) hash:1024 on the card, over the repo's documents, against the CPU.
+    return {
+        "launches": {
+            "gqa_prefill_attention": lg["gqa_prefill_attention"],
+            "gqa_verify_attention": lg["gqa_verify_attention"],
+            "gqa_decode_attention": ls["gqa_decode_attention"],
+        },
+        "timings": batch_timings,
+    }
+
+
+def _fresh_memory_store() -> None:
+    """Forget every cached store and index, so the next ":memory:" config
+    gets a new store (they are cached by path).  The phase-3 store is gone
+    after this: phases 8 (d) and 9 (f) call it, and run last."""
     from raglite_tpu_torch.index.dense import _index_for_store
     from raglite_tpu_torch.index.keyword import _keyword_index_for_path
-    from raglite_tpu_torch.models.encoder import encoder_from_config, hash_pool_plain
     from raglite_tpu_torch.store import _store_for_path
+
+    for cache in (_store_for_path, _index_for_store, _keyword_index_for_path):
+        cache.cache_clear()
+
+
+def hash_on_card(texts: list[str], sentences: list[str], card: str) -> None:
+    """Phase 8 (d): ``hash:1024`` on the card over the repo's documents,
+    against the CPU.  It runs after phase 9, which needs the phase-3 store
+    that this step's fresh stores replace."""
+    from raglite_tpu_torch import Document, RAGLiteConfig, hybrid_search, insert_documents, vector_search
+    from raglite_tpu_torch.models.encoder import encoder_from_config, hash_pool_plain
 
     found = {}
     for device in ("cuda", "cpu"):
-        # A fresh ":memory:" store each (stores and indexes are cached by path).
-        for cache in (_store_for_path, _index_for_store, _keyword_index_for_path):
-            cache.cache_clear()
+        _fresh_memory_store()
         hcfg = RAGLiteConfig(embedder="hash:1024", device=device, store_path=":memory:")
         t0 = time.perf_counter()
         encoder = encoder_from_config(hcfg)  # the card's: table drawn on the host (C++), then uploaded in bf16
@@ -1238,21 +1279,486 @@ def structured_generation(cfg, texts: list[str], sentences: list[str], seed: int
     overlap = [len(set(a) & set(b)) / 10 for a, b in zip(found["cuda"], found["cpu"])]
     log(f"phase 8 (d) top-10 overlap, card (bf16 table) against the CPU port (f32 table), over the phase-3 sentences: "
         f"{overlap} (mean {statistics.mean(overlap):.3f})")
-    return {
-        "launches": {
-            "gqa_prefill_attention": lg["gqa_prefill_attention"],
-            "gqa_verify_attention": lg["gqa_verify_attention"],
-            "gqa_decode_attention": ls["gqa_decode_attention"],
-        },
-        "timings": batch_timings,
-    }
+
+
+# --- Phase 9: evals, the query adapter and async/remote RAG ------------------
+
+#: Phase 9 (a): evals generated with the echo LLM over the phase-3 store.
+PHASE9_EVALS = 64
+#: Phase 9 (d): stored evals answered and judged by the `large` decoder.
+PHASE9_JUDGED = 2
+#: Phase 9 (e): pieces taken from async_rag before the consumer walks away.
+PHASE9_EARLY_EXIT = 8
+#: The card's peak f32 rate outside the tensor cores (NVIDIA data sheet,
+#: SXM): the NNLS's products are f32 matrix-vector products, TF32 off.
+PEAK_F32_FLOPS = 67e12
+
+
+def _all_launches() -> dict[str, int]:
+    from raglite_tpu_torch.ops import fused_scan as fs
+
+    return {**fs.launch_counts, **_attention_launches()}
+
+
+def _counted(total: dict[str, int], fn):
+    """Run ``fn`` with every kernel count set to 0 first; add what it
+    launched to ``total``."""
+    from raglite_tpu_torch.ops import fused_scan as fs
+
+    fs.reset_launch_counts()
+    _reset_attention_launches()
+    out = fn()
+    for name, count in _all_launches().items():
+        total[name] = total.get(name, 0) + count
+    return out
+
+
+def phase9_evals(cfg, seed: int, total: dict[str, int], card: str) -> dict:
+    """Phase 9 (a): insert_evals with the echo LLM over the phase-3 store, 4
+    threads searching one index at once.  Every search must take the int4
+    route (one int4 launch each, no other scan), every failed eval must be
+    a ValueError of the eval logic (a device fault would be another type),
+    and each threaded search must equal the same search made alone."""
+    import random
+    import threading
+
+    import numpy as np
+
+    import raglite_tpu_torch.evals as evals_mod
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.store import store_from_config
+
+    store = store_from_config(cfg)
+    assert not store.evals, len(store.evals)
+    lock = threading.Lock()
+    searches, failures, made = [], [], []
+    search, generate = evals_mod.vector_search, evals_mod.generate_eval
+
+    def recording_search(query, **kwargs):
+        out = search(query, **kwargs)
+        with lock:
+            searches.append((np.array(query, copy=True) if not isinstance(query, str) else query, kwargs, out))
+        return out
+
+    def recording_generate(**kwargs):
+        try:
+            out = generate(**kwargs)
+        except Exception as e:
+            with lock:
+                failures.append(e)
+            raise
+        with lock:
+            made.append(out.id)
+        return out
+
+    evals_mod.vector_search, evals_mod.generate_eval = recording_search, recording_generate
+    random.seed(seed)
+    try:
+        t0 = time.perf_counter()
+        launches = {}
+        _counted(launches, lambda: evals_mod.insert_evals(num_evals=PHASE9_EVALS, max_chunks_per_eval=20, config=cfg))
+        wall = time.perf_counter() - t0
+    finally:
+        evals_mod.vector_search, evals_mod.generate_eval = search, generate
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+    stored = len(store.evals)
+    kinds = sorted({f"{type(e).__name__}: {str(e)[:60]}" for e in failures})
+    log(f"phase 9 (a) insert_evals: {len(made)} of {PHASE9_EVALS} evals made ({stored} distinct, stored) in {wall:.3f} s "
+        f"({len(made) / wall:.2f} evals/s, {PHASE9_EVALS / wall:.2f} attempts/s), {len(searches)} vector_search calls on 4 "
+        f"threads, launches {launches}, {len(failures)} failed: {kinds}, on {card}")
+    assert stored >= 1 and len(made) + len(failures) == PHASE9_EVALS and stored == len(set(made)), (stored, len(made))
+    assert all(type(e) is ValueError for e in failures), kinds
+    assert launches["int4_bucket_scan"] == len(searches) and launches["bucketed_max_scan"] == 0, (launches, len(searches))
+    # The 4-thread check: each search again, alone, gives the same chunks.
+    t0 = time.perf_counter()
+    for query, kwargs, found in searches:
+        assert search(query, **kwargs) == found, (query, found)
+    log(f"phase 9 (a) the {len(searches)} threaded searches equal the same searches made one by one "
+        f"({(time.perf_counter() - t0) * 1e3 / max(len(searches), 1):.3f} ms a search alone), on {card}")
+    return {"evals_made": len(made), "evals_stored": stored, "insert_evals_s": wall, "searches": len(searches)}
+
+
+def phase9_adapter(cfg, queries: list[str], total: dict[str, int], card: str) -> dict:
+    """Phase 9 (b) and (c): update_query_adapter over the stored evals at
+    d = 768 with its time split and peak memory, the device NNLS against the
+    same op on the CPU, then vector_search with the stored adapter (int4
+    route, recall@10 against the exact route with the same adapter), and
+    the adapter removed again."""
+    import numpy as np
+    import torch
+
+    import raglite_tpu_torch.query_adapter as qa
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.search import corrected_num_hits, vector_search
+    from raglite_tpu_torch.store import store_from_config
+
+    store = store_from_config(cfg)
+    index = dense_index_from_config(cfg)
+    plain_ids = [vector_search(q, num_results=10, config=cfg)[0] for q in queries]
+    split = {"embed": 0.0, "blocked search": 0.0, "device NNLS": 0.0, "f64 Procrustes": 0.0}
+    nnls_calls = []
+    originals = {}
+
+    def timed(attr, what):
+        fn = originals[attr] = getattr(qa, attr)
+
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            split[what] += time.perf_counter() - t0
+            if attr == "batched_query_targets":
+                nnls_calls.append((args, kwargs, out))
+            return out
+
+        setattr(qa, attr, wrapper)
+
+    for attr, what in (("embed_queries", "embed"), ("search_blocked", "blocked search"),
+                       ("batched_query_targets", "device NNLS"), ("procrustes_adapter", "f64 Procrustes")):
+        timed(attr, what)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    try:
+        t0 = time.perf_counter()
+        A = _counted(total, lambda: qa.update_query_adapter(config=cfg))
+        wall = time.perf_counter() - t0
+    finally:
+        for attr, fn in originals.items():
+            setattr(qa, attr, fn)
+    peak = torch.cuda.max_memory_allocated()
+    split["host candidates and the rest"] = wall - sum(split.values())
+    n_evals = len(store.evals)
+    log(f"phase 9 (b) update_query_adapter over {n_evals} evals at d = {A.shape[0]}: {wall * 1e3:.1f} ms, split (ms) "
+        f"{ {k: round(v * 1e3, 3) for k, v in split.items()} }, {len(nnls_calls)} NNLS batch(es), peak "
+        f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB ({(peak - before) / 1e9:.3f} GB above the "
+        f"{before / 1e9:.3f} GB held before the call), on {card}")
+    assert A.shape == (D, D) and np.isfinite(A).all(), A.shape
+    orth = float(np.abs(A @ A.T - np.eye(D)).max())
+    assert orth <= 1e-3, orth
+    assert store.index_metadata["query_adapter"] is A
+    # The device NNLS of the first batch against the same op on the CPU.
+    args, kwargs, out = nnls_calls[0]
+    assert all(a.device.type == "cuda" for a in args), "the NNLS left the card"
+    want = qa.batched_query_targets(*(a.cpu() for a in args), **kwargs)
+    err = float((out.cpu() - want).abs().max())
+    assert err <= 1e-4, err
+    b, p, d = args[1].shape
+    m = p * args[2].shape[1]
+    nnls_ms = median_ms(lambda: qa.batched_query_targets(*args, **kwargs), reps=3, inner=1, warmup=1)
+    moved = sum(a.numel() * a.element_size() for a in args) + out.numel() * out.element_size()
+    flops = 2.0 * b * m * d * (2 * 16 + 2 * 200 + 1)  # matrix-vector products over the [B, m, d] pair rows
+    bound = {"bytes": moved / PEAK_BYTES_PER_S * 1e3, "operations": flops / PEAK_F32_FLOPS * 1e3}
+    bound_by = max(bound, key=bound.get)
+    log(f"phase 9 (b) NNLS batch B={b}, P*N={m}, d={d}: device = CPU op within {err:.3g} (limit 1e-4); {nnls_ms:.3f} ms "
+        f"a call (CUDA events), inputs and output {moved / 1e6:.3f} MB, pair rows {b * m * d * 4 / 1e6:.1f} MB f32, "
+        f"{flops / 1e9:.2f} GFLOP f32, bound {bound[bound_by]:.4f} ms ({bound_by}; bytes {bound['bytes']:.4f}, "
+        f"operations {bound['operations']:.4f} at 67 TFLOP/s f32); ||AA^T - I||_inf {orth:.3g}, on {card}")
+    # (c) vector_search with the stored adapter.
+    latencies, routes = [], set()
+    for q in queries:
+        t0 = time.perf_counter()
+        ids, scores = _counted(total, lambda q=q: vector_search(q, num_results=10, config=cfg))
+        latencies.append((time.perf_counter() - t0) * 1e3)
+        routes.add(index.last_route)
+        assert len(ids) == 10 and np.isfinite(scores).all(), (q, scores)
+    assert routes == {"int4_two_stage"}, routes
+    emb = embed_queries(queries, config=cfg)
+    hits = min(corrected_num_hits(4, 10, cfg), index.num_rows)
+    recalls = []
+    for i in range(len(queries)):
+        routed = index.search_chunks_device(emb[i : i + 1], num_hits=hits, num_results=10, adapter=A)[1]
+        exact = index.search_chunks_device(emb[i : i + 1], num_hits=hits, num_results=10, adapter=A, exact=True)[1]
+        routed, exact = set(routed[0].tolist()), set(exact[0].tolist())
+        recalls.append(len(routed & exact) / len(exact))
+    recall = statistics.mean(recalls)
+    assert recall >= RECALL_MIN, recall
+    del store.index_metadata["query_adapter"]
+    again = [vector_search(q, num_results=10, config=cfg)[0] for q in queries]
+    assert again == plain_ids, "the store does not search as before once the adapter is removed"
+    log(f"phase 9 (c) vector_search with the adapter (int4 route): p50 {statistics.median(latencies):.3f} ms over "
+        f"{len(queries)} queries, recall@10 against the exact route with the same adapter {recall:.4f}; adapter "
+        f"removed, the plain searches' ids as before, on {card}")
+    return {"adapter_ms": wall * 1e3, "peak_gb": peak / 1e9, "nnls_ms": nnls_ms, "adapted_p50_ms": statistics.median(latencies)}
+
+
+def phase9_judge(cfg, total: dict[str, int], card: str) -> dict:
+    """Phase 9 (d): the first PHASE9_JUDGED stored evals answered by rag()
+    over retrieve_context with the `large` decoder, then scored by
+    evaluate_columns(judge=True) (the column functions: no pandas needed).
+    Each judge panel must be one batched complete_batch, never the per-item
+    fallback."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.evals import answer_evals_columns, evaluate_columns
+    from raglite_tpu_torch.models.decoder import _bucket
+    from raglite_tpu_torch.models.llm import llm_from_config
+
+    large_cfg = dataclasses.replace(cfg, llm="jax:large")
+    llm = llm_from_config(large_cfg)  # phase 6's object, cached
+    batches, singles = [], []
+    complete_batch, complete = llm.complete_batch, llm.complete
+
+    def recording_batch(messages_batch, *, response_format=None, **kwargs):
+        prompts = [llm._format_messages(m, None) for m in messages_batch]
+        t = _bucket(max(1 + len(llm.tokenizer.encode(p)) for p in prompts))
+        t0 = time.perf_counter()
+        out = complete_batch(messages_batch, response_format=response_format, **kwargs)
+        batches.append({"name": (response_format or {}).get("json_schema", {}).get("name"), "B": len(messages_batch),
+                        "T": t, "ms": round((time.perf_counter() - t0) * 1e3, 1)})
+        return out
+
+    def recording_complete(messages, *, response_format=None, **kwargs):
+        singles.append((response_format or {}).get("json_schema", {}).get("name"))
+        return complete(messages, response_format=response_format, **kwargs)
+
+    llm.complete_batch, llm.complete = recording_batch, recording_complete
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        columns = _counted(total, lambda: answer_evals_columns(PHASE9_JUDGED, config=large_cfg))
+        torch.cuda.synchronize()
+        answer_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = _counted(total, lambda: evaluate_columns(columns, large_cfg, judge=True))
+        torch.cuda.synchronize()
+        judge_s = time.perf_counter() - t0
+    finally:
+        del llm.complete_batch, llm.complete
+    peak = torch.cuda.max_memory_allocated()
+    assert len(columns["question"]) == PHASE9_JUDGED and all(columns["answer"]), columns["answer"]
+    panels = [b for b in batches if b["name"] == "Verdict"]
+    log(f"phase 9 (d) answer_evals ({PHASE9_JUDGED} evals, rag() on jax:large): {answer_s:.3f} s; evaluate(judge=True): "
+        f"{judge_s:.3f} s; complete_batch calls (B, T, ms) {batches}; single constrained completes {singles}; peak "
+        f"torch.cuda.max_memory_allocated {peak / 1e9:.3f} GB, on {card}")
+    # faithfulness, context_precision and context_recall: one panel each.
+    assert len(panels) == 3 and "Verdict" not in singles, (batches, singles)
+    for column in ("faithfulness", "context_precision", "context_recall"):
+        values = np.asarray(metrics[column], dtype=np.float64)
+        judged = values[~np.isnan(values)]
+        assert values.shape == (PHASE9_JUDGED,) and ((judged >= 0.0) & (judged <= 1.0)).all(), (column, values)
+    for column in ("answer_similarity", "context_relevancy", "faithfulness_proxy", "answer_relevancy"):
+        values = np.asarray(metrics[column], dtype=np.float64)
+        assert values.shape == (PHASE9_JUDGED,) and np.isfinite(values).all() and (np.abs(values) <= 1.01).all(), (column, values)
+    log(f"phase 9 (d) metrics: { {k: [round(float(x), 4) for x in v] for k, v in metrics.items() if k != 'question'} }")
+    return {"answer_s": answer_s, "judge_s": judge_s, "peak_gb": peak / 1e9, "panels": panels}
+
+
+def phase9_async(cfg, question: str, rag_first_ms: float, total: dict[str, int], card: str) -> dict:
+    """Phase 9 (e): async_rag on the `large` decoder (the worker-thread
+    bridge) against rag()'s greedy answer to the same messages; then an
+    early exit after 8 tokens, after which no kernel is launched and
+    rag() still gives the same answer."""
+    import asyncio
+    import dataclasses
+    import importlib
+
+    import torch
+
+    from raglite_tpu_torch import add_context, async_rag, rag, retrieve_context
+
+    rag_mod = importlib.import_module("raglite_tpu_torch.rag")
+    large_cfg = dataclasses.replace(cfg, llm="jax:large")
+    spans = retrieve_context(question, config=large_cfg)
+
+    def fresh():
+        return [add_context(question, spans, large_cfg)]
+
+    native = rag_mod._async_rag_native
+
+    def no_native(*args, **kwargs):
+        msg = "the jax: decoder has no async stream: async_rag must take the bridge"
+        raise AssertionError(msg)
+
+    async def stream(messages):
+        t0 = time.perf_counter()
+        first, out = None, []
+        async for token in async_rag(messages, config=large_cfg):
+            if first is None:
+                first = (time.perf_counter() - t0) * 1e3
+            out.append(token)
+        return out, first, (time.perf_counter() - t0) * 1e3
+
+    async def early(messages):
+        agen = async_rag(messages, config=large_cfg)
+        n = 0
+        async for _ in agen:
+            n += 1
+            if n >= PHASE9_EARLY_EXIT:
+                break
+        await agen.aclose()
+        torch.cuda.synchronize()
+        at_close = _all_launches()
+        await asyncio.sleep(0.5)
+        torch.cuda.synchronize()
+        return n, at_close, _all_launches()
+
+    rag_mod._async_rag_native = no_native
+    try:
+        bridge_msgs = fresh()
+        tokens, first_ms, bridge_ms = _counted(total, lambda: asyncio.run(stream(bridge_msgs)))
+        rag_msgs = fresh()
+        want = _counted(total, lambda: list(rag(rag_msgs, config=large_cfg)))
+        assert "".join(tokens) == "".join(want) and len(tokens) > PHASE9_EARLY_EXIT, (tokens[:8], want[:8])
+        assert bridge_msgs == rag_msgs, "the bridge left other messages than rag()"
+        early_msgs = fresh()
+        n, at_close, later = _counted(total, lambda: asyncio.run(early(early_msgs)))
+        assert n == PHASE9_EARLY_EXIT and at_close == later, (n, at_close, later)
+        assert len(early_msgs) == 1, "the abandoned worker wrote to the messages"
+        again = _counted(total, lambda: list(rag(fresh(), config=large_cfg)))
+        assert again == want, "rag() after the early exit gives another answer"
+    finally:
+        rag_mod._async_rag_native = native
+    log(f"phase 9 (e) async_rag on jax:large (the bridge): {len(tokens)} pieces = rag()'s greedy answer, first piece "
+        f"after {first_ms:.1f} ms (phase 6's rag(): {rag_first_ms:.1f} ms), all in {bridge_ms:.1f} ms; an early exit "
+        f"after {PHASE9_EARLY_EXIT} pieces: no kernel launched in the 0.5 s after aclose() (counts {at_close}), the messages untouched, "
+        f"and rag() again the same answer, on {card}")
+    return {"first_ms": first_ms, "bridge_ms": bridge_ms}
+
+
+def _embed_stub():
+    """A stdlib /embeddings stub on 127.0.0.1: a seeded 32-wide normal
+    vector per text (the stub of tests/test_openai_embedder.py)."""
+    import hashlib
+    from http.server import BaseHTTPRequestHandler
+
+    import numpy as np
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args) -> None:
+            pass
+
+        def do_POST(self) -> None:  # noqa: N802
+            payload = json.loads(self.rfile.read(int(self.headers.get("Content-Length", "0"))))
+            data = []
+            for i, text in enumerate(payload["input"]):
+                seed = int.from_bytes(hashlib.sha256(text.encode()).digest()[:4], "big")
+                data.append({"index": i, "embedding": np.random.default_rng(seed).normal(size=32).tolist()})
+            body = json.dumps({"data": data}).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    return Handler
+
+
+def _chat_stub():
+    """A stdlib /chat/completions SSE stub on 127.0.0.1 (that of
+    tests/test_openai_provider.py): a search_knowledge_base call for the
+    last message while the request offers that tool, else the answer "stub
+    streamed answer" in three deltas."""
+    from http.server import BaseHTTPRequestHandler
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args) -> None:
+            pass
+
+        def do_POST(self) -> None:  # noqa: N802
+            payload = json.loads(self.rfile.read(int(self.headers.get("Content-Length", "0"))))
+            tools = payload.get("tools") or []
+            if tools and tools[0]["function"]["name"] == "search_knowledge_base":
+                args = json.dumps({"query": payload["messages"][-1]["content"]})
+                deltas = [
+                    {"tool_calls": [{"index": 0, "id": "call_1", "function": {"name": "search_knowledge_base", "arguments": ""}}]},
+                    {"tool_calls": [{"index": 0, "function": {"arguments": args[: len(args) // 2]}}]},
+                    {"tool_calls": [{"index": 0, "function": {"arguments": args[len(args) // 2 :]}}]},
+                ]
+            else:
+                deltas = [{"content": "stub "}, {"content": "streamed "}, {"content": "answer"}]
+            self.send_response(200)
+            self.send_header("Content-Type", "text/event-stream")
+            self.end_headers()
+            for delta in deltas:
+                self.wfile.write(f"data: {json.dumps({'choices': [{'index': 0, 'delta': delta}]})}\n\n".encode())
+                self.wfile.flush()
+            self.wfile.write(b"data: [DONE]\n\n")
+            self.wfile.flush()
+
+    return Handler
+
+
+def phase9_openai(texts: list[str], question: str, card: str) -> None:
+    """Phase 9 (f): ``openai:`` on loopback stubs (no network): a store of
+    the repo's documents embedded by the remote embedder, its index on the
+    card, vector_search over it; then async_rag with ``llm="openai:..."``
+    and a tool round, whose search runs on the card in the executor, on the
+    native path (the bridge is made to fail).  Runs last: it replaces the
+    cached ":memory:" store."""
+    import asyncio
+    import importlib
+    import threading
+    from http.server import ThreadingHTTPServer
+
+    from raglite_tpu_torch import Document, RAGLiteConfig, async_rag, insert_documents, vector_search
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+
+    rag_mod = importlib.import_module("raglite_tpu_torch.rag")
+    servers = [ThreadingHTTPServer(("127.0.0.1", 0), handler()) for handler in (_embed_stub, _chat_stub)]
+    threads = [threading.Thread(target=s.serve_forever, daemon=True) for s in servers]
+    for thread in threads:
+        thread.start()
+    bridge = rag_mod._async_rag_bridge
+
+    def no_bridge(*args, **kwargs):
+        msg = "async_rag took the thread bridge for an openai: LLM"
+        raise AssertionError(msg)
+
+    try:
+        _fresh_memory_store()
+        ports = [s.server_address[1] for s in servers]
+        ocfg = RAGLiteConfig(
+            store_path=":memory:", device="cuda",
+            embedder=f"openai:http://127.0.0.1:{ports[0]}/v1#stub-embed",
+            llm=f"openai:http://127.0.0.1:{ports[1]}/v1#stub-chat",
+        )
+        t0 = time.perf_counter()
+        insert_documents([Document.from_text(t) for t in texts], config=ocfg)
+        insert_s = time.perf_counter() - t0
+        index = dense_index_from_config(ocfg)
+        ids, scores = vector_search(question, num_results=5, config=ocfg)
+        assert index.device.type == index._dev_rows.device.type == "cuda" and len(ids) == 5, (index.device, ids)
+        rag_mod._async_rag_bridge = no_bridge
+        messages = [{"role": "user", "content": question}]
+        retrieved = []
+
+        async def collect():
+            return [t async for t in async_rag(messages, on_retrieval=retrieved.extend, config=ocfg)]
+
+        t0 = time.perf_counter()
+        answer = "".join(asyncio.run(collect()))
+        rag_ms = (time.perf_counter() - t0) * 1e3
+        assert answer == "stub streamed answer", answer
+        assert [m["role"] for m in messages] == ["user", "assistant", "tool", "assistant"], messages
+        assert retrieved and all(c.id in index.chunk_ids for span in retrieved for c in span.chunks)
+    finally:
+        rag_mod._async_rag_bridge = bridge
+        for server in servers:
+            server.shutdown()
+            server.server_close()
+        for thread in threads:
+            thread.join(timeout=10)
+    log(f"phase 9 (f) openai: on 127.0.0.1 stubs: {index.num_rows} rows of d = {index.dim} from the remote embedder "
+        f"inserted in {insert_s:.2f} s, index on {index.device}, vector_search top-5 found; async_rag (native path, "
+        f"a tool round searching on the card, {len(retrieved)} spans) in {rag_ms:.1f} ms, on {card}")
 
 
 def pick_queries(texts: list[str], count: int, seed: int) -> list[str]:
-    """``count`` distinct sentences (40-240 characters, ending in a full
-    stop, question or exclamation mark) from the documents, each of at most
-    RESIDENT_MAX_TERMS unique words (a longer query leaves the fused hybrid
-    route for host RRF by design; phase 4b sends one)."""
+    """``count`` distinct ASCII sentences (40-240 characters, ending in a
+    full stop, question or exclamation mark) from the documents, each of at
+    most RESIDENT_MAX_TERMS unique words (a longer query leaves the fused
+    hybrid route for host RRF by design; phase 4b sends one).  ASCII,
+    because there the native tokenizer the resident route counts with and
+    Python's ``\\w`` agree; on other characters (box drawing, arrows) the
+    native one may find more words."""
     import numpy as np
 
     from raglite_tpu_torch.index.keyword import KeywordIndex, tokenize
@@ -1264,6 +1770,7 @@ def pick_queries(texts: list[str], count: int, seed: int) -> list[str]:
             s = " ".join(sentence.split())
             if (
                 40 <= len(s) <= 240
+                and s.isascii()
                 and not s.startswith(("#", "|", "`", "-"))
                 and s.endswith((".", "?", "!"))
                 and len(set(tokenize(s))) <= KeywordIndex.RESIDENT_MAX_TERMS
@@ -1790,8 +2297,23 @@ def main() -> int:
     # 7. Attention kernel timings at the `large` shapes.
     timings += time_attention(args.seed, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card, profile=args.profile)
 
-    # 8. Structured and batched generation on the same decoder; hash:1024.
-    structured = structured_generation(cfg, texts, vs_q, args.seed, card)
+    # 8. Structured and batched generation on the same decoder.
+    structured = structured_generation(cfg, vs_q, args.seed, card)
+
+    # 9. Evals, the query adapter and async RAG over the phase-3 store and
+    # the same decoder; each kernel's launches on this path counted apart.
+    phase9_launches: dict[str, int] = {}
+    evals = phase9_evals(cfg, args.seed, phase9_launches, card)
+    adapter = phase9_adapter(cfg, vs_q, phase9_launches, card)
+    judged = phase9_judge(cfg, phase9_launches, card)
+    bridge = phase9_async(cfg, vs_q[0], answer["first_piece_ms"], phase9_launches, card)
+    log(f"phase 9 summary on {card}: {json.dumps({**evals, **adapter, **judged, **bridge, 'launches': phase9_launches})}")
+    for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
+        assert phase9_launches.get(name, 0) > 0, (name, phase9_launches)
+
+    # 8 (d) and 9 (f) replace the cached ":memory:" store: they come last.
+    hash_on_card(texts, vs_q, card)
+    phase9_openai(texts[:2], vs_q[0], card)
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -1814,6 +2336,8 @@ def main() -> int:
             # graph (their "ms" reads the host's enqueue time), else null; and
             # each attention kernel at complete_batch's B = 8 shape (phase 8).
             "graph_ms": t.get("graph_ms"),
+            # Launches on phase 9's path (evals, adapter, judge panels, async_rag).
+            "launches_phase9": phase9_launches.get(name, 0),
         })
         b8 = next((x for x in structured["timings"] if x["name"] == name), None)
         if b8 is not None:

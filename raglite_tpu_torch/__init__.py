@@ -7,20 +7,28 @@ search on the dense index (with hand-written CUDA C++ scan kernels in
 ``csrc/``), keyword (BM25) and hybrid search on the device over
 first-party C++ postings (``native/``), the MaxSim rerank, ``rag()``
 answers from the first-party decoder LLM (with hand-written CUDA C++
-attention kernels), schema-constrained, forced-tool and batched generation,
-and structured extraction (``extract_with_llm``, ``expand_document_metadata``
-and self-query search); see ROADMAP.md for what is still to be ported.
-Entry points run on the card unless ``RAGLiteConfig(device="cpu")``.
+attention kernels), ``async_rag``, OpenAI-compatible endpoints (``openai:``
+LLMs and embedders), schema-constrained, forced-tool and batched generation,
+structured extraction (``extract_with_llm``, ``expand_document_metadata``
+and self-query search), evals (``insert_evals``, ``answer_evals``,
+``evaluate``) and the query adapter (``update_query_adapter``); see
+ROADMAP.md for what is still to be ported.  Entry points run on the card
+unless ``RAGLiteConfig(device="cpu")``.
 
-The two extraction entry points are exported lazily (module ``__getattr__``):
-they need pydantic, which ``import raglite_tpu_torch`` does not load.
+``import raglite_tpu_torch`` loads neither pydantic, which the extraction
+entry points import when called, nor pandas, which ``answer_evals`` and
+``evaluate`` import to build their DataFrames: a GPU machine may have
+neither.
 """
 
 from raglite_tpu_torch.config import RAGLiteConfig
 from raglite_tpu_torch.delete import delete_documents, delete_documents_by_metadata
-from raglite_tpu_torch.documents import Chunk, ChunkSpan, Document
+from raglite_tpu_torch.documents import Chunk, ChunkSpan, Document, Eval
+from raglite_tpu_torch.evals import answer_evals, evaluate, insert_evals
+from raglite_tpu_torch.extract import expand_document_metadata, extract_with_llm
 from raglite_tpu_torch.insert import insert_documents
-from raglite_tpu_torch.rag import add_context, rag, retrieve_context
+from raglite_tpu_torch.query_adapter import update_query_adapter
+from raglite_tpu_torch.rag import add_context, async_rag, rag, retrieve_context
 from raglite_tpu_torch.search import (
     hybrid_search,
     hybrid_search_batch,
@@ -41,6 +49,7 @@ __all__ = [
     "Chunk",
     "ChunkSpan",
     "Document",
+    "Eval",
     "insert_documents",
     "delete_documents",
     "delete_documents_by_metadata",
@@ -59,19 +68,13 @@ __all__ = [
     "retrieve_context",
     "add_context",
     "rag",
+    "async_rag",
     "extract_with_llm",
     "expand_document_metadata",
+    "update_query_adapter",
+    "insert_evals",
+    "answer_evals",
+    "evaluate",
 ]
-
-_LAZY = {"extract_with_llm", "expand_document_metadata"}
-
-
-def __getattr__(name: str):
-    if name in _LAZY:
-        from raglite_tpu_torch import extract
-
-        return getattr(extract, name)
-    msg = f"module {__name__!r} has no attribute {name!r}"
-    raise AttributeError(msg)
 
 __version__ = "0.1.0"

@@ -73,9 +73,9 @@ class RAGLiteConfig:
     # default embedder is the JAX package's packaged semantic encoder
     # (models/data/encoder/, 64M params, d=768 — trained by
     # scripts/train_encoder.py), mirroring the reference's real-semantic
-    # default (bge-m3, _config.py:50-64) without downloads.  "hash:<dim>",
-    # the hermetic lexical featurizer, is not ported yet (ROADMAP queue 1
-    # item 2).
+    # default (bge-m3, _config.py:50-64) without downloads.  "hash:<dim>" is
+    # the hermetic lexical featurizer, "openai:<base_url>#<model>" a remote
+    # OpenAI-compatible endpoint.
     # The default LLM stays "echo" (deterministic, offline); "jax:<preset>"
     # is the port's own decoder on ``device`` (models/llm.py), the same
     # strings as the JAX package.

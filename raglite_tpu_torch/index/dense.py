@@ -217,8 +217,9 @@ class DenseIndex:
         self._synced_version = -1
         self._synced_generation = 0
         self._synced_deleted = 0
-        self._adapter_host: np.ndarray | None = None
-        self._adapter_dev: torch.Tensor | None = None
+        #: (host adapter, its device copy), replaced as one pair so that
+        #: threads searching at once never see a copy of another adapter.
+        self._adapter: tuple[np.ndarray, torch.Tensor] | None = None
         self._row_mask_cache: dict = {}
         #: Which route served the last search: "int4_two_stage",
         #: "fused_scan" (single-stage kernel) or "dense" (plain exact scan).
@@ -385,12 +386,11 @@ class DenseIndex:
             return None
         if isinstance(adapter, torch.Tensor):
             return adapter.to(self.device)
-        if self._adapter_host is not adapter:
-            self._adapter_host = adapter
-            self._adapter_dev = torch.as_tensor(
-                np.asarray(adapter, dtype=np.float32), device=self.device
-            )
-        return self._adapter_dev
+        cached = self._adapter
+        if cached is None or cached[0] is not adapter:
+            cached = (adapter, torch.as_tensor(np.asarray(adapter, dtype=np.float32), device=self.device))
+            self._adapter = cached
+        return cached[1]
 
     def device_row_mask(self, row_mask: np.ndarray | None) -> torch.Tensor | None:
         """Capacity-padded device copy of a row filter mask, cached by
@@ -428,13 +428,17 @@ class DenseIndex:
         num_hits: int,
         row_mask: np.ndarray | None = None,
         adapter: np.ndarray | None = None,
+        exact: bool | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """Top ``num_hits`` sub-vector rows per query: (scores [B, K],
-        row ids [B, K]); masked rows score -inf."""
+        row ids [B, K]); masked rows score -inf.  ``exact=True`` bypasses
+        the single-stage kernel."""
         if self.num_rows == 0:
             b = queries.shape[0]
             return (np.full((b, num_hits), -np.inf), np.zeros((b, num_hits), dtype=np.int64))
-        scores, idx = self._scan_device(queries, num_hits=num_hits, row_mask=row_mask, adapter=adapter)
+        scores, idx = self._scan_device(
+            queries, num_hits=num_hits, row_mask=row_mask, adapter=adapter, exact=exact
+        )
         scores = scores.cpu().numpy()
         idx = idx.cpu().numpy().astype(np.int64)
         if scores.shape[1] < num_hits:

@@ -24,6 +24,7 @@ Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints and
 
 from __future__ import annotations
 
+import codecs
 import json
 import math
 import os
@@ -924,18 +925,20 @@ class TorchChatLLM:
     # --- LLM protocol -----------------------------------------------------
 
     def _decode_stream(self, tokens: Iterator[int]) -> Iterator[str]:
-        """Incremental UTF-8 decode of generated byte tokens."""
-        buffer = bytearray()
+        """Incremental UTF-8 decode of generated byte tokens: each character
+        as soon as its bytes are in, an invalid sequence as U+FFFD as soon as
+        it is known to be one.  The pieces join to the text the JAX package
+        streams, which holds back every byte after an invalid one until the
+        end (a random model's answer then streams as one piece)."""
+        decoder = codecs.getincrementaldecoder("utf-8")(errors="replace")
         for token in tokens:
             if token >= ByteTokenizer._OFFSET:
-                buffer.append(token - ByteTokenizer._OFFSET)
-                try:
-                    yield buffer.decode("utf-8")
-                    buffer.clear()
-                except UnicodeDecodeError:
-                    continue  # wait for more continuation bytes
-        if buffer:
-            yield buffer.decode("utf-8", errors="replace")
+                piece = decoder.decode(bytes([token - ByteTokenizer._OFFSET]))
+                if piece:
+                    yield piece
+        tail = decoder.decode(b"", final=True)
+        if tail:
+            yield tail
 
     def _forced_tool_call(self, messages, tools, tool_choice, sampling):
         """A tool call forced in two constrained phases: the tool's name (an

@@ -7,8 +7,9 @@ device-resident MaxSim rerank.  ``"flax:sem"`` is the packaged 8-layer,
 d=768 semantic encoder; its weights are read by path from the JAX package's
 data directory.  ``HashEncoder`` ("hash:<dim>") is the weightless
 feature-hashing encoder of the hermetic configs, over the JAX package's own
-Gaussian table (models/hash_table.py).  ``OpenAICompatEncoder`` ("openai:")
-is not ported yet (ROADMAP queue 1 item 2).
+Gaussian table (models/hash_table.py).  ``OpenAICompatEncoder``
+("openai:<base_url>#<model>") takes its embeddings from an OpenAI-compatible
+``/embeddings`` endpoint and normalises them on the configured device.
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ import torch
 from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
-__all__ = ["Encoder", "HashEncoder", "TransformerEncoder", "encoder_from_config", "embedding_dim", "hash_pool_plain"]
+__all__ = [
+    "Encoder", "HashEncoder", "OpenAICompatEncoder", "TransformerEncoder",
+    "encoder_from_config", "embedding_dim", "hash_pool_plain",
+]
 
 #: The JAX package's packaged encoder (encoder.npz, tokenizer.json, config.json).
 PACKAGED_ENCODER_DIR = (
@@ -438,6 +442,67 @@ def _random_encoder(cfg: dict, *, dtype: torch.dtype, seed: int):
     return model
 
 
+class OpenAICompatEncoder:
+    """Remote embeddings over an OpenAI-compatible ``/embeddings`` endpoint
+    (``openai:<base_url>#<model>``), 96 inputs a request.  The rows are
+    L2-normalised on the configured device, like every encoder's output, and
+    returned in f16.  A bearer token is read from
+    ``RAGLITE_TPU_EMBEDDER_API_KEY`` or ``OPENAI_API_KEY`` where one is set."""
+
+    supports_token_embeddings = False
+    BATCH = 96
+
+    def __init__(self, spec: str, *, dim: int | None = None, device: torch.device | str = "cuda") -> None:
+        base, _, model = spec.partition("#")
+        self.base_url = base.rstrip("/")
+        self.model = model or "default"
+        self.device = torch.device(device)
+        self._dim = dim
+        self.api_key = os.environ.get("RAGLITE_TPU_EMBEDDER_API_KEY") or os.environ.get(
+            "OPENAI_API_KEY", ""
+        )
+
+    def _post(self, texts: list[str]) -> np.ndarray:
+        import json
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{self.base_url}/embeddings",
+            data=json.dumps({"model": self.model, "input": texts}).encode(),
+            headers={
+                "Content-Type": "application/json",
+                **({"Authorization": f"Bearer {self.api_key}"} if self.api_key else {}),
+            },
+        )
+        with urllib.request.urlopen(req, timeout=300) as resp:  # noqa: S310
+            payload = json.loads(resp.read())
+        rows = sorted(payload["data"], key=lambda d: d.get("index", 0))
+        return np.asarray([r["embedding"] for r in rows], dtype=np.float32)
+
+    @property
+    def dim(self) -> int:
+        if self._dim is None:
+            # One short request tells the endpoint's width.
+            self._dim = int(self._post(["dimension probe"]).shape[1])
+        return self._dim
+
+    def count_tokens(self, texts: list[str]) -> list[int]:
+        # About three characters a token.
+        return [max(len(t) // 3, 1) for t in texts]
+
+    def embed_token_level(self, text: str) -> np.ndarray:
+        msg = "remote embedders expose no token-level embeddings"
+        raise NotImplementedError(msg)
+
+    def embed(self, texts: list[str]) -> np.ndarray:
+        out = [self._post(texts[start : start + self.BATCH]) for start in range(0, len(texts), self.BATCH)]
+        if not out:
+            return np.zeros((0, self.dim), np.float16)
+        rows = torch.from_numpy(np.concatenate(out, axis=0)).to(self.device)
+        norms = torch.linalg.vector_norm(rows, dim=1, keepdim=True)
+        return (rows / torch.clamp(norms, min=1e-12)).to(torch.float16).cpu().numpy()
+
+
 @lru_cache(maxsize=4)
 def _make_encoder(embedder: str, device: str) -> Encoder:
     kind, _, arg = embedder.partition(":")
@@ -446,9 +511,11 @@ def _make_encoder(embedder: str, device: str) -> Encoder:
     if kind == "flax":
         return TransformerEncoder(arg or "tiny", device=device)
     if kind == "openai":
-        msg = "the 'openai' embedder is not ported yet (ROADMAP queue 1 item 2)"
-        raise NotImplementedError(msg)
-    msg = f"unknown embedder {embedder!r} (expected 'hash:<dim>' or 'flax:<preset|path>')"
+        return OpenAICompatEncoder(arg, device=device)
+    msg = (
+        f"unknown embedder {embedder!r} (expected 'hash:<dim>', "
+        "'flax:<preset|path>', or 'openai:<base_url>#<model>')"
+    )
     raise ValueError(msg)
 
 

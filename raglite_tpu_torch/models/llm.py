@@ -11,9 +11,12 @@ config carries across unchanged:
   on ``config.device``, one instance per (spec, device), with JSON response
   formats, forced tool calls and ``complete_batch``.  The name stays
   ``jax:`` because the configs name the model, not the framework.
+- ``openai:<base_url>#<model>``: any OpenAI-compatible HTTP endpoint over
+  the standard library (urllib for ``complete`` and ``stream``, an asyncio
+  socket for ``astream``); no device is involved.
 
-Not ported yet (ROADMAP queue 1 items 7 and 9): ``openai:`` endpoints,
-``hf:``/``ckpt:`` checkpoints and ``@int8`` weights.
+Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints and
+``@int8`` weights.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ __all__ = [
     "ToolCall",
     "ChatResponse",
     "EchoLLM",
+    "OpenAICompatLLM",
     "llm_from_config",
     "get_context_size",
     "supports_function_calling",
@@ -231,6 +235,241 @@ class EchoLLM:
         yield from response.tool_calls
 
 
+# --- OpenAI-compatible HTTP adapter ------------------------------------------
+
+
+class _SSEAssembler:
+    """Incremental OpenAI-chat SSE decoder shared by the sync and async
+    streams: each fed line yields zero or more content deltas; tool-call
+    fragments (id/name on the first fragment, arguments accumulating across
+    fragments, keyed by index) are assembled until the stream ends."""
+
+    def __init__(self) -> None:
+        self._partial: dict[int, dict[str, str]] = {}
+
+    def feed_line(self, line: str) -> tuple[bool, list[str]]:
+        """Returns (stream_done, content_deltas) for one SSE line."""
+        line = line.strip()
+        if not line.startswith("data:"):
+            return False, []
+        data = line[5:].strip()
+        if data == "[DONE]":
+            return True, []
+        try:
+            chunk = json.loads(data)
+        except json.JSONDecodeError:
+            return False, []
+        choices = chunk.get("choices") or []
+        if not choices:
+            return False, []
+        delta = choices[0].get("delta") or {}
+        deltas = [delta["content"]] if delta.get("content") else []
+        for frag in delta.get("tool_calls") or []:
+            slot = self._partial.setdefault(
+                int(frag.get("index", 0)), {"id": "", "name": "", "arguments": ""}
+            )
+            if frag.get("id"):
+                slot["id"] = frag["id"]
+            fn = frag.get("function") or {}
+            if fn.get("name"):
+                slot["name"] += fn["name"]
+            if fn.get("arguments"):
+                slot["arguments"] += fn["arguments"]
+        return False, deltas
+
+    def tool_calls(self) -> list[ToolCall]:
+        return [
+            ToolCall(
+                slot["id"] or f"call_{uuid.uuid4().hex[:8]}",
+                slot["name"],
+                slot["arguments"],
+            )
+            for _, slot in sorted(self._partial.items())
+        ]
+
+
+async def _async_sse_post(url: str, body: bytes, *, timeout: float = 300.0):
+    """POST ``body`` to ``url`` and yield SSE chat deltas, asyncio-native.
+
+    A minimal HTTP/1.1 client over ``asyncio.open_connection`` (standard
+    library only): https through the default SSL context, chunked
+    transfer-encoding and Content-Length bodies.  This is what lets
+    ``async_rag`` hold a socket reader per live stream instead of an
+    executor thread."""
+    import asyncio
+    import ssl
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    https = u.scheme == "https"
+    port = u.port or (443 if https else 80)
+    ctx = ssl.create_default_context() if https else None
+    reader, writer = await asyncio.wait_for(
+        asyncio.open_connection(u.hostname, port, ssl=ctx), timeout
+    )
+    try:
+        path = u.path + (f"?{u.query}" if u.query else "")
+        head = (
+            f"POST {path or '/'} HTTP/1.1\r\n"
+            f"Host: {u.hostname}\r\n"
+            "Content-Type: application/json\r\n"
+            "Accept: text/event-stream\r\n"
+            f"Content-Length: {len(body)}\r\n"
+            "Connection: close\r\n\r\n"
+        ).encode()
+        writer.write(head + body)
+        await writer.drain()
+        status = await asyncio.wait_for(reader.readline(), timeout)
+        parts = status.split()
+        code = int(parts[1]) if len(parts) > 1 else 0
+        headers: dict[str, str] = {}
+        while True:
+            line = await asyncio.wait_for(reader.readline(), timeout)
+            if line in (b"\r\n", b"\n", b""):
+                break
+            key, _, value = line.decode("latin-1").partition(":")
+            headers[key.strip().lower()] = value.strip()
+        if code != 200:
+            payload = await asyncio.wait_for(reader.read(2048), timeout)
+            msg = f"SSE POST {url} failed: HTTP {code} {payload[:200]!r}"
+            raise RuntimeError(msg)
+        chunked = headers.get("transfer-encoding", "").lower() == "chunked"
+        length = int(headers.get("content-length", -1))
+
+        async def iter_body():
+            if chunked:
+                while True:
+                    size_line = await asyncio.wait_for(reader.readline(), timeout)
+                    try:
+                        size = int(size_line.strip().split(b";")[0], 16)
+                    except ValueError:
+                        return
+                    if size == 0:
+                        await reader.readline()  # trailing CRLF after last chunk
+                        return
+                    yield await reader.readexactly(size)
+                    await reader.readexactly(2)  # chunk-terminating CRLF
+            else:
+                remaining = length
+                while remaining != 0:
+                    data = await asyncio.wait_for(
+                        reader.read(
+                            65536 if remaining < 0 else min(65536, remaining)
+                        ),
+                        timeout,
+                    )
+                    if not data:
+                        return
+                    if remaining > 0:
+                        remaining -= len(data)
+                    yield data
+
+        sse = _SSEAssembler()
+        buf = b""
+        done = False
+        async for data in iter_body():
+            buf += data
+            while not done and b"\n" in buf:
+                line, buf = buf.split(b"\n", 1)
+                done, deltas = sse.feed_line(line.decode("utf-8", errors="replace"))
+                for delta in deltas:
+                    yield delta
+            if done:
+                break
+        for tool_call in sse.tool_calls():
+            yield tool_call
+    finally:
+        writer.close()
+        try:
+            await writer.wait_closed()
+        except Exception:  # noqa: BLE001 - close errors don't outrank stream results
+            pass
+
+
+class OpenAICompatLLM:
+    """Minimal OpenAI-compatible chat adapter over stdlib urllib.
+
+    Spec: ``openai:<base_url>#<model>`` (e.g. ``openai:http://host:8000/v1#llama``).
+    """
+
+    supports_function_calling = True
+    supports_response_format = True
+
+    def __init__(self, spec: str, *, context_size: int = 32768) -> None:
+        base, _, model = spec.partition("#")
+        self.base_url = base.rstrip("/")
+        self.model = model or "default"
+        self.context_size = context_size
+
+    def _post(self, payload: dict[str, Any]) -> dict[str, Any]:
+        import urllib.request
+
+        req = urllib.request.Request(
+            f"{self.base_url}/chat/completions",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"},
+        )
+        with urllib.request.urlopen(req, timeout=300) as resp:  # noqa: S310
+            return json.loads(resp.read())
+
+    def complete(self, messages, *, tools=None, tool_choice=None, response_format=None, **sampling):
+        payload: dict[str, Any] = {"model": self.model, "messages": messages, **sampling}
+        if tools:
+            payload["tools"] = tools
+            payload["tool_choice"] = tool_choice or "auto"
+        if response_format:
+            payload["response_format"] = response_format
+        data = self._post(payload)
+        message = data["choices"][0]["message"]
+        tool_calls = [
+            ToolCall(tc["id"], tc["function"]["name"], tc["function"]["arguments"])
+            for tc in message.get("tool_calls") or []
+        ]
+        return ChatResponse(content=message.get("content"), tool_calls=tool_calls)
+
+    def _stream_payload(self, messages, tools, tool_choice, sampling) -> dict[str, Any]:
+        payload: dict[str, Any] = {
+            "model": self.model, "messages": messages, "stream": True, **sampling,
+        }
+        if tools:
+            payload["tools"] = tools
+            payload["tool_choice"] = tool_choice or "auto"
+        return payload
+
+    def stream(self, messages, *, tools=None, tool_choice=None, **sampling):
+        """Incremental streaming: POST with ``stream: true``, parse the SSE
+        ``data:`` lines as they arrive, yield content deltas at once and
+        assemble tool-call fragments across chunks."""
+        import urllib.request
+
+        payload = self._stream_payload(messages, tools, tool_choice, sampling)
+        req = urllib.request.Request(
+            f"{self.base_url}/chat/completions",
+            data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json", "Accept": "text/event-stream"},
+        )
+        sse = _SSEAssembler()
+        with urllib.request.urlopen(req, timeout=300) as resp:  # noqa: S310
+            for raw in resp:
+                done, deltas = sse.feed_line(raw.decode("utf-8", errors="replace"))
+                yield from deltas
+                if done:
+                    break
+        yield from sse.tool_calls()
+
+    async def astream(self, messages, *, tools=None, tool_choice=None, **sampling):
+        """Asyncio-native streaming: the SSE chat request rides an
+        ``asyncio.open_connection`` stream, so a long answer costs the event
+        loop one socket reader, not an executor thread."""
+        body = json.dumps(
+            self._stream_payload(messages, tools, tool_choice, sampling)
+        ).encode()
+        async for item in _async_sse_post(
+            f"{self.base_url}/chat/completions", body
+        ):
+            yield item
+
+
 @lru_cache(maxsize=4)
 def _make_llm(llm: str, device: str) -> LLM:
     kind, _, arg = llm.partition(":")
@@ -241,15 +480,15 @@ def _make_llm(llm: str, device: str) -> LLM:
 
         return TorchChatLLM(arg or "tiny", device=device)
     if kind == "openai":
-        msg = "openai: endpoints are not ported: ROADMAP queue 1 item 7"
-        raise NotImplementedError(msg)
-    msg = f"unknown llm {llm!r} (expected 'echo' or 'jax:<preset>')"
+        return OpenAICompatLLM(arg)
+    msg = f"unknown llm {llm!r} (expected 'echo', 'jax:<preset>', or 'openai:<url>#<model>')"
     raise ValueError(msg)
 
 
 def llm_from_config(config: "RAGLiteConfig") -> LLM:
-    """The configured LLM, one instance per (spec, device)."""
-    device = "cpu" if config.llm.partition(":")[0] == "echo" else str(config.torch_device())
+    """The configured LLM, one instance per (spec, device); ``echo`` and
+    ``openai:`` run on no device."""
+    device = "cpu" if config.llm.partition(":")[0] in ("echo", "openai") else str(config.torch_device())
     return _make_llm(config.llm, device)
 
 

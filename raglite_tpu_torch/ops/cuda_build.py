@@ -43,6 +43,7 @@ NVCC_FLAGS = (
 _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -119,4 +120,5 @@ def launch(counts: dict[str, int], name: str, fn, args: list, device: torch.devi
     if err != 0:
         msg = f"{name}: kernel launch failed with cudaError {err}"
         raise RuntimeError(msg)
-    counts[name] += 1
+    with _count_lock:  # threads may launch at once (insert_evals searches on 4)
+        counts[name] += 1

@@ -3,14 +3,17 @@
 
 The tool-injection protocol, proportional context budgeting and message
 clipping are the JAX package's; the LLM is the port's (models/llm.py).
-``async_rag`` is not ported yet (ROADMAP queue 1 item 7).
+``async_rag`` streams the same answer on an event loop: natively over a
+provider's asyncio stream (``openai:``), else from ``rag()`` on a worker
+thread (the ``jax:`` decoder and ``echo`` block on their steps).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
-from collections.abc import Callable, Iterator, Mapping, Sequence
+from collections.abc import AsyncIterator, Callable, Iterator, Mapping, Sequence
 from concurrent.futures import ThreadPoolExecutor, as_completed
 from typing import Any
 
@@ -24,7 +27,7 @@ from raglite_tpu_torch.types import MetadataFilter
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["retrieve_context", "add_context", "rag", "RAG_INSTRUCTION_TEMPLATE"]
+__all__ = ["retrieve_context", "add_context", "rag", "async_rag", "RAG_INSTRUCTION_TEMPLATE"]
 
 # Anthropic long-context format.
 RAG_INSTRUCTION_TEMPLATE = """
@@ -307,3 +310,114 @@ def rag(
                 content_parts.append(item)
                 yield item
     messages.append({"role": "assistant", "content": "".join(content_parts)})
+
+
+async def async_rag(
+    messages: list[dict[str, Any]],
+    *,
+    on_retrieval: Callable[[list[ChunkSpan]], None] | None = None,
+    config: RAGLiteConfig | None = None,
+) -> AsyncIterator[str]:
+    """Async mirror of :func:`rag`.
+
+    A provider with an asyncio-native stream (``openai:``, whose socket is
+    read on the event loop: models/llm.py:_async_sse_post) runs without a
+    worker thread; only its tool round (a device search) goes to the
+    executor.  A provider without one (``jax:``, ``echo``: the decoder
+    blocks on its device steps) is driven on a worker thread, so the event
+    loop stays responsive.
+    """
+    _require_messages(messages)
+    config = config or RAGLiteConfig()
+    llm = llm_from_config(config)
+    tokens = (
+        _async_rag_native(llm, messages, on_retrieval, config)
+        if hasattr(llm, "astream")
+        else _async_rag_bridge(messages, on_retrieval, config)
+    )
+    # Closing this generator closes the inner one at once (not when it is
+    # collected), so an early exit stops the worker before aclose() returns.
+    async with contextlib.aclosing(tokens):
+        async for token in tokens:
+            yield token
+
+
+async def _async_rag_native(
+    llm: Any,
+    messages: list[dict[str, Any]],
+    on_retrieval: Callable[[list[ChunkSpan]], None] | None,
+    config: RAGLiteConfig,
+) -> AsyncIterator[str]:
+    """Two-phase RAG over the provider's own async stream: no thread is
+    held for the life of the answer."""
+    import asyncio
+    from functools import partial
+
+    max_tokens = get_context_size(config)
+    tools, tool_choice = _get_tools(messages, config)
+    content_parts: list[str] = []
+    tool_calls: list[ToolCall] = []
+    async for item in llm.astream(_clip(messages, max_tokens), tools=tools, tool_choice=tool_choice):
+        if isinstance(item, ToolCall):
+            tool_calls.append(item)
+        else:
+            content_parts.append(item)
+            yield item
+    if tool_calls:
+        messages.append(ChatResponse("".join(content_parts) or None, tool_calls).message_dict())
+        loop = asyncio.get_running_loop()
+        # The tool round runs a device search: a short, bounded block, so it
+        # goes to the executor rather than stalling every live stream.
+        tool_messages = await loop.run_in_executor(
+            None, partial(_run_tools, tool_calls, on_retrieval, config, messages=messages)
+        )
+        messages.extend(tool_messages)
+        content_parts = []
+        async for item in llm.astream(_clip(messages, max_tokens)):
+            if isinstance(item, str):
+                content_parts.append(item)
+                yield item
+    messages.append({"role": "assistant", "content": "".join(content_parts)})
+
+
+async def _async_rag_bridge(
+    messages: list[dict[str, Any]],
+    on_retrieval: Callable[[list[ChunkSpan]], None] | None,
+    config: RAGLiteConfig,
+) -> AsyncIterator[str]:
+    """``rag()`` on a worker thread, its tokens handed to the event loop.
+
+    When the consumer walks away (breaks, closes the generator or is
+    cancelled) the worker stops at its next token, before it asks the LLM
+    for another, and the generator's close waits for it: once ``aclose()``
+    returns, no decoder forward of this answer is still running and
+    ``messages`` is no longer written to."""
+    import asyncio
+    import threading
+
+    loop = asyncio.get_running_loop()
+    queue: asyncio.Queue[str | None] = asyncio.Queue()
+    abandoned = threading.Event()
+
+    def worker() -> None:
+        try:
+            for token in rag(messages, on_retrieval=on_retrieval, config=config):
+                if abandoned.is_set():
+                    break
+                loop.call_soon_threadsafe(queue.put_nowait, token)
+        finally:
+            if not abandoned.is_set():
+                loop.call_soon_threadsafe(queue.put_nowait, None)
+
+    task = loop.run_in_executor(None, worker)
+    try:
+        while True:
+            token = await queue.get()
+            if token is None:
+                break
+            yield token
+        await task
+    finally:
+        abandoned.set()
+        if not task.done():
+            await asyncio.wait([task])

@@ -266,8 +266,9 @@ def test_unported_specs_raise() -> None:
     for spec in ("hf:/nowhere", "ckpt:/nowhere", "tiny@int8"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tdec.TorchChatLLM(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _make_llm("openai:http://localhost:1#m", "cpu")
+    # openai: is ported (no request is made until the LLM is called).
+    remote = _make_llm("openai:http://localhost:1#m", "cpu")
+    assert remote.base_url == "http://localhost:1" and remote.model == "m"
     llm = _make_llm("jax:tiny", "cpu")
     assert isinstance(llm, tdec.TorchChatLLM) and llm is _make_llm("jax:tiny", "cpu")
 
@@ -367,3 +368,28 @@ def test_prefill_logits_match_jax_at_wide_heads_and_groups(which: str) -> None:
         tl, _ = tmodel.forward(tparams, torch.from_numpy(ids).long(), tcache, torch.as_tensor(offsets))
         assert tl.shape == (b, t, cfg["vocab"])
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_decode_stream_joins_to_jax_text(seed: int) -> None:
+    """The byte decoder's pieces join to the JAX package's text on random
+    bytes (invalid UTF-8 included) and on valid multibyte text, where the
+    pieces are the JAX package's too; after an invalid byte the port goes
+    on streaming (one piece a character) where the JAX package holds the
+    rest back."""
+    import types
+
+    off = tdec.ByteTokenizer._OFFSET
+    jax_self = types.SimpleNamespace(_byte_level=True)
+    rng = np.random.default_rng(seed)
+    valid = [b + off for b in "héllo wörld, 数据 ✓ ok".encode()]
+    random_bytes = [int(b) + off for b in rng.integers(0, 256, size=200)] + [0, 1]
+    for tokens in (valid, random_bytes, valid + random_bytes + valid):
+        got = list(tdec.TorchChatLLM._decode_stream(None, iter(tokens)))
+        want = list(jdec.JaxChatLLM._decode_stream(jax_self, iter(tokens)))
+        assert "".join(got) == "".join(want)
+        if tokens is valid:
+            assert got == want
+    stray = [0x80 + off] + [b + off for b in b"abc"]
+    assert list(tdec.TorchChatLLM._decode_stream(None, iter(stray))) == ["\ufffd", "a", "b", "c"]
+    assert list(jdec.JaxChatLLM._decode_stream(jax_self, iter(stray))) == ["\ufffdabc"]

@@ -183,13 +183,21 @@ def test_chip_smoke_metadata_schema_is_pydantics(monkeypatch: pytest.MonkeyPatch
 
 
 def test_import_leaves_pydantic_out() -> None:
+    """Importing the package, extract.py and evals.py loads no pydantic; the
+    pydantic entry points load it when called."""
     code = textwrap.dedent(
         """
         import sys
         import raglite_tpu_torch
         import raglite_tpu_torch.search, raglite_tpu_torch.rag, raglite_tpu_torch.models.decoder
+        import raglite_tpu_torch.extract, raglite_tpu_torch.evals
+        assert callable(raglite_tpu_torch.extract_with_llm)
         assert "pydantic" not in sys.modules, "pydantic"
-        assert callable(raglite_tpu_torch.extract_with_llm) and "pydantic" in sys.modules
+        config = raglite_tpu_torch.RAGLiteConfig(store_path=":memory:", llm="echo", device="cpu")
+        docs = raglite_tpu_torch.expand_document_metadata(
+            [raglite_tpu_torch.Document.from_text("x")], {"topic": str}, config=config
+        )
+        assert [d.metadata_["topic"] for d in docs] == [["x"]] and "pydantic" in sys.modules
         print("ok")
         """
     )

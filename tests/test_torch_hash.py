@@ -125,8 +125,9 @@ def test_device_pool_arithmetic(encoders) -> None:
 def test_make_encoder_builds_hash() -> None:
     encoder = tenc._make_encoder("hash:64", "cpu")
     assert isinstance(encoder, tenc.HashEncoder) and encoder.dim == 64
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tenc._make_encoder("openai:http://localhost:1#m", "cpu")
+    # openai: is ported (no request is made until the width is asked for).
+    remote = tenc._make_encoder("openai:http://localhost:1#m", "cpu")
+    assert isinstance(remote, tenc.OpenAICompatEncoder) and remote.model == "m"
 
 
 @pytest.fixture(scope="module")

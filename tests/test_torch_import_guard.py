@@ -1,10 +1,11 @@
 """The PyTorch port stands alone: importing it (the retrieval modules, the
 keyword index with its native loader, BM25 and RRF ops, deletes, the
 decoder LLM, speculation, the grammar automata, the hash table draw, the
-LLM factory, rag, the attention ops and, last, extraction) loads neither
-JAX nor the JAX package (nor markdown-it, tokenizers, msgpack or filelock
-on the in-memory path, nor pydantic before extraction), its config asks
-for the card by default,
+LLM factory, rag, the attention ops, extraction, evals, the query adapter
+and its NNLS op) loads neither JAX nor the JAX package (nor markdown-it,
+tokenizers, msgpack or filelock on the in-memory path, nor pandas, tqdm or
+pydantic), its public names are the JAX package's, its config asks for the
+card by default,
 and asking for the card where there is none raises instead of running on
 the CPU."""
 
@@ -33,8 +34,9 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.ops.bm25, raglite_tpu_torch.ops.rrf
         import raglite_tpu_torch.models.json_automaton, raglite_tpu_torch.models.schema_automaton
         import raglite_tpu_torch.models.hash_table
+        import raglite_tpu_torch.extract, raglite_tpu_torch.evals, raglite_tpu_torch.query_adapter
+        import raglite_tpu_torch.ops.nnls
         assert "pydantic" not in sys.modules
-        import raglite_tpu_torch.extract
         bad = [
             m for m in sys.modules
             if m in ("jax", "raglite_tpu") or m.startswith(("jax.", "raglite_tpu."))
@@ -87,3 +89,35 @@ def test_kernel_sources_build_for_sm90a() -> None:
     sources = {p.stem for p in cuda_build.CSRC.glob("*.cu")}
     assert sources == set(cuda_build.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in cuda_build.NVCC_FLAGS
+
+
+def test_import_loads_no_pandas_tqdm_or_pydantic() -> None:
+    """Beyond what torch itself imports, ``import raglite_tpu_torch`` (and
+    its evals, adapter and NNLS modules) loads none of pandas, tqdm and
+    pydantic, which the card's machine may lack."""
+    code = textwrap.dedent(
+        """
+        import sys
+        import torch
+        before = set(sys.modules)
+        import raglite_tpu_torch
+        import raglite_tpu_torch.evals, raglite_tpu_torch.query_adapter, raglite_tpu_torch.ops.nnls
+        new = {m.split(".")[0] for m in set(sys.modules) - before}
+        bad = new & {"pandas", "tqdm", "pydantic", "jax", "raglite_tpu"}
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_public_api_equals_the_jax_packages() -> None:
+    """``raglite_tpu_torch.__all__`` names what ``raglite_tpu.__all__``
+    names, and every name resolves."""
+    import raglite_tpu
+
+    import raglite_tpu_torch
+
+    assert set(raglite_tpu_torch.__all__) == set(raglite_tpu.__all__)
+    assert all(getattr(raglite_tpu_torch, name) is not None for name in raglite_tpu_torch.__all__)
