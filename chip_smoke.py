@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's retrieval, answer, structured-generation, eval and
-query-adapter paths once on one NVIDIA GPU.
+"""Drive the PyTorch port's retrieval, answer, structured-generation, eval,
+query-adapter and checkpoint paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -119,8 +119,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    loopback stubs (no network): a remote-embedder store with its index on
    the card, and async_rag with ``llm="openai:..."`` and a tool round on
    the native path.
+10. Real checkpoints (after phase 9; phase 6's `large` released first): (a)
+   a Qwen3-4B-shaped BF16 checkpoint (the published config, seeded
+   weights, 3 shards, 8.05 GB) and a hand-made Qwen-style tokenizer.json
+   (PHASE10_MERGES merges learned from the repo's Markdown) written with the
+   port's own writer to the temporary directory or /dev/shm; (b) loaded
+   through ``llm="jax:hf:<dir>"`` (load time, peak), a 2,048-token forward
+   with the attention kernels against the same forward with their plain
+   versions (PHASE10_TOP1_MIN, PHASE10_LOGIT_ATOL); (c) ``rag()`` with phase
+   6's message and serve_rag's timings (the three attention kernels at
+   KVH 8, REP 4), the host's encode time, the BPE branches (a response
+   format and a forced tool call through the prompt, extract_json), each
+   attention kernel timed at these shapes as in phase 7; (d) the same
+   checkpoint ``@int8`` (load, peak, top-1 against (b), serve_rag) and
+   W8A8 / W8A16 / bf16 at its matmul shapes; (e) a bge-m3-shaped BF16
+   XLM-R encoder and a hand-made Unigram tokenizer.json served as
+   ``embedder="flax:<dir>"``: the phase-3 documents and seeded background
+   rows up to 1,249,280 at d = 1,024 in a fresh store (phase 3's is
+   replaced), vector_search on the int4 route against the exact route
+   (recall@10 by ids, and counting chunks tied with the exact 10th within
+   TIE_ATOL as hits: >= RECALL_MIN asserted on the latter), rerank_chunks
+   and search_and_rerank_chunk_spans p50, the int4 scan timed at d = 1,024;
+   (f) where tensorstore is installed, the ``small`` preset through
+   save_checkpoint and ``ckpt:``, logits equal.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
-phase 2b and its rows of phase 7; no result line).
+phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
+phase 3 at ``--rows`` and phase 10 (no result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -130,6 +154,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -673,7 +698,7 @@ def prefill_phases(q5, warm, cache, pos, scale: float, what: str, card: str) -> 
 
 def time_attention(
     seed: int, rag_s: int, rag_pos: int, rag_t: int, card: str, *, profile: bool = False, only: str | None = None,
-    cases: list | None = None,
+    cases: list | None = None, kvh: int = 4, rep: int = 5,
 ) -> list[dict]:
     """Phase 7: each attention kernel at the ``large`` preset's shapes (B=1,
     KVH=4, REP=5, hd=128), first at the RAG answer's own (decode and verify
@@ -692,7 +717,8 @@ def time_attention(
     (:func:`attention_phases`, :func:`prefill_phases`).  ``only`` keeps the
     cases of one kernel.  ``cases`` replaces the cases: (name, T, S, first
     position per row), B the number of rows (phase 8 times complete_batch's
-    B = 8 shapes so)."""
+    B = 8 shapes so).  ``kvh`` and ``rep`` give another model's groups
+    (phase 10: Qwen3-4B's KVH 8, REP 4)."""
     import itertools
 
     import torch
@@ -703,7 +729,7 @@ def time_attention(
 
     g = torch.Generator(device="cuda").manual_seed(seed + 7)
     floor_fn = cuda_build.function("decode_attention", "rlt_gqa_decode_floor", [*[cuda_build.INT] * 5, cuda_build.VOID])
-    kvh, rep, hd, layers = 4, 5, 128, 36
+    hd, layers = 128, 36
     heads, scale = kvh * rep, hd**-0.5
     cases = cases or [
         ("gqa_decode_attention", 1, rag_s, [rag_pos]),
@@ -775,8 +801,8 @@ def time_attention(
         bound = {"bytes": moved / PEAK_BYTES_PER_S * 1e3, "operations": 4 * hd * pairs / PEAK_BF16_FLOPS * 1e3}
         bound_by = max(bound, key=bound.get)
         entry = {
-            "name": name, "batch": b, "T": t, "S": s, "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound[bound_by], "bound_by": bound_by, "max_abs_err": err,
+            "name": name, "batch": b, "T": t, "S": s, "KVH": kvh, "REP": rep, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound[bound_by], "bound_by": bound_by, "max_abs_err": err,
         }
         floor_text = ""
         if name == "gqa_prefill_attention":
@@ -909,9 +935,19 @@ def profile_decode(llm, ids, lens, rag_s: int, card: str) -> None:
     _profile_window(chunk, f"one plain decode chunk ({DECODE_CHUNK} forwards at S = {rag_s})", card)
 
 
-def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
+def _weight_bytes(params) -> int:
+    """Bytes of a decoder's parameters (int8 blocks and scales included)."""
+    leaves = [*(v for k, v in params.items() if k != "layers"), *(v for layer in params["layers"] for v in layer.values())]
+    tensors = [t for x in leaves for t in ((x.q8, x.s8) if hasattr(x, "q8") else (x,))]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def serve_rag(cfg, question: str, card: str, *, spec: str = "jax:large", messages=None, profile: bool = False) -> dict:
     """Phase 6: rag() answers from the ``large`` decoder over the phase-3
-    index; a sampled stream; greedy with speculation off against on."""
+    index; a sampled stream; greedy with speculation off against on.  Phase
+    10 (c) runs it again with ``spec`` a ``jax:hf:`` checkpoint and
+    ``messages`` phase 6's (the same prompt text, in the checkpoint's
+    tokens)."""
     import dataclasses
     import os
 
@@ -922,29 +958,38 @@ def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
     from raglite_tpu_torch.models.llm import llm_from_config
     from raglite_tpu_torch.rag import _clip
 
-    rag_cfg = dataclasses.replace(cfg, llm="jax:large")
+    rag_cfg = dataclasses.replace(cfg, llm=spec)
     t0 = time.perf_counter()
-    llm = llm_from_config(rag_cfg)  # seeded init of the 8 GB preset, on the card
+    llm = llm_from_config(rag_cfg)  # jax:large: the seeded init of the 8 GB preset, on the card
     torch.cuda.synchronize()
     layers = llm.cfg["layers"]
-    weight_bytes = sum(
-        x.numel() * x.element_size()
-        for x in [*(v for k, v in llm.params.items() if k != "layers"),
-                  *(v for layer in llm.params["layers"] for v in layer.values())]
-    )
-    log(f"llm jax:large ({layers} layers, d {llm.cfg['d_model']}, vocab {llm.cfg['vocab']}): "
-        f"{weight_bytes / 1e9:.3f} GB of bf16 weights, seeded init {time.perf_counter() - t0:.3f} s")
+    weight_bytes = _weight_bytes(llm.params)
+    log(f"llm {spec} ({layers} layers, d {llm.cfg['d_model']}, vocab {llm.cfg['vocab']}): "
+        f"{weight_bytes / 1e9:.3f} GB of weights, built (or taken from the factory's cache) in {time.perf_counter() - t0:.3f} s")
 
     t0 = time.perf_counter()
-    spans = retrieve_context(question, config=rag_cfg)
-    messages = [add_context(question, spans, rag_cfg)]
+    if messages is None:
+        spans = retrieve_context(question, config=rag_cfg)
+        messages = [add_context(question, spans, rag_cfg)]
+        found = f"{len(spans)} spans retrieved"
+    else:
+        messages = [dict(m) for m in messages]
+        found = "phase 6's message"
     retrieve_ms = (time.perf_counter() - t0) * 1e3
+    first_message = dict(messages[0])
     prompt = llm._format_messages(_clip(messages, llm.context_size), None)
     max_new = 128
-    prompt_tokens = min(len(llm.tokenizer.encode(prompt)), llm.context_size - max_new - 1) + 1
+    t0 = time.perf_counter()
+    encoded = llm.tokenizer.encode(prompt)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    llm.tokenizer.encode(prompt)
+    encode_again_ms = (time.perf_counter() - t0) * 1e3
+    prompt_tokens = min(len(encoded), llm.context_size - max_new - 1) + int(llm._byte_level)  # + BOS
     rag_s = _bucket(prompt_tokens) + _bucket(max_new) + DECODE_CHUNK
-    log(f"rag question {question!r}: {len(spans)} spans retrieved in {retrieve_ms:.1f} ms, "
-        f"prompt {prompt_tokens} tokens, KV length S = {rag_s}")
+    log(f"rag question {question!r}: {found} in {retrieve_ms:.1f} ms, {len(prompt)} characters, "
+        f"prompt {prompt_tokens} tokens (encoded on the host in {encode_ms:.1f} ms, {encode_again_ms:.1f} ms again "
+        f"with the word cache warm), KV length S = {rag_s}")
 
     # The answer stream through the user entry point.
     _reset_attention_launches()
@@ -1007,7 +1052,7 @@ def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
     tok1 = torch.full((1, 1), 3, dtype=torch.int64, device="cuda")
     prefill_ms = median_ms(prefill, reps=3, inner=1, warmup=1)
     step_ms = median_ms(lambda: model.forward(params, tok1, cache, lens), reps=5, inner=3, warmup=1)
-    log(f"large preset on {card}: prefill of {prompt_tokens} tokens (T = {ids.shape[1]}) {prefill_ms:.2f} ms; "
+    log(f"{spec} on {card}: prefill of {prompt_tokens} tokens (T = {ids.shape[1]}) {prefill_ms:.2f} ms; "
         f"one decode forward at S = {rag_s} {step_ms:.3f} ms (weights alone: {weight_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s)")
     if profile:
         profile_decode(llm, ids, lens, rag_s, card)
@@ -1022,6 +1067,14 @@ def serve_rag(cfg, question: str, card: str, *, profile: bool = False) -> dict:
         f"(rag greedy); prefill {launches_rag['gqa_prefill_attention']} per prefill")
     return {
         "rag_s": rag_s, "rag_pos": prompt_tokens, "rag_t": ids.shape[1], "first_piece_ms": first_piece_ms,
+        "messages": [first_message], "prompt": prompt, "encode_ms": encode_ms, "ttft_ms": ttft_ms,
+        "prefill_ms": prefill_ms, "step_ms": step_ms,
+        "tokens_per_s": {
+            "greedy_speculative": decode_tps,
+            "plain": len(plain) / max((plain_ms - prefill_ms) / 1e3, 1e-9),
+            "sampled": len(sampled) / max((sampled_ms - prefill_ms) / 1e3, 1e-9),
+        },
+        "common_prefix": common / max(len(plain), 1),
         "launches": {
             "gqa_prefill_attention": launches_rag["gqa_prefill_attention"],
             "gqa_verify_attention": launches_rag["gqa_verify_attention"],
@@ -1751,6 +1804,695 @@ def phase9_openai(texts: list[str], question: str, card: str) -> None:
         f"a tool round searching on the card, {len(retrieved)} spans) in {rag_ms:.1f} ms, on {card}")
 
 
+# --- Phase 10: real checkpoints on the card ----------------------------------
+
+#: Qwen/Qwen3-4B's published config.json (every field the loader reads).
+QWEN3_4B_CONFIG = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3", "num_hidden_layers": 36, "hidden_size": 2560,
+    "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 128, "intermediate_size": 9728,
+    "vocab_size": 151936, "tie_word_embeddings": True, "rope_theta": 1000000, "rms_norm_eps": 1e-06,
+    "max_position_embeddings": 40960, "hidden_act": "silu", "attention_bias": False, "rope_scaling": None,
+    "sliding_window": None, "use_sliding_window": False, "max_window_layers": 36, "bos_token_id": 151643,
+    "eos_token_id": 151645, "torch_dtype": "bfloat16",
+}
+#: BAAI/bge-m3's published config.json (XLM-RoBERTa large, 8,194 positions).
+BGE_M3_CONFIG = {
+    "architectures": ["XLMRobertaModel"], "model_type": "xlm-roberta", "num_hidden_layers": 24, "hidden_size": 1024,
+    "num_attention_heads": 16, "intermediate_size": 4096, "vocab_size": 250002, "max_position_embeddings": 8194,
+    "pad_token_id": 1, "bos_token_id": 0, "eos_token_id": 2, "type_vocab_size": 1, "layer_norm_eps": 1e-05,
+    "hidden_act": "gelu", "position_embedding_type": "absolute",
+}
+#: Qwen2/Qwen3's pre-tokenizer Split pattern (their tokenizer.json).
+QWEN_SPLIT = (
+    r"(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}| ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+"
+)
+#: Qwen's ChatML special tokens and their ids.
+QWEN_SPECIALS = {"<|endoftext|>": 151643, "<|im_start|>": 151644, "<|im_end|>": 151645}
+#: BPE merges phase 10 learns from the repo's Markdown for its tokenizer.json.
+PHASE10_MERGES = 4000
+#: Background rows of phase 10 (e)'s d = 1,024 store (phase 3's count).
+PHASE10_ROWS = 1_249_280
+#: Phase 10 (b): the 2,048-token forward's logits with the attention kernels
+#: against the same forward with each attention op's plain version (f32
+#: softmax, the probabilities rounded to bf16): the residual stream is bf16,
+#: so the two differ by bf16 roundings that 36 layers carry to the logits
+#: (unit-RMS hidden state, logits of std ~1).  Bounds: top-1 equal on at
+#: least this share of positions, and no logit further apart than this.
+PHASE10_TOP1_MIN = 0.9
+PHASE10_LOGIT_ATOL = 0.5
+#: Phase 10 (e): the two routes score a chunk from the same bf16 row and
+#: bf16-rounded query in f32, in other summation orders (a GEMM over all rows
+#: against a gathered bmm), so a unit query and unit row's scores may differ
+#: by 2 * d * 2^-24 (1.22e-4 at d = 1,024): a chunk scored within this of
+#: the exact route's 10th is one of its top 10 under another summation order
+#: or tie order, and counts as a hit beside the recall by ids.
+TIE_ATOL = 2 * 1024 * 2.0**-24
+
+
+def _markdown_texts() -> list[str]:
+    return [p.read_text(encoding="utf-8") for p in sorted(ROOT.glob("*.md"))]
+
+
+def scratch_dir(need: int, prefix: str) -> Path:
+    """A temporary directory on a file system with ``need`` bytes free:
+    the temporary directory's, else /dev/shm; neither is an error."""
+    import shutil
+    import tempfile
+
+    for base in (tempfile.gettempdir(), "/dev/shm"):
+        if Path(base).is_dir() and shutil.disk_usage(base).free >= need * 1.1:
+            return Path(tempfile.mkdtemp(prefix=prefix, dir=base))
+    free = {b: shutil.disk_usage(b).free for b in (tempfile.gettempdir(), "/dev/shm") if Path(b).is_dir()}
+    msg = f"no file system holds {need / 1e9:.2f} GB for phase 10's checkpoint (free bytes: {free})"
+    raise RuntimeError(msg)
+
+
+def learn_bpe_merges(texts: list[str], count: int) -> list[tuple[str, str]]:
+    """``count`` byte-level BPE merges learned from ``texts`` as Qwen's
+    tokenizer splits them (NFC, the Split pattern, GPT-2's byte map): the
+    most frequent adjacent pair first, ties by the pair's order; pair counts
+    kept up to date word by word (a heap of counts, stale entries skipped)."""
+    import heapq
+    import re
+    import unicodedata
+    from collections import Counter, defaultdict
+
+    from raglite_tpu_torch.models.tokenizer import _bytes_to_unicode, _translate_regex
+
+    split, byte_map = re.compile(_translate_regex(QWEN_SPLIT)), _bytes_to_unicode()
+    freq = Counter(
+        "".join(byte_map[b] for b in w.encode("utf-8"))
+        for text in texts for w in split.findall(unicodedata.normalize("NFC", text))
+    )
+    words = [list(w) for w in freq]
+    counts = list(freq.values())
+    pairs: Counter = Counter()
+    where: dict = defaultdict(set)
+    for i, w in enumerate(words):
+        for pair in zip(w, w[1:]):
+            pairs[pair] += counts[i]
+            where[pair].add(i)
+    heap = [(-c, p) for p, c in pairs.items()]
+    heapq.heapify(heap)
+    merges: list[tuple[str, str]] = []
+    while heap and len(merges) < count:
+        c, pair = heapq.heappop(heap)
+        if -c != pairs.get(pair, 0):
+            continue  # stale
+        if -c < 2:
+            break
+        merges.append(pair)
+        joined = pair[0] + pair[1]
+        touched = set()
+        for i in sorted(where.pop(pair)):
+            w, f = words[i], counts[i]
+            for p in zip(w, w[1:]):
+                pairs[p] -= f
+                touched.add(p)
+            out, j = [], 0
+            while j < len(w):
+                if j + 1 < len(w) and (w[j], w[j + 1]) == pair:
+                    out.append(joined)
+                    j += 2
+                else:
+                    out.append(w[j])
+                    j += 1
+            words[i] = out
+            for p in zip(out, out[1:]):
+                pairs[p] += f
+                where[p].add(i)
+                touched.add(p)
+        del pairs[pair]
+        for p in touched:
+            if pairs.get(p, 0) > 0:
+                heapq.heappush(heap, (-pairs[p], p))
+    return merges
+
+
+def qwen_tokenizer_json(texts: list[str], merges: int = PHASE10_MERGES) -> dict:
+    """A Qwen2-style tokenizer.json made by hand (the card has no
+    ``tokenizers``): NFC, Qwen's Split (Isolated) then ByteLevel without its
+    regex, the 256 byte tokens (ids 0-255) and merges learned from
+    ``texts``, unused tokens up to 151,642, the ChatML specials at Qwen's
+    ids, the ByteLevel decoder."""
+    from raglite_tpu_torch.models.tokenizer import _bytes_to_unicode
+
+    byte_map = _bytes_to_unicode()
+    vocab = {byte_map[b]: b for b in range(256)}
+    learned = learn_bpe_merges(texts, merges)
+    for a, b in learned:
+        vocab.setdefault(a + b, len(vocab))
+    # Unused tokens up to Qwen's first special id: ``tokenizers`` numbers
+    # added tokens after the model's vocabulary, so this keeps them at
+    # Qwen's ids (and config.json's bos/eos).
+    first_special = min(QWEN_SPECIALS.values())
+    vocab.update({f"<|unused_{i}|>": i for i in range(len(vocab), first_special)})
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": False, "use_regex": False}
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False, "special": True}
+            for t, i in QWEN_SPECIALS.items()
+        ],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": QWEN_SPLIT}, "behavior": "Isolated", "invert": False}, byte_level,
+        ]},
+        "post_processor": None,
+        "decoder": byte_level,
+        "model": {
+            "type": "BPE", "dropout": None, "unk_token": None, "continuing_subword_prefix": "", "end_of_word_suffix": "",
+            "fuse_unk": False, "byte_fallback": False, "ignore_merges": False, "vocab": vocab,
+            "merges": [[a, b] for a, b in learned],
+        },
+    }
+
+
+def unigram_tokenizer_json(texts: list[str], pieces: int = 30_000) -> dict:
+    """An XLM-R-style Unigram tokenizer.json made by hand: XLM-R's special
+    pieces (<s>, <pad>, </s>, <unk> at 0-3, <mask> last), the ``pieces`` most
+    frequent Metaspace words of ``texts`` and every character, scored by
+    their log-frequency; the Metaspace pre-tokenizer and decoder (XLM-R's
+    ``Precompiled`` normalizer is left out: ROADMAP)."""
+    import math
+    from collections import Counter
+
+    words: Counter = Counter()
+    chars: Counter = Counter()
+    for text in texts:
+        for word in text.replace(" ", "▁").split("▁"):
+            if word:
+                words["▁" + word] += 1
+                chars.update(word)
+    total = sum(words.values()) + sum(chars.values())
+    vocab = [["<s>", 0.0], ["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0]]
+    vocab += [[w, math.log(c / total)] for w, c in words.most_common(pieces) if len(w) > 2]
+    vocab += [[c, math.log(n / total) - 2.0] for c, n in sorted(chars.items())]
+    vocab += [["▁", math.log(0.5 / total)], ["<mask>", 0.0]]
+    metaspace = {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always", "split": True}
+    specials = ["<s>", "<pad>", "</s>", "<unk>"]
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False, "special": True}
+            for i, t in [*enumerate(specials), (len(vocab) - 1, "<mask>")]
+        ],
+        "normalizer": None, "pre_tokenizer": metaspace, "post_processor": None, "decoder": metaspace,
+        "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
+    }
+
+
+def _seeded(g, shape, std: float):
+    import torch
+
+    return (torch.randn(shape, generator=g, device=g.device, dtype=torch.float32) * std).to(torch.bfloat16)
+
+
+def write_qwen3_checkpoint(path: Path, seed: int, *, shards: int = 3, config: dict = QWEN3_4B_CONFIG, device: str = "cuda") -> int:
+    """A Qwen3-4B-shaped BF16 checkpoint in seeded random weights (HF names
+    and [out, in] layout; matrices N(0, 1/fan_in), the tied embedding N(0,
+    0.02^2), unit norms) in ``shards`` files with their index, written with
+    the port's own safetensors writer, shard by shard from the card.
+    Returns the bytes of weights."""
+    import torch
+
+    from raglite_tpu_torch.models.safetensors_io import save_file
+
+    c = config
+    d, hd, ff = c["hidden_size"], c["head_dim"], c["intermediate_size"]
+    q, kv = c["num_attention_heads"] * hd, c["num_key_value_heads"] * hd
+    shapes = {"model.embed_tokens.weight": (c["vocab_size"], d), "model.norm.weight": (d,)}
+    for i in range(c["num_hidden_layers"]):
+        b = f"model.layers.{i}."
+        shapes.update({
+            b + "input_layernorm.weight": (d,), b + "post_attention_layernorm.weight": (d,),
+            b + "self_attn.q_proj.weight": (q, d), b + "self_attn.k_proj.weight": (kv, d),
+            b + "self_attn.v_proj.weight": (kv, d), b + "self_attn.o_proj.weight": (d, q),
+            b + "self_attn.q_norm.weight": (hd,), b + "self_attn.k_norm.weight": (hd,),
+            b + "mlp.gate_proj.weight": (ff, d), b + "mlp.up_proj.weight": (ff, d), b + "mlp.down_proj.weight": (d, ff),
+        })
+    total = sum(2 * math.prod(s) for s in shapes.values())
+    g = torch.Generator(device=device).manual_seed(seed)
+    path.mkdir(parents=True, exist_ok=True)
+    names, weight_map, written = list(shapes), {}, 0
+    per_shard = -(-total // shards)
+    for k in range(shards):
+        part: dict[str, torch.Tensor] = {}
+        size = 0
+        while names and (size < per_shard or k == shards - 1):
+            name = names.pop(0)
+            shape = shapes[name]
+            if len(shape) == 1:
+                part[name] = torch.ones(shape, dtype=torch.bfloat16, device=device)
+            else:
+                part[name] = _seeded(g, shape, 0.02 if "embed" in name else shape[1] ** -0.5)
+            size += 2 * math.prod(shape)
+        file = f"model-{k + 1:05d}-of-{shards:05d}.safetensors"
+        save_file(part, path / file, {"format": "pt"})
+        weight_map.update({n: file for n in part})
+        written += size
+        del part
+    (path / "model.safetensors.index.json").write_text(json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (path / "config.json").write_text(json.dumps(c))
+    return written
+
+
+def write_bge_m3_checkpoint(path: Path, seed: int, *, config: dict = BGE_M3_CONFIG, device: str = "cuda") -> int:
+    """A bge-m3-shaped BF16 XLM-R encoder in seeded random weights (HF names,
+    0.02-scaled embeddings, N(0, 1/fan_in) matrices, small biases, unit
+    LayerNorms, a pooler the loader skips) as one model.safetensors."""
+    import torch
+
+    from raglite_tpu_torch.models.safetensors_io import save_file
+
+    c = config
+    d, ff = c["hidden_size"], c["intermediate_size"]
+    g = torch.Generator(device=device).manual_seed(seed)
+    ones = lambda n: torch.ones(n, dtype=torch.bfloat16, device=device)  # noqa: E731
+    t = {
+        "embeddings.word_embeddings.weight": _seeded(g, (c["vocab_size"], d), 0.02),
+        "embeddings.position_embeddings.weight": _seeded(g, (c["max_position_embeddings"], d), 0.02),
+        "embeddings.token_type_embeddings.weight": _seeded(g, (c["type_vocab_size"], d), 0.02),
+        "embeddings.LayerNorm.weight": ones(d), "embeddings.LayerNorm.bias": _seeded(g, (d,), 0.02),
+    }
+    for i in range(c["num_hidden_layers"]):
+        b = f"encoder.layer.{i}."
+        for name, (out, inp) in {
+            "attention.self.query": (d, d), "attention.self.key": (d, d), "attention.self.value": (d, d),
+            "attention.output.dense": (d, d), "intermediate.dense": (ff, d), "output.dense": (d, ff),
+        }.items():
+            t[b + name + ".weight"] = _seeded(g, (out, inp), inp**-0.5)
+            t[b + name + ".bias"] = _seeded(g, (out,), 0.02)
+        for name in ("attention.output.LayerNorm", "output.LayerNorm"):
+            t[b + name + ".weight"], t[b + name + ".bias"] = ones(d), _seeded(g, (d,), 0.02)
+    t["pooler.dense.weight"], t["pooler.dense.bias"] = _seeded(g, (d, d), d**-0.5), _seeded(g, (d,), 0.02)
+    path.mkdir(parents=True, exist_ok=True)
+    save_file(t, path / "model.safetensors", {"format": "pt"})
+    (path / "config.json").write_text(json.dumps(c))
+    return sum(x.numel() * x.element_size() for x in t.values())
+
+
+def _release_llms() -> None:
+    """Drop every cached LLM (phase 6's `large` among them) and return its
+    memory to the card."""
+    import gc
+
+    import torch
+
+    from raglite_tpu_torch.models.llm import _make_llm
+
+    _make_llm.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _plain_attention():
+    """A context in which the decoder's three attention ops are their plain
+    versions, on the card too (phase 10 (b)'s reference forward)."""
+    import contextlib
+
+    from raglite_tpu_torch.models import decoder as dec
+    from raglite_tpu_torch.ops.decode_attention import gqa_attention_plain
+
+    @contextlib.contextmanager
+    def swapped():
+        saved = dec.gqa_decode_attention, dec.gqa_verify_attention, dec.gqa_prefill_attention
+        dec.gqa_decode_attention = lambda q, k, v, pos, **kw: gqa_attention_plain(q[:, :, :, None], k, v, pos, **kw)[:, :, :, 0]
+        dec.gqa_verify_attention = dec.gqa_prefill_attention = gqa_attention_plain
+        try:
+            yield
+        finally:
+            dec.gqa_decode_attention, dec.gqa_verify_attention, dec.gqa_prefill_attention = saved
+
+    return swapped()
+
+
+def _forward_logits(llm, ids):
+    """The whole model's logits [T, V] f32 of one prompt (a prefill forward,
+    every position unembedded)."""
+    import torch
+
+    cache = llm.model.init_cache(1, ids.shape[1], device="cuda")
+    with torch.inference_mode():
+        logits, _ = llm.model.forward(llm.params, ids, cache, 0)
+    return logits[0]
+
+
+def time_int8_matmuls(card: str, seed: int) -> list[dict]:
+    """W8A8 and W8A16 at Qwen3-4B's decode shapes (1 and 8 rows) beside the
+    bf16 matmul of the same shape and the bytes bound of each (the int8 or
+    bf16 weight read once, scales, activations and the f32 output); every
+    call reads the next of enough weight copies to leave the 50 MB L2."""
+    import itertools
+
+    import torch
+
+    from raglite_tpu_torch.ops.quant_matmul import QuantLinear, int8_matmul_w8a8, int8_matmul_xla
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 10)
+    shapes = {"lm_head": (2560, 151936), "wqkv": (2560, 6144), "w_gate_up": (2560, 19456), "w_down": (9728, 2560), "wo": (4096, 2560)}
+    out = []
+    for name, (k, n) in shapes.items():
+        copies = max(1, -(-200_000_000 // (k * n)))
+        # [K, N] views of [N, K] storage: the layout of a loaded checkpoint's
+        # matrices (HF's [out, in], transposed as a view).
+        dense = [_seeded(g, (n, k), k**-0.5).T for _ in range(copies)]
+        quant = [QuantLinear.from_dense(w) for w in dense]
+        for rows in (1, 8):
+            x = _seeded(g, (rows, k), 1.0)
+            ref = x.float() @ quant[0].dense(torch.float32)[:k]
+            err = {
+                "w8a8": float((int8_matmul_w8a8(x, quant[0].q8, quant[0].s8)[:, :n] - ref).abs().max() / ref.abs().max()),
+                "w8a16": float((int8_matmul_xla(x, quant[0].q8, quant[0].s8)[:, :n] - ref).abs().max() / ref.abs().max()),
+            }
+            nq, nd = itertools.cycle(quant), itertools.cycle(dense)
+            w8a8_ms = median_ms(lambda: (lambda w: int8_matmul_w8a8(x, w.q8, w.s8))(next(nq)))
+            w8a16_ms = median_ms(lambda: (lambda w: int8_matmul_xla(x, w.q8, w.s8))(next(nq)))
+            bf16_ms = median_ms(lambda: x @ next(nd))
+            io = rows * k * 2 + rows * n * 4
+            int8_bound = (k * n + 4 * n + io) / PEAK_BYTES_PER_S * 1e3
+            bf16_bound = (2 * k * n + io) / PEAK_BYTES_PER_S * 1e3
+            entry = {"name": name, "K": k, "N": n, "rows": rows, "w8a8_ms": w8a8_ms, "w8a16_ms": w8a16_ms,
+                     "bf16_ms": bf16_ms, "int8_bound_ms": int8_bound, "bf16_bound_ms": bf16_bound, "rel_err": err}
+            out.append(entry)
+            log(f"phase 10 (d) {name} [{rows} x {k}] @ [{k} x {n}] on {card}: W8A8 {w8a8_ms:.4f} ms, W8A16 {w8a16_ms:.4f} ms, "
+                f"bf16 torch.matmul {bf16_ms:.4f} ms; bytes bound int8 {int8_bound:.4f} ms, bf16 {bf16_bound:.4f} ms "
+                f"(3.35 TB/s); largest error against the f32 product of the dequantized weight, relative to its largest "
+                f"entry: {err} ({copies} weight copies rotated)")
+        del dense, quant
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase10_decoder(cfg, question: str, rag_messages, seed: int, card: str, total: dict[str, int]) -> dict:
+    """Phase 10 (a)-(d): a Qwen3-4B-shaped BF16 checkpoint written, loaded
+    through ``jax:hf:<dir>``, held against plain attention, answering
+    rag() and the BPE branches, timed at its attention shapes, then loaded
+    again ``@int8``.  ``total`` gathers the kernel launches of the path."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from raglite_tpu_torch.extract import extract_json
+    from raglite_tpu_torch.models.llm import ToolCall, llm_from_config
+
+    out: dict = {}
+    # (a) The checkpoint and its tokenizer.json.
+    need = 2 * (151936 * 2560 + 36 * (2 * 2560 * 4096 + 2 * 2560 * 1024 + 3 * 2560 * 9728)) + 100_000_000
+    root = scratch_dir(need, "qwen3_4b_")
+    try:
+        t0 = time.perf_counter()
+        texts = _markdown_texts()
+        tok = qwen_tokenizer_json(texts)
+        (root / "tokenizer.json").write_text(json.dumps(tok))
+        tok_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        written = write_qwen3_checkpoint(root, seed)
+        write_s = time.perf_counter() - t0
+        out["write_s"], out["write_gb"] = write_s, written / 1e9
+        log(f"phase 10 (a) Qwen3-4B-shaped BF16 checkpoint ({QWEN3_4B_CONFIG['num_hidden_layers']} layers, d "
+            f"{QWEN3_4B_CONFIG['hidden_size']}, GQA {QWEN3_4B_CONFIG['num_attention_heads']}/"
+            f"{QWEN3_4B_CONFIG['num_key_value_heads']}, tied 151,936 vocabulary) in {root.parent}: {written / 1e9:.3f} GB "
+            f"in 3 shards written in {write_s:.1f} s; tokenizer.json ({len(tok['model']['merges'])} merges learned from "
+            f"{len(texts)} Markdown files, vocabulary {len(tok['model']['vocab'])} + 3 specials) in {tok_s:.1f} s")
+
+        # (b) Load through the factory; kernels against plain attention.
+        spec = f"jax:hf:{root}"
+        hf_cfg = dataclasses.replace(cfg, llm=spec)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        llm = llm_from_config(hf_cfg)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - before
+        assert llm.cfg["kv_heads"] == 8 and llm.cfg["heads"] // llm.cfg["kv_heads"] == 4 and not llm._byte_level
+        assert llm.params["lm_head"].data_ptr() == llm.params["tok_emb"].data_ptr()  # tied: a view, no copy
+        out["load_s"], out["load_peak_gb"] = load_s, peak / 1e9
+        log(f"phase 10 (b) TorchChatLLM('hf:...') through the factory: loaded in {load_s:.2f} s, peak "
+            f"{peak / 1e9:.3f} GB above what was held ({_weight_bytes(llm.params) / 1e9:.3f} GB of weights; the tied "
+            f"lm_head a view of the embedding), stop ids {sorted(llm._stop_ids)}, on {card}")
+        ids = torch.tensor([llm.tokenizer.encode("\n\n".join(texts)[:60_000])[:2048]], device="cuda")
+        assert ids.shape[1] == 2048, ids.shape
+        launches: dict[str, int] = {}
+        kernel_logits = _counted(launches, lambda: _forward_logits(llm, ids))
+        assert launches["gqa_prefill_attention"] == 36, launches
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        with _plain_attention():
+            plain_logits = _forward_logits(llm, ids)
+        diff = float((kernel_logits - plain_logits).abs().max())
+        top1 = kernel_logits.argmax(dim=-1)
+        agree = float((top1 == plain_logits.argmax(dim=-1)).float().mean())
+        scale = float(plain_logits.float().std())
+        del plain_logits
+        out["logits_max_abs_diff"], out["top1_share"] = diff, agree
+        log(f"phase 10 (b) a 2,048-token prompt's forward (REP 4, KVH 8, hd 128; prefill kernel {launches}) against "
+            f"the same forward with plain attention, both on {card}: max |logit difference| {diff:.4f} (logit std "
+            f"{scale:.3f}; bound {PHASE10_LOGIT_ATOL}), top-1 equal at {agree:.4f} of 2,048 positions (bound "
+            f"{PHASE10_TOP1_MIN})")
+        assert torch.isfinite(kernel_logits).all() and agree >= PHASE10_TOP1_MIN and diff <= PHASE10_LOGIT_ATOL, (diff, agree)
+        del kernel_logits
+
+        # (c) rag() with phase 6's prompt, then the BPE branches.
+        answer = serve_rag(cfg, question, card, spec=spec, messages=rag_messages)  # counts its own launches
+        for name, count in answer["launches"].items():
+            total[name] = total.get(name, 0) + count
+        out["rag"] = {k: answer[k] for k in ("rag_t", "rag_s", "encode_ms", "ttft_ms", "prefill_ms", "step_ms", "tokens_per_s", "common_prefix")}
+        user = [{"role": "user", "content": f"Describe this sentence as JSON: {question}"}]
+        t0 = time.perf_counter()
+        content = _counted(total, lambda: llm.complete(
+            user, response_format={"type": "json_schema", "json_schema": {"name": "Sentence", "schema": PHASE8_SCHEMA}},
+            max_tokens=64,
+        ).content)
+        rf_ms = (time.perf_counter() - t0) * 1e3
+        assert isinstance(content, str), content
+        tools = [{"type": "function", "function": {
+            "name": "search_knowledge_base", "description": "Search the knowledge base.",
+            "parameters": {"type": "object", "properties": {"query": {"type": "string"}}, "required": ["query"]},
+        }}]
+        t0 = time.perf_counter()
+        items = _counted(total, lambda: list(llm.stream(user, tools=tools, tool_choice="required", max_tokens=48)))
+        tool_ms = (time.perf_counter() - t0) * 1e3
+        assert len(items) == 1 and isinstance(items[0], ToolCall) and items[0].name == "search_knowledge_base", items
+        t0 = time.perf_counter()
+        extracted = _counted(total, lambda: extract_json(
+            METADATA_SCHEMA, "DocumentMetadata", METADATA_SYSTEM_PROMPT, lambda text: text, texts[0][:3000],
+            config=hf_cfg, max_tokens=64,
+        ))
+        extract_ms = (time.perf_counter() - t0) * 1e3
+        assert isinstance(extracted, str), extracted
+        log(f"phase 10 (c) BPE branches on {card}: complete(response_format=...) with the schema in the prompt "
+            f"{rf_ms:.1f} ms ({content[:60]!r}); a forced tool call through the prompt {tool_ms:.1f} ms "
+            f"({items[0].name}({items[0].arguments[:60]})); extract_json (extract_with_llm's core, the schema in the "
+            f"prompt, the answer kept as text) {extract_ms:.1f} ms")
+
+        # The attention kernels at this model's shapes (REP 4, KVH 8).
+        out["timings"] = time_attention(
+            seed + 10, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card, kvh=8, rep=4,
+            cases=[
+                ("gqa_decode_attention", 1, answer["rag_s"], [answer["rag_pos"]]),
+                ("gqa_verify_attention", 8, answer["rag_s"], [answer["rag_pos"]]),
+                ("gqa_prefill_attention", answer["rag_t"], answer["rag_s"], [0]),
+            ],
+        )
+
+        # (d) The same checkpoint @int8.
+        del llm
+        _release_llms()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        llm8 = llm_from_config(dataclasses.replace(cfg, llm=spec + "@int8"))
+        torch.cuda.synchronize()
+        load8_s = time.perf_counter() - t0
+        peak8 = torch.cuda.max_memory_allocated() - before
+        held8 = torch.cuda.memory_allocated() - before
+        int8_logits = _counted(total, lambda: _forward_logits(llm8, ids))
+        agree8 = float((int8_logits.argmax(dim=-1) == top1).float().mean())
+        del int8_logits
+        out["int8"] = {"load_s": load8_s, "peak_gb": peak8 / 1e9, "held_gb": held8 / 1e9, "top1_share": agree8}
+        log(f"phase 10 (d) hf:...@int8 on {card}: loaded and quantized layer by layer in {load8_s:.2f} s, "
+            f"{_weight_bytes(llm8.params) / 1e9:.3f} GB of weights held ({held8 / 1e9:.3f} GB allocated), peak "
+            f"{peak8 / 1e9:.3f} GB above what was held before; top-1 of the 2,048-token forward equal to the bf16 "
+            f"kernels' at {agree8:.4f} of positions")
+        answer8 = serve_rag(cfg, question, card, spec=spec + "@int8", messages=rag_messages)
+        for name, count in answer8["launches"].items():
+            total[name] = total.get(name, 0) + count
+        out["int8"]["rag"] = {k: answer8[k] for k in ("ttft_ms", "prefill_ms", "step_ms", "tokens_per_s", "common_prefix")}
+        del llm8
+        _release_llms()
+        out["int8"]["matmuls"] = time_int8_matmuls(card, seed)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def phase10_encoder(texts: list[str], queries: list[str], rows: int, seed: int, card: str, total: dict[str, int]) -> dict:
+    """Phase 10 (e): a bge-m3-shaped BF16 encoder written and served as
+    ``flax:<dir>``: the phase-3 documents into a fresh store, background rows
+    at d = 1,024 up to ``rows``, vector_search (int4 route) against the
+    exact route, rerank_chunks and search_and_rerank_chunk_spans.  Replaces
+    the phase-3 store."""
+    import gc
+    import shutil
+
+    import torch
+
+    from raglite_tpu_torch import Document, RAGLiteConfig, insert_documents
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.search import corrected_num_hits, rerank_chunks, search_and_rerank_chunk_spans, vector_search
+    from raglite_tpu_torch.store import store_from_config
+
+    _fresh_memory_store()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out: dict = {}
+    root = scratch_dir(1_300_000_000, "bge_m3_")
+    try:
+        t0 = time.perf_counter()
+        (root / "tokenizer.json").write_text(json.dumps(unigram_tokenizer_json(_markdown_texts())))
+        written = write_bge_m3_checkpoint(root, seed + 20)
+        write_s = time.perf_counter() - t0
+        ecfg = RAGLiteConfig(store_path=":memory:", device="cuda", embedder=f"flax:{root}")
+        t0 = time.perf_counter()
+        insert_documents([Document.from_text(t) for t in texts], config=ecfg)
+        insert_s = time.perf_counter() - t0
+        store = store_from_config(ecfg)
+        doc_rows = sum(m.shape[0] for m in store.embeddings.values())
+        t0 = time.perf_counter()
+        add_background(store, rows - doc_rows, seed + 20, dim=1024)
+        background_s = time.perf_counter() - t0
+        index = dense_index_from_config(ecfg)
+        assert index.dim == 1024 and index.num_rows == rows, (index.dim, index.num_rows)
+        log(f"phase 10 (e) bge-m3-shaped BF16 encoder (24 layers, d 1,024, 250,002 x 1,024 embedding, 8,192 positions): "
+            f"{written / 1e9:.3f} GB and a Unigram tokenizer.json written in {write_s:.1f} s; {len(texts)} documents "
+            f"({doc_rows} rows) inserted through flax:<dir> in {insert_s:.1f} s, {rows - doc_rows} background rows in "
+            f"{background_s:.1f} s, on {card}")
+        latencies, routes = [], set()
+
+        def searches():
+            for query in queries:
+                t0 = time.perf_counter()
+                vector_search(query, num_results=10, config=ecfg)
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                routes.add(index.last_route)
+
+        launches: dict[str, int] = {}
+        _counted(launches, searches)
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        assert routes == {"int4_two_stage"} and launches["int4_bucket_scan"] == len(queries), (routes, launches)
+        emb = embed_queries(queries, config=ecfg)
+        hits = min(corrected_num_hits(4, 10, ecfg), index.num_rows)
+        recalls, tie_recalls = [], []
+        for b in range(len(queries)):
+            routed = index.search_chunks_device(emb[b : b + 1], num_hits=hits, num_results=10)[1][0].tolist()
+            scores, ordinals = index.search_chunks_device(emb[b : b + 1], num_hits=hits, num_results=hits, exact=True)
+            exact_score = dict(zip(ordinals[0].tolist(), scores[0].tolist()))
+            exact = set(ordinals[0, :10].tolist())
+            tenth = float(scores[0, 9])
+            recalls.append(len(set(routed) & exact) / len(exact))
+            tie_recalls.append(sum(c in exact or exact_score.get(c, -math.inf) >= tenth - TIE_ATOL for c in routed) / 10)
+            if set(routed) != exact:
+                _recall_diagnosis(index, emb[b : b + 1], hits, queries[b], card)
+        recall, tie_recall = statistics.mean(recalls), statistics.mean(tie_recalls)
+        assert tie_recall >= RECALL_MIN, (recall, tie_recall)
+        top20 = {q: vector_search(q, num_results=20, config=ecfg)[0] for q in queries}
+        rerank_ms = []
+
+        def reranks():
+            for q in queries:
+                t0 = time.perf_counter()
+                reranked = rerank_chunks(q, top20[q], config=ecfg)
+                torch.cuda.synchronize()
+                rerank_ms.append((time.perf_counter() - t0) * 1e3)
+                assert len(reranked) == len(top20[q]), (len(reranked), len(top20[q]))
+
+        _counted(total, reranks)
+        search_and_rerank_chunk_spans(queries[0], config=ecfg)  # the keyword index's first sync
+        spans_p50 = _counted(total, lambda: _p50_ms(lambda q: search_and_rerank_chunk_spans(q, config=ecfg), queries))
+        out.update({
+            "vector_search_p50_ms": statistics.median(latencies), "recall_at_10": recall, "recall_at_10_ties": tie_recall,
+            "rerank_p50_ms": statistics.median(rerank_ms), "search_and_rerank_p50_ms": spans_p50,
+        })
+        log(f"phase 10 (e) at d = 1,024 over {index.num_rows} rows on {card}: vector_search p50 "
+            f"{out['vector_search_p50_ms']:.3f} ms over {len(queries)} queries (int4 route, launches {launches}), "
+            f"recall@10 against the exact route {recall:.4f} by ids, {tie_recall:.4f} counting chunks tied with the "
+            f"exact 10th (within {TIE_ATOL:.3g}) as hits; rerank_chunks of each query's top 20 p50 "
+            f"{out['rerank_p50_ms']:.3f} ms (first calls, candidate states cached as they come); "
+            f"search_and_rerank_chunk_spans (hybrid search) p50 {spans_p50:.3f} ms")
+        out["timings"] = time_kernels(index, None, emb, card, dim=1024, batches=(1,))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def _recall_diagnosis(index, query_emb, hits: int, query: str, card: str) -> None:
+    """Where a query's int4-route chunks differ from the exact route's: the
+    two routes' top rows, the rows one has and the other lacks with their
+    exact scores, and whether those rows were among the stage-1 candidates."""
+    from raglite_tpu_torch.index.dense import _dense_search
+    from raglite_tpu_torch.ops import fused_scan as fs
+
+    index._refresh_device()
+    index._ensure_packed4()
+    q, valid = index._queries(query_emb), index._valid_with(None)
+    es, eid = _dense_search(
+        index._dev_rows, index._dev_sqnorm, valid, q, index._dev_scale, num_hits=hits, metric=index.metric,
+    )
+    pool = max(fs.INT4_STAGE1_CANDIDATES, 2 * hits)
+    cs_, cid = fs.int4_two_stage_block(
+        index._dev_packed4, index._dev_scale4, index._dev_rows, index._dev_scale, index._dev_sqnorm, valid, q,
+        num_hits=pool, candidates=pool, metric=index.metric, num_buckets=fs.INT4_NUM_BUCKETS,
+    )
+    exact_rows, scores = eid[0].tolist(), es[0].tolist()
+    routed_rows, routed_scores, pool_rows = cid[0, :hits].tolist(), cs_[0, :hits].tolist(), set(cid[0].tolist())
+    chunk = index._dev_row_chunk
+    missing = [(r, round(sc, 6), int(chunk[r]), r in pool_rows) for r, sc in zip(exact_rows, scores) if r not in routed_rows]
+    extra = [(r, round(sc, 6), int(chunk[r])) for r, sc in zip(routed_rows, routed_scores) if r not in exact_rows]
+    log(f"phase 10 (e) recall diagnosis for {query[:60]!r} on {card}: exact top-{hits} row scores "
+        f"{scores[0]:.6f}..{scores[-1]:.6f}, int4 route's {routed_scores[0]:.6f}..{routed_scores[-1]:.6f}; rows only "
+        f"exact (row, exact score, chunk, among the {pool} stage-1 candidates) {missing}; rows only int4 (row, "
+        f"rescored score, chunk) {extra}")
+
+
+def phase10_orbax(card: str, seed: int) -> None:
+    """Phase 10 (f): where tensorstore is installed, the ``small`` preset
+    written by the port's save_checkpoint and read back as ``ckpt:<dir>``,
+    its logits against the model in memory."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from raglite_tpu_torch.models.decoder import TorchChatLLM
+
+    if importlib.util.find_spec("tensorstore") is None:
+        log("phase 10 (f) tensorstore is not installed on this machine: no ckpt: checkpoint read on the card "
+            "(the CPU tests cover the reader)")
+        return
+    root = scratch_dir(200_000_000, "ckpt_small_")
+    try:
+        llm = TorchChatLLM("small", seed=seed, device="cuda")
+        t0 = time.perf_counter()
+        llm.save_checkpoint(str(root / "small"))
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = TorchChatLLM(f"ckpt:{root / 'small'}", device="cuda")
+        load_s = time.perf_counter() - t0
+        ids = torch.randint(3, 259, (1, 64), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+        diff = float((_forward_logits(llm, ids) - _forward_logits(back, ids)).abs().max())
+        assert diff == 0.0, diff
+        log(f"phase 10 (f) ckpt: the small preset saved (orbax layout, tensorstore) in {save_s:.2f} s and read back "
+            f"in {load_s:.2f} s on {card}: logits equal to the model in memory (max |difference| {diff})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def pick_queries(texts: list[str], count: int, seed: int) -> list[str]:
     """``count`` distinct ASCII sentences (40-240 characters, ending in a
     full stop, question or exclamation mark) from the documents, each of at
@@ -1787,7 +2529,7 @@ VOCAB = 30_000
 
 
 def add_background(
-    store, rows_needed: int, seed: int, *, rows_per_chunk: int = 2, device: str = "cuda"
+    store, rows_needed: int, seed: int, *, rows_per_chunk: int = 2, device: str = "cuda", dim: int = D
 ) -> set[str]:
     """Seeded background chunks (unit-vector rows made on ``device`` in bulk,
     ``rows_per_chunk`` to a chunk; bodies of 12 zipf(1.3) terms, as bench.py
@@ -1802,7 +2544,7 @@ def add_background(
     store.add_document(doc)
     g = torch.Generator(device=device).manual_seed(seed)
     n_chunks = -(-rows_needed // rows_per_chunk)
-    vecs = torch.randn((n_chunks * rows_per_chunk, D), generator=g, device=device)
+    vecs = torch.randn((n_chunks * rows_per_chunk, dim), generator=g, device=device)
     vecs = (vecs / vecs.norm(dim=1, keepdim=True)).to(torch.float16).cpu().numpy()
     counts = np.full(n_chunks, rows_per_chunk)
     counts[-1] = rows_needed - rows_per_chunk * (n_chunks - 1)
@@ -2093,8 +2835,9 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
     return out
 
 
-def time_kernels(index_bf16, index_i8, q_emb, card: str) -> list[dict]:
-    """Phase 5: each kernel at the index's arrays, B = 1 and 32."""
+def time_kernels(index_bf16, index_i8, q_emb, card: str, *, dim: int = D, batches=(1, 32)) -> list[dict]:
+    """Phase 5: each kernel at the index's arrays, B = 1 and 32 (phase 10
+    (e): the int4 scan alone, ``index_i8`` None, at d = 1024)."""
     import torch
 
     from raglite_tpu_torch.ops import fused_scan as fs
@@ -2102,9 +2845,8 @@ def time_kernels(index_bf16, index_i8, q_emb, card: str) -> list[dict]:
     n = index_bf16.capacity
     out = []
     bias4 = torch.where(index_bf16._dev_valid, 0.0, fs.NEG).contiguous()
-    bias8 = torch.where(index_i8._dev_valid, 0.0, fs.NEG).contiguous()
     unpacked = fs.unpack_rows_int4(index_bf16._dev_packed4)
-    for batch in (1, 32):
+    for batch in batches:
         q = torch.as_tensor(q_emb[:batch], device="cuda")
         q_abs = q.abs().amax(dim=1, keepdim=True)
         q_i8 = torch.clamp(torch.round(q / (q_abs / 127.0)), -127, 127).to(torch.int8)
@@ -2113,15 +2855,17 @@ def time_kernels(index_bf16, index_i8, q_emb, card: str) -> list[dict]:
                 lambda: fs.int4_bucket_scan(q_i8, index_bf16._dev_packed4, index_bf16._dev_scale4, bias4, num_buckets=fs.INT4_NUM_BUCKETS),
                 lambda: fs.int4_bucket_scan_plain(q_i8, index_bf16._dev_packed4, index_bf16._dev_scale4, bias4, num_buckets=fs.INT4_NUM_BUCKETS),
                 lambda: _library_scan(q_i8, unpacked, index_bf16._dev_scale4, bias4, fs.INT4_NUM_BUCKETS),
-                n * D // 2, fs.INT4_NUM_BUCKETS,
+                n * dim // 2, fs.INT4_NUM_BUCKETS,
             ),
-            "bucketed_max_scan": (
+        }
+        if index_i8 is not None:
+            bias8 = torch.where(index_i8._dev_valid, 0.0, fs.NEG).contiguous()
+            specs["bucketed_max_scan"] = (
                 lambda: fs.bucketed_max_scan(q_i8, index_i8._dev_rows, bias8, index_i8._dev_scale),
                 lambda: fs.bucketed_max_scan_plain(q_i8, index_i8._dev_rows, bias8, index_i8._dev_scale),
                 lambda: _library_scan(q_i8, index_i8._dev_rows, index_i8._dev_scale, bias8, fs.DEFAULT_NUM_BUCKETS),
-                n * D, fs.DEFAULT_NUM_BUCKETS,
-            ),
-        }
+                n * dim, fs.DEFAULT_NUM_BUCKETS,
+            )
         for name, (kernel, plain, library, row_bytes, L) in specs.items():
             (ks, ki), (ps, pi) = kernel(), plain()
             torch.cuda.synchronize()
@@ -2132,17 +2876,17 @@ def time_kernels(index_bf16, index_i8, q_emb, card: str) -> list[dict]:
             ms = median_ms(kernel)
             plain_ms = median_ms(plain, reps=5, inner=1, warmup=1)
             library_ms = median_ms(library)
-            moved = row_bytes + n * 8 + batch * D + batch * L * 8  # rows, rscale+bias, q, outputs
-            ops = 2 * batch * n * D
+            moved = row_bytes + n * 8 + batch * dim + batch * L * 8  # rows, rscale+bias, q, outputs
+            ops = 2 * batch * n * dim
             bound = {"bytes": moved / PEAK_BYTES_PER_S * 1e3, "operations": ops / PEAK_INT8_OPS_PER_S * 1e3}
             bound_by = max(bound, key=bound.get)
             log(
-                f"timing {name} B={batch} N={n} d={D} on {card}: kernel {ms:.4f} ms, "
+                f"timing {name} B={batch} N={n} d={dim} on {card}: kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, bound {bound[bound_by]:.4f} ms "
                 f"({bound_by}); max_abs_err {err}"
             )
             out.append({
-                "name": name, "batch": batch, "ms": ms, "plain_ms": plain_ms,
+                "name": name, "batch": batch, "d": dim, "N": n, "ms": ms, "plain_ms": plain_ms,
                 "library_ms": library_ms, "bound_ms": bound[bound_by], "bound_by": bound_by,
                 "max_abs_err": err,
             })
@@ -2188,10 +2932,11 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill"],
-        help="a partial run for work on one kernel: build it, hold it against its plain version "
-        "(phase 2b's cases) and time it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / S 2,208); "
-        "prints no result line",
+        "--only", choices=["prefill", "phase10"],
+        help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
+        "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
+        "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
+        "with phase 6's message",
     )
     args = parser.parse_args()
 
@@ -2226,6 +2971,27 @@ def main() -> int:
         check_attention_kernels(args.seed, prefill_only=True)
         time_attention(args.seed, 8352, 8064, 8192, card, profile=args.profile, only="gqa_prefill_attention")
         log("partial run (--only prefill): no result line")
+        return 0
+
+    if args.only == "phase10":
+        import dataclasses
+
+        from raglite_tpu_torch import add_context, retrieve_context
+
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")]
+        cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
+        insert_documents([Document.from_text(t) for t in texts], config=cfg)
+        store = store_from_config(cfg)
+        add_background(store, args.rows - sum(m.shape[0] for m in store.embeddings.values()), args.seed)
+        vs_q = pick_queries(texts, 8 + 4 + 32, args.seed)[:8]  # phase 3's 8 sentences
+        rag_cfg = dataclasses.replace(cfg, llm="jax:large")
+        messages = [add_context(vs_q[0], retrieve_context(vs_q[0], config=rag_cfg), rag_cfg)]
+        _release_llms()
+        launches10: dict[str, int] = {}
+        phase10_decoder(cfg, vs_q[0], messages, args.seed, card, launches10)
+        phase10_encoder(texts, vs_q, args.rows, args.seed, card, launches10)
+        phase10_orbax(card, args.seed)
+        log(f"phase 10 launches {launches10}; partial run (--only phase10): no result line")
         return 0
 
     # 2. Kernels vs plain versions.
@@ -2311,6 +3077,25 @@ def main() -> int:
     for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase9_launches.get(name, 0) > 0, (name, phase9_launches)
 
+    # 10. Real checkpoints: a Qwen3-4B-shaped hf: checkpoint (bf16 and
+    # @int8) answering over the phase-3 store, a bge-m3-shaped encoder at
+    # d = 1,024 in a fresh store (phase-3's replaced), ckpt: where
+    # tensorstore is installed.  Phase 6's `large` goes first.
+    peak_before = torch.cuda.max_memory_allocated()
+    _release_llms()
+    log(f"phase 10: phase 6's large preset released ({torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated; "
+        f"peak so far {peak_before / 1e9:.3f} GB), on {card}")
+    phase10_launches: dict[str, int] = {}
+    decoder10 = phase10_decoder(cfg, vs_q[0], answer["messages"], args.seed, card, phase10_launches)
+    encoder10 = phase10_encoder(texts, vs_q, PHASE10_ROWS, args.seed, card, phase10_launches)
+    phase10_orbax(card, args.seed)
+    summary10 = {k: v for k, v in decoder10.items() if k != "timings"}
+    summary10["int8"] = {k: v for k, v in decoder10["int8"].items() if k != "matmuls"}
+    summary10.update({k: v for k, v in encoder10.items() if k != "timings"})
+    log(f"phase 10 summary on {card}: {json.dumps({**summary10, 'launches': phase10_launches})}")
+    for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
+        assert phase10_launches.get(name, 0) > 0, (name, phase10_launches)
+
     # 8 (d) and 9 (f) replace the cached ":memory:" store: they come last.
     hash_on_card(texts, vs_q, card)
     phase9_openai(texts[:2], vs_q[0], card)
@@ -2338,7 +3123,19 @@ def main() -> int:
             "graph_ms": t.get("graph_ms"),
             # Launches on phase 9's path (evals, adapter, judge panels, async_rag).
             "launches_phase9": phase9_launches.get(name, 0),
+            # And on phase 10's (the Qwen3-4B-shaped checkpoint's answers,
+            # the bge-m3-shaped encoder's searches).
+            "launches_phase10": phase10_launches.get(name, 0),
         })
+        p10 = next((x for x in decoder10["timings"] + encoder10["timings"] if x["name"] == name), None)
+        if p10 is not None:
+            # Phase 10's shapes: attention at Qwen3-4B's KVH 8, REP 4 (the
+            # answer's T and S), the int4 scan at d = 1,024.
+            kernels[-1]["phase10"] = {k: p10[k] for k in (
+                "batch", "T", "S", "KVH", "REP", "d", "N", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err",
+            ) if k in p10}
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], p10["max_abs_err"])
         b8 = next((x for x in structured["timings"] if x["name"] == name), None)
         if b8 is not None:
             kernels[-1]["batch8"] = {

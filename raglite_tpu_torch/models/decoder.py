@@ -3,23 +3,28 @@ raglite_tpu/models/decoder.py).
 
 - ``init_decoder_params``: seeded random weights at a preset's shapes (the
   same distributions as the JAX package, not the same bits), or
-  ``params_from_jax`` for a JAX parameter tree;
+  ``params_from_jax`` for a JAX parameter tree (dense or ``@int8``);
+  ``load_safetensors_decoder`` reads a HuggingFace checkpoint of the eight
+  families the JAX package loads (Qwen2, Qwen3, Llama, Mistral, Gemma 1-3,
+  Phi-3) with the port's own safetensors and ``tokenizer.json`` readers;
+  ``quantize_decoder_params`` and ``init_decoder_params_quantized`` give the
+  ``@int8`` layout (ops/quant_matmul.py);
 - ``DecoderModel.forward``: prefill and decode over per-layer ``[B, KVH, hd,
   S]`` caches, with the JAX forward's family knobs and dtypes; attention goes
   through the hand-written CUDA kernels on the card (ops/decode_attention.py,
   ops/prefill_attention.py) and their plain versions on the CPU;
-- ``TorchChatLLM``: the ``jax:<preset>`` provider of models/llm.py: ChatML
-  prompts, unconstrained streamed generation with prompt-lookup speculation
-  for greedy decode (models/speculative.py), the tool-tag filter,
-  schema-constrained decode (``response_format``) and forced tool calls over
-  the byte-level automata (models/json_automaton.py,
-  models/schema_automaton.py: a host loop, one forward and one logits fetch
-  a token), and batched generation (``complete_batch``: one ragged [B, T]
-  prefill, then the device chunk loop or batched speculation, or the
-  constrained host loop over [B, 1] forwards).
-
-Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints and
-``@int8`` weights.
+- ``TorchChatLLM``: the ``jax:<preset>``, ``jax:hf:<dir>`` and
+  ``jax:ckpt:<dir>`` providers of models/llm.py (``@int8`` after any of
+  them): ChatML prompts, unconstrained streamed generation with
+  prompt-lookup speculation for greedy decode (models/speculative.py), the
+  tool-tag filter, and batched generation (``complete_batch``: one ragged
+  [B, T] prefill, then the device chunk loop or batched speculation, or the
+  constrained host loop over [B, 1] forwards).  Byte-tokenizer models
+  constrain ``response_format`` and forced tool calls with the byte
+  automata (models/json_automaton.py, models/schema_automaton.py: a host
+  loop, one forward and one logits fetch a token); a checkpoint's BPE
+  tokenizer cannot, so it puts the schema or the tool call in the prompt,
+  as the JAX package does.
 """
 
 from __future__ import annotations
@@ -47,6 +52,12 @@ from raglite_tpu_torch.models.schema_automaton import SchemaAutomaton
 from raglite_tpu_torch.models.tokenizer import ByteTokenizer
 from raglite_tpu_torch.ops.decode_attention import gqa_decode_attention, gqa_verify_attention
 from raglite_tpu_torch.ops.prefill_attention import gqa_prefill_attention
+from raglite_tpu_torch.ops.quant_matmul import (
+    QuantLinear,
+    QuantLinearFused,
+    quant_linear_apply,
+    quant_linear_apply_fused,
+)
 from raglite_tpu_torch.utils.padding import bucket as _bucket_any
 from raglite_tpu_torch.utils.padding import round_up
 
@@ -57,7 +68,10 @@ __all__ = [
     "TorchChatLLM",
     "compute_inv_freq",
     "init_decoder_params",
+    "init_decoder_params_quantized",
+    "load_safetensors_decoder",
     "params_from_jax",
+    "quantize_decoder_params",
 ]
 
 Params = dict[str, Any]
@@ -129,17 +143,43 @@ def compute_inv_freq(cfg: dict) -> np.ndarray:
     return inv_freq.astype(np.float32)
 
 
-def init_decoder_params(
-    cfg: dict,
-    *,
-    seed: int = 0,
-    dtype: torch.dtype = torch.bfloat16,
-    device: str | torch.device = "cpu",
-) -> Params:
-    """Seeded random weights at ``cfg``'s shapes, drawn on ``device`` from a
-    ``torch.Generator``: the JAX package's distributions (matrices N(0, 1) /
-    sqrt(fan_in) drawn in f32 then cast, embeddings N(0, 0.02^2), unit
-    norms), not its bits.  Matrices keep the JAX layout [in, out]."""
+def _linear(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a dense matrix or a QuantLinear (int8 weights)."""
+    if isinstance(w, QuantLinear):
+        return quant_linear_apply(x, w)
+    return x @ w
+
+
+#: Per-layer matrices, in the order they are drawn.
+_LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _quantize_layer(layer: dict) -> dict:
+    """One layer's matmul weights in the int8 decode layout: q/k/v fused
+    into ``wqkv``, gate/up into ``w_gate_up``, ``wo`` and ``w_down`` alone;
+    norms and biases kept."""
+    out = {k: v for k, v in layer.items() if k not in _LAYER_MATRICES}
+    out["wqkv"] = QuantLinearFused.from_dense([layer["wq"], layer["wk"], layer["wv"]])
+    out["w_gate_up"] = QuantLinearFused.from_dense([layer["w_gate"], layer["w_up"]])
+    out["wo"] = QuantLinear.from_dense(layer["wo"])
+    out["w_down"] = QuantLinear.from_dense(layer["w_down"])
+    return out
+
+
+def quantize_decoder_params(params: Params) -> Params:
+    """Every decode matmul weight in int8 with per-output-channel scales:
+    attention q/k/v (fused) and o, MLP gate/up (fused) and down, and the
+    lm_head.  The embedding (a gather), norms and biases keep their dtype."""
+    out = {k: v for k, v in params.items() if k not in ("layers", "lm_head")}
+    out["lm_head"] = QuantLinear.from_dense(params["lm_head"])
+    out["layers"] = [_quantize_layer(layer) for layer in params["layers"]]
+    return out
+
+
+def _draw_params(cfg: dict, *, seed: int, dtype: torch.dtype, device, quantize: bool = False) -> Params:
+    """Seeded random weights drawn on ``device`` from one ``torch.Generator``
+    in a fixed order; with ``quantize`` the lm_head and each layer go to the
+    int8 layout as soon as they are drawn (one ``dtype`` layer at a time)."""
     d, ff, vocab = cfg["d_model"], cfg["d_ff"], cfg["vocab"]
     heads, kv_heads = cfg["heads"], cfg["kv_heads"]
     head_dim = d // heads
@@ -155,25 +195,50 @@ def init_decoder_params(
     def ones() -> torch.Tensor:
         return torch.ones(d, dtype=torch.float32, device=device)
 
-    params: Params = {
-        "tok_emb": normal((vocab, d), 0.02),
-        "final_norm": ones(),
-        "lm_head": dense((d, vocab)),
-        "layers": [],
-    }
+    params: Params = {"tok_emb": normal((vocab, d), 0.02), "final_norm": ones()}
+    lm_head = dense((d, vocab))
+    params["lm_head"] = QuantLinear.from_dense(lm_head) if quantize else lm_head
+    del lm_head
+    params["layers"] = []
     for _ in range(cfg["layers"]):
-        params["layers"].append({
-            "attn_norm": ones(),
-            "wq": dense((d, heads * head_dim)),
-            "wk": dense((d, kv_heads * head_dim)),
-            "wv": dense((d, kv_heads * head_dim)),
-            "wo": dense((heads * head_dim, d)),
-            "mlp_norm": ones(),
-            "w_gate": dense((d, ff)),
-            "w_up": dense((d, ff)),
-            "w_down": dense((ff, d)),
-        })
+        layer = {"attn_norm": ones()}
+        for name, shape in zip(_LAYER_MATRICES, [
+            (d, heads * head_dim), (d, kv_heads * head_dim), (d, kv_heads * head_dim), (heads * head_dim, d),
+            (d, ff), (d, ff), (ff, d),
+        ]):
+            layer[name] = dense(shape)
+        layer["mlp_norm"] = ones()
+        params["layers"].append(_quantize_layer(layer) if quantize else layer)
     return params
+
+
+def init_decoder_params(
+    cfg: dict,
+    *,
+    seed: int = 0,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cpu",
+) -> Params:
+    """Seeded random weights at ``cfg``'s shapes, drawn on ``device`` from a
+    ``torch.Generator``: the JAX package's distributions (matrices N(0, 1) /
+    sqrt(fan_in) drawn in f32 then cast, embeddings N(0, 0.02^2), unit
+    norms), not its bits.  Matrices keep the JAX layout [in, out]."""
+    return _draw_params(cfg, seed=seed, dtype=dtype, device=device)
+
+
+def init_decoder_params_quantized(
+    cfg: dict,
+    *,
+    seed: int = 0,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cpu",
+) -> Params:
+    """The same weights straight into the ``@int8`` layout, one layer at a
+    time: each layer is quantized as soon as it is drawn and its ``dtype``
+    matrices dropped, so the peak is the int8 total plus one layer (and the
+    embedding), not both totals.  Equal to
+    ``quantize_decoder_params(init_decoder_params(cfg, seed=seed))``."""
+    return _draw_params(cfg, seed=seed, dtype=dtype, device=device, quantize=True)
 
 
 #: Parameters that stay f32 whatever the matrices' dtype (norm scales and
@@ -184,24 +249,180 @@ _F32_LEAVES = frozenset({
 })
 
 
+def _host_tensor(x) -> torch.Tensor:
+    """A torch tensor of any array numpy can read; bf16 arrays (ml_dtypes,
+    as JAX and tensorstore return them) through their 2-byte words."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(arr))
+
+
 def params_from_jax(
     params: Params, *, dtype: torch.dtype = torch.bfloat16, device: str | torch.device = "cpu"
 ) -> Params:
-    """A ``JaxChatLLM.params`` tree (any arrays numpy can read, dense
-    weights only) -> this module's parameter dict: the same names and
+    """A ``JaxChatLLM.params`` tree (arrays numpy can read; ``@int8``
+    QuantLinear / QuantLinearFused leaves carried as they are: int8 blocks
+    and f32 scales) -> this module's parameter dict: the same names and
     layouts, matrices in ``dtype``, norms and biases in f32."""
 
-    def leaf(name: str, x) -> torch.Tensor:
-        t = torch.from_numpy(np.asarray(x, dtype=np.float32).copy())
-        return t.to(device=device, dtype=torch.float32 if name in _F32_LEAVES else dtype)
+    def leaf(name: str, x):
+        if hasattr(x, "n_outs"):
+            return QuantLinearFused(_host_tensor(x.q8).to(device), _host_tensor(x.s8).to(device, torch.float32), x.n_outs)
+        if hasattr(x, "n_out"):
+            return QuantLinear(_host_tensor(x.q8).to(device), _host_tensor(x.s8).to(device, torch.float32), x.n_out)
+        return _host_tensor(x).to(device=device, dtype=torch.float32 if name in _F32_LEAVES else dtype)
 
-    for layer in params["layers"]:
-        if "wqkv" in layer or "w_gate_up" in layer:
-            msg = "params_from_jax: @int8 weights are not ported (ROADMAP queue 1 item 9)"
-            raise NotImplementedError(msg)
     out: Params = {k: leaf(k, v) for k, v in params.items() if k != "layers"}
     out["layers"] = [{k: leaf(k, v) for k, v in layer.items()} for layer in params["layers"]]
     return out
+
+
+def _hf_config(hf: dict) -> dict:
+    """The decoder config of a HuggingFace ``config.json`` (the JAX
+    package's mapping, family knobs included)."""
+    model_type = hf.get("model_type", "")
+    is_gemma = model_type.startswith("gemma")
+    num_layers = hf["num_hidden_layers"]
+    # Per-layer local (sliding-window) attention: modern configs list
+    # layer_types; older ones imply the pattern from the family.
+    layer_types = hf.get("layer_types")
+    if layer_types:
+        layer_sliding = [t == "sliding_attention" for t in layer_types]
+    elif hf.get("sliding_window") and hf.get("use_sliding_window", True):
+        # Qwen2/2.5 ship a sliding_window with use_sliding_window=false and
+        # attend globally: the window size alone would mask long prompts.
+        if model_type == "gemma2":  # alternating, sliding on even layers
+            layer_sliding = [i % 2 == 0 for i in range(num_layers)]
+        elif model_type == "gemma3_text":  # 5 local : 1 global
+            pattern = hf.get("sliding_window_pattern", 6)
+            layer_sliding = [(i + 1) % pattern != 0 for i in range(num_layers)]
+        elif model_type == "qwen2":  # the window only above max_window_layers
+            mwl = hf.get("max_window_layers", 0)
+            layer_sliding = [i >= mwl for i in range(num_layers)]
+        else:  # Mistral, Phi-3: every layer
+            layer_sliding = [True] * num_layers
+    else:
+        layer_sliding = None
+    act = hf.get("hidden_activation") or hf.get("hidden_act")
+    return dict(
+        layers=num_layers,
+        d_model=hf["hidden_size"],
+        heads=hf["num_attention_heads"],
+        kv_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+        d_ff=hf["intermediate_size"],
+        vocab=hf["vocab_size"],
+        max_len=hf.get("max_position_embeddings", 32768),
+        head_dim=hf.get("head_dim") or hf["hidden_size"] // hf["num_attention_heads"],
+        rope_base=hf.get("rope_theta", 10000.0),
+        rms_eps=hf.get("rms_norm_eps", 1e-6),
+        rope_scaling=hf.get("rope_scaling"),
+        hidden_act=(
+            "gelu_pytorch_tanh"
+            if is_gemma and act in (None, "gelu", "gelu_pytorch_tanh")
+            else act or "silu"
+        ),
+        emb_scale=hf["hidden_size"] ** 0.5 if is_gemma else 1.0,
+        attn_scale=float(hf["query_pre_attn_scalar"]) ** -0.5 if hf.get("query_pre_attn_scalar") else None,
+        attn_softcap=hf.get("attn_logit_softcapping"),
+        final_softcap=hf.get("final_logit_softcapping"),
+        sliding_window=hf.get("sliding_window"),
+        layer_sliding=layer_sliding,
+        rope_local_base=hf.get("rope_local_base_freq"),
+    )
+
+
+def load_safetensors_decoder(
+    path: str,
+    *,
+    dtype: torch.dtype = torch.bfloat16,
+    device: str | torch.device = "cpu",
+    quantize: bool = False,
+):
+    """A HuggingFace decoder checkpoint directory (``config.json``, one or
+    more ``*.safetensors`` shards, ``tokenizer.json``) in this module's
+    layout; returns ``(cfg, params, tokenizer)``.  Families: Qwen2 (q/k/v
+    biases), Qwen3 and Gemma3 (per-head q/k norms), Llama, Mistral, Gemma
+    1-3 (``1 + w`` norms, sqrt(d) embedding scale, GeGLU, sandwich norms,
+    soft-caps, sliding layers, a local RoPE base) and Phi-3 (packed qkv and
+    gate_up, split here).
+
+    Tensors go from the mapped files to ``device`` one at a time (the port's
+    own reader: no ``safetensors`` package, BF16 included); HF's ``[out,
+    in]`` matrices become ``[in, out]`` as transposed views on the device,
+    not copies, and a tied lm_head is a view of the embedding.  With
+    ``quantize`` each layer goes to the ``@int8`` layout as soon as it is
+    read, so the peak is the int8 total plus one layer and the embedding.
+    A missing ``tokenizer.json`` warns and falls back to the byte
+    tokenizer (numerics-only use), as in the JAX package."""
+    from raglite_tpu_torch.models.safetensors_io import SafetensorsReader
+    from raglite_tpu_torch.models.tokenizer import load_tokenizer
+
+    with open(os.path.join(path, "config.json")) as f:
+        hf = json.load(f)
+    cfg = _hf_config(hf)
+    is_gemma = hf.get("model_type", "").startswith("gemma")
+    q_size = cfg["heads"] * cfg["head_dim"]
+    kv_size = cfg["kv_heads"] * cfg["head_dim"]
+    with SafetensorsReader(path) as r:
+
+        def mat(name: str) -> torch.Tensor:  # HF [out, in] -> [in, out]
+            return r.get(name, device=device, dtype=dtype).T
+
+        def vec(name: str) -> torch.Tensor:
+            return r.get(name, device=device, dtype=torch.float32)
+
+        def norm(name: str) -> torch.Tensor:
+            # Gemma's RMSNorms scale by (1 + w): folded here, so one
+            # _rms_norm serves every family.
+            w = vec(name)
+            return w + 1.0 if is_gemma else w
+
+        params: Params = {
+            "tok_emb": r.get("model.embed_tokens.weight", device=device, dtype=dtype),
+            "final_norm": norm("model.norm.weight"),
+        }
+        lm_head = mat("lm_head.weight") if "lm_head.weight" in r else params["tok_emb"].T  # tied
+        params["lm_head"] = QuantLinear.from_dense(lm_head) if quantize else lm_head
+        del lm_head
+        params["layers"] = []
+        for i in range(cfg["layers"]):
+            b = f"model.layers.{i}."
+            layer: dict[str, torch.Tensor] = {
+                "attn_norm": norm(b + "input_layernorm.weight"),
+                "wo": mat(b + "self_attn.o_proj.weight"),
+                "w_down": mat(b + "mlp.down_proj.weight"),
+            }
+            if b + "self_attn.qkv_proj.weight" in r:  # Phi-3: packed [q + 2 kv, d]
+                qkv = mat(b + "self_attn.qkv_proj.weight")
+                layer["wq"], layer["wk"], layer["wv"] = qkv.split([q_size, kv_size, kv_size], dim=1)
+            else:
+                layer["wq"] = mat(b + "self_attn.q_proj.weight")
+                layer["wk"] = mat(b + "self_attn.k_proj.weight")
+                layer["wv"] = mat(b + "self_attn.v_proj.weight")
+            if b + "mlp.gate_up_proj.weight" in r:  # Phi-3: packed [2 ff, d]
+                layer["w_gate"], layer["w_up"] = mat(b + "mlp.gate_up_proj.weight").split(cfg["d_ff"], dim=1)
+            else:
+                layer["w_gate"] = mat(b + "mlp.gate_proj.weight")
+                layer["w_up"] = mat(b + "mlp.up_proj.weight")
+            if b + "pre_feedforward_layernorm.weight" in r:  # Gemma2/3 sandwich norms
+                layer["post_attn_norm"] = norm(b + "post_attention_layernorm.weight")
+                layer["mlp_norm"] = norm(b + "pre_feedforward_layernorm.weight")
+                layer["post_mlp_norm"] = norm(b + "post_feedforward_layernorm.weight")
+            else:  # Llama family: post_attention_layernorm is the pre-MLP norm
+                layer["mlp_norm"] = norm(b + "post_attention_layernorm.weight")
+            if b + "self_attn.q_proj.bias" in r:  # Qwen2
+                layer["bq"] = vec(b + "self_attn.q_proj.bias")
+                layer["bk"] = vec(b + "self_attn.k_proj.bias")
+                layer["bv"] = vec(b + "self_attn.v_proj.bias")
+            if b + "self_attn.q_norm.weight" in r:  # Qwen3, Gemma3
+                layer["q_norm"] = norm(b + "self_attn.q_norm.weight")
+                layer["k_norm"] = norm(b + "self_attn.k_norm.weight")
+            params["layers"].append(_quantize_layer(layer) if quantize else layer)
+    tokenizer = load_tokenizer(os.path.join(path, "tokenizer.json"), required=False)
+    return cfg, params, tokenizer
 
 
 class DecoderModel:
@@ -289,9 +510,12 @@ class DecoderModel:
             sliding = self.layer_sliding[li] and self.sliding_window
             inv_freq = inv_freq_local if self.layer_sliding[li] else inv_freq_global
             h = _rms_norm(x, layer["attn_norm"], self.rms_eps)
-            q = h @ layer["wq"]
-            k = h @ layer["wk"]
-            v = h @ layer["wv"]
+            if "wqkv" in layer:  # int8: one matmul for q, k and v
+                q, k, v = quant_linear_apply_fused(h, layer["wqkv"])
+            else:
+                q = h @ layer["wq"]
+                k = h @ layer["wk"]
+                v = h @ layer["wv"]
             if "bq" in layer:
                 q = q + layer["bq"]
                 k = k + layer["bk"]
@@ -320,27 +544,31 @@ class DecoderModel:
             else:
                 ctx = gqa_prefill_attention(qg, k_cache, v_cache, attn_offsets, **kw)
             ctx = ctx.reshape(b, heads, t, hd).transpose(1, 2).reshape(b, t, heads * hd).to(x.dtype)
-            attn_out = ctx @ layer["wo"]
+            attn_out = _linear(ctx, layer["wo"])
             if "post_attn_norm" in layer:
                 attn_out = _rms_norm(attn_out, layer["post_attn_norm"], self.rms_eps)
             x = x + attn_out
             # Gated MLP, gate and up in f32: SwiGLU or GeGLU.
             h = _rms_norm(x, layer["mlp_norm"], self.rms_eps)
-            gate_pre = (h @ layer["w_gate"]).to(torch.float32)
-            up = (h @ layer["w_up"]).to(torch.float32)
+            if "w_gate_up" in layer:  # int8: one matmul for gate and up
+                gate_pre, up = quant_linear_apply_fused(h, layer["w_gate_up"])
+                gate_pre, up = gate_pre.to(torch.float32), up.to(torch.float32)
+            else:
+                gate_pre = (h @ layer["w_gate"]).to(torch.float32)
+                up = (h @ layer["w_up"]).to(torch.float32)
             gate = (
                 F.gelu(gate_pre, approximate="tanh")
                 if self.hidden_act == "gelu_pytorch_tanh"
                 else F.silu(gate_pre)
             )
-            mlp_out = (gate * up).to(x.dtype) @ layer["w_down"]
+            mlp_out = _linear((gate * up).to(x.dtype), layer["w_down"])
             if "post_mlp_norm" in layer:
                 mlp_out = _rms_norm(mlp_out, layer["post_mlp_norm"], self.rms_eps)
             x = x + mlp_out
         x = _rms_norm(x, params["final_norm"], self.rms_eps)
         if last_positions is not None:
             x = x[torch.arange(b, device=device), last_positions.to(device)]  # [B, d]
-        logits = (x @ params["lm_head"]).to(torch.float32)
+        logits = _linear(x, params["lm_head"]).to(torch.float32)
         if self.final_softcap:
             logits = self.final_softcap * torch.tanh(logits / self.final_softcap)
         return logits, cache
@@ -437,14 +665,20 @@ def _automaton_for(response_format: dict | None):
 
 
 class TorchChatLLM:
-    """Chat LLM over the port's decoder: the ``jax:<preset>`` provider
+    """Chat LLM over the port's decoder: the ``jax:<spec>`` provider
     (ChatML prompts, streamed generation, the ``<tool_call>{json}</tool_call>``
-    tool protocol, JSON response formats and forced tool calls under the
-    byte automata, batched completion).  Weights are seeded random at the
-    preset's shapes."""
+    tool protocol, JSON response formats and forced tool calls, batched
+    completion).
+
+    ``spec``: a preset (seeded random weights at its shapes; an unknown name
+    is ``tiny``, as in the JAX package), ``hf:<dir>`` (a HuggingFace
+    safetensors checkpoint with its ``tokenizer.json``) or ``ckpt:<dir>``
+    (an orbax checkpoint of the JAX package's layout, in its saved dtype,
+    byte tokenizer), each
+    optionally followed by ``@int8`` (int8 matmul weights, per-output-channel
+    scales; presets and ``hf:`` quantize layer by layer as they are made)."""
 
     supports_function_calling = True
-    supports_response_format = True
 
     _PRESETS = {
         "tiny": dict(layers=2, d_model=128, heads=4, kv_heads=2, d_ff=256, vocab=512, max_len=1024),
@@ -468,24 +702,62 @@ class TorchChatLLM:
         dtype: torch.dtype = torch.bfloat16,
         device: str | torch.device = "cuda",
     ) -> None:
-        if spec.endswith("@int8"):
-            msg = "@int8 decoder weights (W8A8/W8A16, ops/quant_matmul.py) are not ported: ROADMAP queue 1 item 9"
-            raise NotImplementedError(msg)
-        if spec.startswith(("hf:", "ckpt:")):
-            msg = f"{spec.split(':')[0]}: checkpoints are not ported (no checkpoint in the repo): ROADMAP queue 1 item 9"
-            raise NotImplementedError(msg)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             msg = f"device={str(device)!r} but CUDA is not available (pass device='cpu')"
             raise RuntimeError(msg)
-        cfg = dict(self._PRESETS.get(spec, self._PRESETS["tiny"]))
+        self.quantized = spec.endswith("@int8")
+        if self.quantized:
+            spec = spec.removesuffix("@int8")
+        if spec.startswith("ckpt:"):
+            from raglite_tpu_torch.models.checkpoint import load_checkpoint
+
+            tree, cfg = load_checkpoint(spec.removeprefix("ckpt:"))
+            # The weights keep the dtype they were saved in, as in the JAX
+            # package.
+            params = params_from_jax(tree, dtype=_host_tensor(tree["tok_emb"]).dtype, device=self.device)
+            del tree
+            tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
+        elif spec.startswith("hf:"):
+            cfg, params, tokenizer = load_safetensors_decoder(
+                spec.removeprefix("hf:"), dtype=dtype, device=self.device, quantize=self.quantized
+            )
+        else:
+            cfg = dict(self._PRESETS.get(spec, self._PRESETS["tiny"]))
+            init = init_decoder_params_quantized if self.quantized else init_decoder_params
+            params = init(cfg, seed=seed, dtype=dtype, device=self.device)
+            tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
+        if self.quantized and not isinstance(params["lm_head"], QuantLinear):
+            params = quantize_decoder_params(params)
         self.cfg = cfg
-        self.params = init_decoder_params(cfg, seed=seed, dtype=dtype, device=self.device)
-        self.tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
+        self.params = params
+        self.tokenizer = tokenizer
         self.model = DecoderModel(cfg)
         self.context_size = cfg["max_len"]
-        self._stop_ids = {self.tokenizer.EOS, *self.tokenizer.EOS_IDS}
+        # The byte automata (JSON response formats, forced tool calls) need
+        # the byte tokenizer; a checkpoint's BPE puts the schema or the call
+        # in the prompt instead.
+        self._byte_level = isinstance(tokenizer, ByteTokenizer)
+        self.supports_response_format = self._byte_level
+        # Every eos id of the checkpoint (Llama-3 instruct lists two), plus
+        # the chat end markers its vocabulary has.
+        self._stop_ids = {tokenizer.EOS, *tokenizer.EOS_IDS}
+        if not self._byte_level:
+            for name in ("<|im_end|>", "<|endoftext|>", "<|eot_id|>", "<end_of_turn>"):
+                tid = tokenizer.token_id(name)
+                if tid is not None:
+                    self._stop_ids.add(tid)
         self.spec_stats: dict | None = None
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write an orbax checkpoint of the JAX package's layout, loadable
+        as ``ckpt:<path>`` by either package."""
+        from raglite_tpu_torch.models.checkpoint import save_checkpoint
+
+        if self.quantized:
+            msg = "save_checkpoint on an @int8-quantized model; save the full-precision model instead"
+            raise ValueError(msg)
+        save_checkpoint(path, self.params, self.cfg)
 
     # --- Prompting --------------------------------------------------------
 
@@ -624,7 +896,9 @@ class TorchChatLLM:
 
     def _base_mask(self) -> np.ndarray:
         """Additive logits mask [V] f32: only byte tokens and EOS are valid
-        outputs of the byte tokenizer."""
+        outputs of the byte tokenizer; a BPE model may emit any id."""
+        if not self._byte_level:
+            return np.zeros((self.cfg["vocab"],), dtype=np.float32)
         mask = np.full((self.cfg["vocab"],), -np.inf, dtype=np.float32)
         mask[ByteTokenizer._OFFSET : ByteTokenizer._OFFSET + 256] = 0.0
         mask[self.tokenizer.EOS] = 0.0
@@ -667,13 +941,16 @@ class TorchChatLLM:
         sampled on the host under the automaton's mask, one forward and one
         logits fetch a token, and a budget that runs out mid-document ends
         with the automaton's closing bytes.  Unconstrained decode runs in
-        device chunks (greedy speculates; see :meth:`_speculate`)."""
+        device chunks (greedy speculates; see :meth:`_speculate`).  A BPE
+        model puts no BOS before the prompt and takes no automaton."""
         tok = self.tokenizer
         # Clamp the budget to the window, then keep the newest prompt tokens
         # that fit.
         max_new_tokens = max(1, min(max_new_tokens, self.context_size - 32))
         budget = max(self.context_size - max_new_tokens - 1, 16)
-        ids = [tok.BOS, *tok.encode(prompt)[-budget:]]
+        ids = tok.encode(prompt)[-budget:]
+        if self._byte_level:
+            ids = [tok.BOS, *ids]
         pad = _bucket(len(ids))
         batch_ids = torch.full((1, pad), tok.PAD, dtype=torch.int64)
         batch_ids[0, : len(ids)] = torch.tensor(ids)
@@ -683,7 +960,9 @@ class TorchChatLLM:
         cache = self.model.init_cache(1, max_total, device=self.device)  # bf16, as the JAX package's
         lens = torch.tensor([len(ids)], dtype=torch.int64, device=self.device)
         last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, lens)
-        if automaton is None and json_constrained:
+        if not self._byte_level:
+            automaton = None  # the automata are byte-level
+        elif automaton is None and json_constrained:
             automaton = JsonAutomaton()
         if automaton is None:
             speculate = self._speculate(temperature)
@@ -749,7 +1028,10 @@ class TorchChatLLM:
             return []
         max_new_tokens = max(1, min(max_new_tokens, self.context_size - 32))
         budget = max(self.context_size - max_new_tokens - 1, 16)
-        encoded = [[tok.BOS, *tok.encode(p)[-budget:]] for p in prompts]
+        encoded = [tok.encode(p)[-budget:] for p in prompts]
+        if self._byte_level:
+            encoded = [[tok.BOS, *ids] for ids in encoded]
+        encoded = [ids or [tok.BOS] for ids in encoded]
         bpad = round_up(n, 8)
         pad = _bucket(max(len(ids) for ids in encoded))
         batch_ids = torch.full((bpad, pad), tok.PAD, dtype=torch.int64)
@@ -763,7 +1045,7 @@ class TorchChatLLM:
         cache = self.model.init_cache(bpad, max_total, device=self.device)
         cache_lens = lens.to(self.device)
         last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, cache_lens)
-        if automatons is None or all(a is None for a in automatons):
+        if automatons is None or not self._byte_level or all(a is None for a in automatons):
             speculate = self._speculate(temperature)
             hist0 = None
             if speculate:
@@ -920,7 +1202,7 @@ class TorchChatLLM:
             automatons=automatons,
             seed=int(sampling.get("seed", 0)),
         )
-        return [ChatResponse(content="".join(self._decode_stream(iter(tokens))) or None) for tokens in token_lists]
+        return [ChatResponse(content="".join(self._decode_pieces(iter(tokens))) or None) for tokens in token_lists]
 
     # --- LLM protocol -----------------------------------------------------
 
@@ -940,13 +1222,55 @@ class TorchChatLLM:
         if tail:
             yield tail
 
+    def _decode_stream_bpe(self, tokens: Iterator[int]) -> Iterator[str]:
+        """Incremental decode of a BPE model's tokens: the growing id list
+        decoded again at each token and the text's growth emitted, held back
+        while it ends in U+FFFD (an incomplete UTF-8 sequence).  A generation
+        that ends inside such a sequence emits its replacement character at
+        the end; the JAX package drops it."""
+        ids: list[int] = []
+        emitted = text = ""
+        for token in tokens:
+            ids.append(token)
+            text = self.tokenizer.decode(ids)
+            if text.endswith("\ufffd"):
+                continue
+            if len(text) > len(emitted):
+                yield text[len(emitted) :]
+                emitted = text
+        if text.endswith("\ufffd") and len(text) > len(emitted):
+            yield text[len(emitted) :]
+
+    def _decode_pieces(self, tokens: Iterator[int]) -> Iterator[str]:
+        """Text pieces of generated tokens, by the model's tokenizer."""
+        return self._decode_stream(tokens) if self._byte_level else self._decode_stream_bpe(tokens)
+
     def _forced_tool_call(self, messages, tools, tool_choice, sampling):
         """A tool call forced in two constrained phases: the tool's name (an
         enum automaton, skipped when ``tool_choice`` names it or one tool is
-        offered), then its arguments under the tool's parameter schema."""
+        offered), then its arguments under the tool's parameter schema.  A
+        BPE model is forced through the prompt instead: the call's opening
+        and the tool's name are written after the assistant's turn, and the
+        generated arguments are kept where they parse as JSON (else ``{}``)."""
         from raglite_tpu_torch.models.llm import ToolCall
 
         by_name = {t["function"]["name"]: t for t in tools}
+        if not self._byte_level:
+            first = tool_choice.get("function", {}).get("name") if isinstance(tool_choice, dict) else next(iter(by_name))
+            tool = by_name.get(first) or next(iter(by_name.values()))
+            prompt = self._format_messages(messages, tools) + (
+                f'<tool_call>{{"name": "{tool["function"]["name"]}", "arguments": '
+            )
+            tokens = self._generate_tokens(
+                prompt, max_new_tokens=_max_new(sampling, 128), temperature=float(sampling.get("temperature", 0.0))
+            )
+            raw = "".join(self._decode_pieces(tokens)).split("</tool_call>")[0].strip()
+            try:
+                json.loads(raw)
+                arguments = raw
+            except ValueError:
+                arguments = "{}"
+            return ToolCall(id=f"call_{uuid.uuid4().hex[:8]}", name=tool["function"]["name"], arguments=arguments)
         if isinstance(tool_choice, dict):
             name = tool_choice.get("function", {}).get("name") or next(iter(by_name))
         elif len(by_name) == 1:
@@ -955,7 +1279,7 @@ class TorchChatLLM:
             prompt = self._format_messages(messages, tools) + "Choose a tool.\n"
             chooser = SchemaAutomaton({"type": "object", "properties": {"name": {"enum": list(by_name)}}})
             tokens = self._generate_tokens(prompt, max_new_tokens=64, temperature=0.0, automaton=chooser)
-            name = json.loads("".join(self._decode_stream(tokens))).get("name", next(iter(by_name)))
+            name = json.loads("".join(self._decode_pieces(tokens))).get("name", next(iter(by_name)))
         tool = by_name.get(name) or next(iter(by_name.values()))
         schema = tool["function"].get("parameters") or {"type": "object"}
         prompt = self._format_messages(messages, tools) + f"Arguments for {name}:\n"
@@ -966,7 +1290,7 @@ class TorchChatLLM:
             json_constrained=True,
             automaton=SchemaAutomaton(schema),
         )
-        arguments = "".join(self._decode_stream(tokens))
+        arguments = "".join(self._decode_pieces(tokens))
         return ToolCall(id=f"call_{uuid.uuid4().hex[:8]}", name=name, arguments=arguments)
 
     def stream(self, messages, *, tools=None, tool_choice=None, **sampling):
@@ -1017,7 +1341,7 @@ class TorchChatLLM:
                 break
             return "".join(emit), pending, in_tool
 
-        for piece in self._decode_stream(
+        for piece in self._decode_pieces(
             self._generate_tokens(
                 prompt,
                 max_new_tokens=_max_new(sampling, 128),
@@ -1055,6 +1379,19 @@ class TorchChatLLM:
     def complete(self, messages, *, tools=None, tool_choice=None, response_format=None, **sampling):
         from raglite_tpu_torch.models.llm import ChatResponse, ToolCall
 
+        if response_format is not None and not self._byte_level:
+            # A BPE model: the schema in the prompt, decoded unconstrained
+            # (the extract layer validates, as with the JAX package).
+            schema = (response_format.get("json_schema") or {}).get("schema")
+            prompt = self._format_messages(messages, tools) + (
+                "Respond ONLY with a JSON object"
+                + (f" matching this schema:\n{json.dumps(schema)}" if schema else "")
+                + "\n"
+            )
+            tokens = self._generate_tokens(
+                prompt, max_new_tokens=_max_new(sampling, 256), temperature=float(sampling.get("temperature", 0.0))
+            )
+            return ChatResponse(content="".join(self._decode_pieces(tokens)))
         if response_format is not None:
             # Any response format constrains to JSON; a json_schema with a
             # schema, to that schema.
@@ -1066,7 +1403,7 @@ class TorchChatLLM:
                 json_constrained=True,
                 automaton=_automaton_for(response_format),
             )
-            return ChatResponse(content="".join(self._decode_stream(tokens)))
+            return ChatResponse(content="".join(self._decode_pieces(tokens)))
         parts: list[str] = []
         tool_calls: list[ToolCall] = []
         for item in self.stream(messages, tools=tools, tool_choice=tool_choice, **sampling):

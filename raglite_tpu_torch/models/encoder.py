@@ -1,9 +1,9 @@
 """Embedding encoders (counterpart of raglite_tpu/models/encoder.py).
 
-``TransformerEncoder`` ("flax:<preset|dir>", the JAX package's spec names
-kept so configs map one to one) runs the PyTorch ``EncoderModel`` on the
-configured device, with token-level outputs for late chunking and a
-device-resident MaxSim rerank.  ``"flax:sem"`` is the packaged 8-layer,
+``TransformerEncoder`` ("flax:<preset|dir|file.safetensors|ckpt:dir>", the
+JAX package's spec names kept so configs map one to one) runs the PyTorch
+``EncoderModel`` on the configured device, with token-level outputs for late
+chunking and a device-resident MaxSim rerank.  ``"flax:sem"`` is the packaged 8-layer,
 d=768 semantic encoder; its weights are read by path from the JAX package's
 data directory.  ``HashEncoder`` ("hash:<dim>") is the weightless
 feature-hashing encoder of the hermetic configs, over the JAX package's own
@@ -29,7 +29,7 @@ from raglite_tpu_torch.utils.padding import round_up as _round_up
 
 __all__ = [
     "Encoder", "HashEncoder", "OpenAICompatEncoder", "TransformerEncoder",
-    "encoder_from_config", "embedding_dim", "hash_pool_plain",
+    "encoder_from_config", "embedding_dim", "hash_pool_plain", "load_pretrained_encoder",
 ]
 
 #: The JAX package's packaged encoder (encoder.npz, tokenizer.json, config.json).
@@ -220,11 +220,15 @@ class HashEncoder:
 class TransformerEncoder:
     """XLM-RoBERTa-class encoder on a torch device.
 
-    Specs: ``sem`` (the packaged encoder), a directory holding
-    ``encoder.npz`` and ``tokenizer.json``, or a preset (``tiny``, ``base``,
-    ``large``) with random weights drawn from a seeded ``torch.Generator``
-    (not the JAX package's draws).  Texts are padded to 128-token buckets
-    and batched per bucket, as in the JAX package.
+    Specs, as the JAX package reads them: ``sem`` (the packaged encoder), a
+    directory holding ``encoder.npz`` and ``tokenizer.json``, ``ckpt:<dir>``
+    (an orbax checkpoint of the JAX package's layout, byte tokenizer), a
+    HuggingFace safetensors directory or ``.safetensors`` file (XLM-R or
+    BERT layout, with its ``tokenizer.json``), or a preset (``tiny``,
+    ``base``, ``large``; any other name is ``tiny``) with random weights
+    drawn from a seeded ``torch.Generator`` (not the JAX package's draws).
+    Texts are padded to 128-token buckets and batched per bucket, as in the
+    JAX package.
     """
 
     supports_token_embeddings = True
@@ -248,18 +252,31 @@ class TransformerEncoder:
 
         if spec == "sem":
             spec = str(PACKAGED_ENCODER_DIR)
-        if os.path.isdir(spec) and os.path.exists(os.path.join(spec, "encoder.npz")):
+        if spec.startswith("ckpt:"):
+            from raglite_tpu_torch.models.checkpoint import load_checkpoint
+
+            params, cfg = load_checkpoint(spec.removeprefix("ckpt:"))
+            model = EncoderModel.from_params(cfg, params, dtype=dtype, device=device)
+            tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
+        elif os.path.isdir(spec) and os.path.exists(os.path.join(spec, "encoder.npz")):
             cfg, params, _ = load_npz_encoder(os.path.join(spec, "encoder.npz"))
             model = EncoderModel.from_params(cfg, params, dtype=dtype, device=device)
             tokenizer = load_tokenizer(os.path.join(spec, "tokenizer.json"))
-        elif spec in self._PRESETS:
-            cfg = dict(self._PRESETS[spec])
+        elif os.path.isdir(spec) or spec.endswith(".safetensors"):
+            cfg, model, tokenizer = load_pretrained_encoder(spec, dtype=dtype, device=device)
+        else:
+            cfg = dict(self._PRESETS.get(spec, self._PRESETS["tiny"]))
             model = _random_encoder(cfg, dtype=dtype, seed=seed).to(device).eval()
             tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
-        else:
-            msg = f"unsupported encoder spec {spec!r} (safetensors and orbax loading are not ported yet)"
-            raise NotImplementedError(msg)
         self._init(cfg, model, tokenizer)
+
+    def save_checkpoint(self, path: str) -> None:
+        """Write an orbax checkpoint of the JAX package's layout, loadable
+        as ``flax:ckpt:<path>`` by either package."""
+        from raglite_tpu_torch.models.checkpoint import save_checkpoint
+        from raglite_tpu_torch.models.transformer import params_to_jax
+
+        save_checkpoint(path, params_to_jax(self._model), self._cfg)
 
     @classmethod
     def from_model(cls, model, tokenizer) -> "TransformerEncoder":
@@ -320,15 +337,26 @@ class TransformerEncoder:
         hidden = self._forward(*self._padded([ids], [0], pad, 1))
         return hidden[0, : ids.size].cpu().numpy()
 
+    #: Bytes of f32 attention logits ([B, heads, T, T]) one forward may
+    #: make: at bge-m3's 8,192 positions one row's are 4.3 GB, so long
+    #: segments go one row at a time (rows are independent: same results).
+    _ATTENTION_BYTES = 2 << 30
+
+    def _rows_per_forward(self, pad: int, cap: int) -> int:
+        per_row = self._cfg["heads"] * pad * pad * 4
+        return max(1, min(cap, self._ATTENTION_BYTES // per_row))
+
     def embed_token_level_batch(self, texts: list[str]) -> list[np.ndarray]:
         """Token-level embeddings for many texts as length-bucketed [B, T]
-        forwards of up to 8 texts; returns [n_i, d] per text."""
+        forwards of up to 8 texts (fewer where T is long); returns [n_i, d]
+        per text."""
         encoded = [self._encode_ids(t) for t in texts]
         out: list[np.ndarray] = [np.zeros((0, self.dim), np.float32) for _ in texts]
         for pad, members in self._buckets(encoded).items():
-            for start in range(0, len(members), 8):
-                group = members[start : start + 8]
-                hidden = self._forward(*self._padded(encoded, group, pad, _round_up(len(group), 8)))
+            rows = self._rows_per_forward(pad, 8)
+            for start in range(0, len(members), rows):
+                group = members[start : start + rows]
+                hidden = self._forward(*self._padded(encoded, group, pad, min(_round_up(len(group), 8), rows)))
                 hidden = hidden.cpu().numpy()
                 for row, i in enumerate(group):
                     out[i] = hidden[row, : encoded[i].size]
@@ -336,13 +364,14 @@ class TransformerEncoder:
 
     def embed(self, texts: list[str]) -> np.ndarray:
         """Mean-pooled embeddings, batched per length bucket (64 texts a
-        forward)."""
+        forward, fewer where T is long)."""
         out = np.zeros((len(texts), self.dim), dtype=np.float32)
         encoded = [self._encode_ids(t) for t in texts]
         for pad, members in self._buckets(encoded).items():
-            for start in range(0, len(members), 64):
-                group = members[start : start + 64]
-                ids, mask = self._padded(encoded, group, pad, _round_up(len(group), 8))
+            rows = self._rows_per_forward(pad, 64)
+            for start in range(0, len(members), rows):
+                group = members[start : start + rows]
+                ids, mask = self._padded(encoded, group, pad, min(_round_up(len(group), 8), rows))
                 hidden = self._forward(ids, mask)
                 mask_t = torch.from_numpy(mask).to(self.device)
                 denom = mask_t.sum(dim=1, keepdim=True).clamp(min=1)
@@ -425,6 +454,14 @@ class TransformerEncoder:
         while len(cache) > cap:
             cache.pop(next(iter(cache)))
         return scores
+
+
+def load_pretrained_encoder(path: str, *, dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cpu"):
+    """``(cfg, model, tokenizer)`` of an XLM-R or BERT-family safetensors
+    checkpoint (models/transformer.py:load_safetensors_encoder)."""
+    from raglite_tpu_torch.models.transformer import load_safetensors_encoder
+
+    return load_safetensors_encoder(path, dtype=dtype, device=device)
 
 
 def _random_encoder(cfg: dict, *, dtype: torch.dtype, seed: int):

@@ -7,16 +7,17 @@ config carries across unchanged:
   follows the tool-calling protocol (issues ``search_knowledge_base`` calls,
   then answers from retrieved context) and satisfies JSON response formats
   with schema-conforming output.
-- ``jax:<preset>``: the port's own decoder (models/decoder.py:TorchChatLLM)
-  on ``config.device``, one instance per (spec, device), with JSON response
-  formats, forced tool calls and ``complete_batch``.  The name stays
-  ``jax:`` because the configs name the model, not the framework.
+- ``jax:<preset>``, ``jax:hf:<dir>`` (a HuggingFace safetensors checkpoint
+  and its ``tokenizer.json``), ``jax:ckpt:<dir>`` (an orbax checkpoint),
+  each optionally ``@int8``: the port's own decoder
+  (models/decoder.py:TorchChatLLM) on ``config.device``, one instance per
+  (spec, device), with JSON response formats, forced tool calls and
+  ``complete_batch``.  The name stays ``jax:`` because the configs name the
+  model, not the framework.
 - ``openai:<base_url>#<model>``: any OpenAI-compatible HTTP endpoint over
   the standard library (urllib for ``complete`` and ``stream``, an asyncio
   socket for ``astream``); no device is involved.
 
-Not ported yet (ROADMAP queue 1 item 9): ``hf:``/``ckpt:`` checkpoints and
-``@int8`` weights.
 """
 
 from __future__ import annotations
@@ -481,7 +482,10 @@ def _make_llm(llm: str, device: str) -> LLM:
         return TorchChatLLM(arg or "tiny", device=device)
     if kind == "openai":
         return OpenAICompatLLM(arg)
-    msg = f"unknown llm {llm!r} (expected 'echo', 'jax:<preset>', or 'openai:<url>#<model>')"
+    msg = (
+        f"unknown llm {llm!r} (expected 'echo', 'jax:<preset>', 'jax:hf:<dir>', 'jax:ckpt:<dir>' "
+        "(each optionally with @int8), or 'openai:<url>#<model>')"
+    )
     raise ValueError(msg)
 
 

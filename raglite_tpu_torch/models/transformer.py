@@ -13,14 +13,19 @@ bidirectional encoder as an ``nn.Module``, with the same numerics.
 
 The encoder's attention is plain PyTorch here, as it is plain XLA in the
 JAX package (no Pallas kernel to port).  Weights come from the packaged
-``encoder.npz`` (read with numpy alone, :func:`load_npz_encoder`) or from a
-JAX parameter tree (:func:`params_from_jax`).
+``encoder.npz`` (read with numpy alone, :func:`load_npz_encoder`), from a
+JAX parameter tree (:func:`params_from_jax`; an orbax ``ckpt:``), or from a
+HuggingFace XLM-R/BERT safetensors checkpoint
+(:func:`load_safetensors_encoder`, read file by file to the device with the
+port's own reader; :func:`save_hf_encoder` writes one).
 """
 
 from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 from typing import Any
 
 import numpy as np
@@ -28,7 +33,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["EncoderModel", "load_npz_encoder", "params_from_jax"]
+__all__ = [
+    "EncoderModel", "load_npz_encoder", "load_safetensors_encoder", "params_from_jax", "params_to_jax",
+    "save_hf_encoder",
+]
 
 #: JAX layer parameter name -> (port module, port parameter, transpose).
 _LAYER_NAMES = {
@@ -146,9 +154,18 @@ class EncoderModel(nn.Module):
         cls, cfg: dict, params: dict[str, Any], *, dtype: torch.dtype, device: torch.device | str
     ) -> "EncoderModel":
         """Build the model from a JAX-layout parameter tree of arrays."""
-        model = cls(cfg, dtype=dtype, final_ln="final_ln_scale" in params)
-        model.load_state_dict(params_from_jax(params, dtype=dtype), strict=True)
-        return model.to(device).eval()
+        return cls.from_state(cfg, params_from_jax(params, dtype=dtype), dtype=dtype, device=device)
+
+    @classmethod
+    def from_state(
+        cls, cfg: dict, state: dict[str, torch.Tensor], *, dtype: torch.dtype, device: torch.device | str
+    ) -> "EncoderModel":
+        """Build the model around a state dict's tensors (no second copy:
+        the module is made on the meta device and takes the tensors)."""
+        with torch.device("meta"):
+            model = cls(cfg, dtype=dtype, final_ln="final_ln.weight" in state)
+        model.load_state_dict(state, strict=True, assign=True)
+        return model.to(device).requires_grad_(False).eval()
 
 
 def params_from_jax(params: dict[str, Any], *, dtype: torch.dtype = torch.bfloat16) -> dict[str, torch.Tensor]:
@@ -194,3 +211,135 @@ def load_npz_encoder(path: str) -> tuple[dict, dict[str, Any], None]:
             else:
                 params[key] = z[key]
     return cfg, params, None
+
+
+def params_to_jax(model: EncoderModel) -> dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: the JAX package's parameter
+    tree (torch tensors; linear weights as ``[d_in, d_out]`` views)."""
+    top = {v: k for k, v in _TOP_NAMES.items()}
+    names = {(module, param): (name, transpose) for name, (module, param, transpose) in _LAYER_NAMES.items()}
+    params: dict[str, Any] = {"layers": [{} for _ in model.layers]}
+    for key, value in model.state_dict().items():
+        if key in top:
+            params[top[key]] = value
+            continue
+        _, i, module, param = key.split(".")
+        name, transpose = names[(module, param)]
+        params["layers"][int(i)][name] = value.T if transpose else value
+    return params
+
+
+#: HF BERT/XLM-R layer tensor names -> the port's (relative to the layer).
+_HF_LAYER = {
+    "attention.self.query": "q", "attention.self.key": "k", "attention.self.value": "v",
+    "attention.output.dense": "o", "attention.output.LayerNorm": "attn_ln",
+    "intermediate.dense": "ff1", "output.dense": "ff2", "output.LayerNorm": "mlp_ln",
+}
+
+
+def load_safetensors_encoder(
+    path: str, *, dtype: torch.dtype = torch.bfloat16, device: torch.device | str = "cpu"
+) -> tuple[dict, EncoderModel, Any]:
+    """An XLM-R or BERT-family HF checkpoint (a directory holding
+    ``model.safetensors``, ``config.json`` and ``tokenizer.json``, or the
+    safetensors file itself) -> ``(cfg, model, tokenizer)``, as the JAX
+    package's loader maps it: the ``roberta.`` prefix; XLM-R's position rows
+    past ``pad_token_id + 1`` (its first token sits at position
+    ``pad_token_id + 1``); the token-type row 0 folded into every position
+    row (exact: one token type); a ``final_norm`` LayerNorm where the file
+    has one (``save_hf_encoder`` writes it; XLM-R and BERT have none).
+    Tensors go from the mapped file to ``device`` one at a time; HF's
+    ``[out, in]`` weights are already ``nn.Linear``'s layout."""
+    from raglite_tpu_torch.models.safetensors_io import SafetensorsReader
+    from raglite_tpu_torch.models.tokenizer import load_tokenizer
+
+    if os.path.isdir(path):
+        st_path, base = os.path.join(path, "model.safetensors"), path
+    else:
+        st_path, base = path, os.path.dirname(path)
+    with open(os.path.join(base, "config.json")) as f:
+        hf = json.load(f)
+    cfg = dict(
+        layers=hf["num_hidden_layers"],
+        d_model=hf["hidden_size"],
+        heads=hf["num_attention_heads"],
+        d_ff=hf["intermediate_size"],
+        vocab=hf["vocab_size"],
+        max_len=hf["max_position_embeddings"],
+        ln_eps=hf.get("layer_norm_eps", 1e-5),
+        hidden_act=hf.get("hidden_act", "gelu"),
+    )
+    state: dict[str, torch.Tensor] = {}
+    with SafetensorsReader(st_path) as r:
+        p = "roberta." if any(k.startswith("roberta.") for k in r.keys()) else ""
+
+        def get(name: str, as_dtype: torch.dtype) -> torch.Tensor:
+            return r.get(p + name, device=device, dtype=as_dtype)
+
+        pos = get("embeddings.position_embeddings.weight", torch.float32)
+        if hf.get("model_type") in ("xlm-roberta", "roberta") or hf.get("pad_token_id") == 1:
+            pos = pos[hf.get("pad_token_id", 1) + 1 :]
+            cfg["max_len"] = pos.shape[0]
+        if p + "embeddings.token_type_embeddings.weight" in r:
+            pos = pos + get("embeddings.token_type_embeddings.weight", torch.float32)[0][None, :]
+        state["pos_emb.weight"] = pos.to(dtype)
+        del pos
+        state["tok_emb.weight"] = get("embeddings.word_embeddings.weight", dtype)
+        state["emb_ln.weight"] = get("embeddings.LayerNorm.weight", torch.float32)
+        state["emb_ln.bias"] = get("embeddings.LayerNorm.bias", torch.float32)
+        for i in range(cfg["layers"]):
+            for hf_name, name in _HF_LAYER.items():
+                for param in ("weight", "bias"):
+                    as_dtype = dtype if param == "weight" and not name.endswith("_ln") else torch.float32
+                    state[f"layers.{i}.{name}.{param}"] = get(f"encoder.layer.{i}.{hf_name}.{param}", as_dtype)
+        if p + "final_norm.weight" in r:
+            state["final_ln.weight"] = get("final_norm.weight", torch.float32)
+            state["final_ln.bias"] = get("final_norm.bias", torch.float32)
+    model = EncoderModel.from_state(cfg, state, dtype=dtype, device=device)
+    tokenizer = load_tokenizer(os.path.join(base, "tokenizer.json"), required=False)
+    return cfg, model, tokenizer
+
+
+def save_hf_encoder(out_dir: str, model: EncoderModel, *, tokenizer_json: str | None = None) -> str:
+    """Write ``model`` as a HuggingFace BERT-layout safetensors checkpoint
+    (the JAX package's ``save_hf_encoder``: 0-based positions, f16
+    matrices, f32 LayerNorms and biases, a trained final LayerNorm as
+    ``final_norm.{weight,bias}``), with the port's own writer; the inverse
+    of :func:`load_safetensors_encoder`."""
+    from raglite_tpu_torch.models.safetensors_io import save_file
+
+    cfg = model.cfg
+    state = model.state_dict()
+    tensors = {
+        "embeddings.word_embeddings.weight": state["tok_emb.weight"].to(torch.float16),
+        "embeddings.position_embeddings.weight": state["pos_emb.weight"].to(torch.float16),
+        "embeddings.LayerNorm.weight": state["emb_ln.weight"].float(),
+        "embeddings.LayerNorm.bias": state["emb_ln.bias"].float(),
+    }
+    for i in range(cfg["layers"]):
+        for hf_name, name in _HF_LAYER.items():
+            w = state[f"layers.{i}.{name}.weight"]
+            tensors[f"encoder.layer.{i}.{hf_name}.weight"] = w.float() if name.endswith("_ln") else w.to(torch.float16)
+            tensors[f"encoder.layer.{i}.{hf_name}.bias"] = state[f"layers.{i}.{name}.bias"].float()
+    if "final_ln.weight" in state:
+        tensors["final_norm.weight"] = state["final_ln.weight"].float()
+        tensors["final_norm.bias"] = state["final_ln.bias"].float()
+    os.makedirs(out_dir, exist_ok=True)
+    save_file(tensors, os.path.join(out_dir, "model.safetensors"), {"format": "pt"})
+    hf_cfg = {
+        "model_type": "bert",
+        "num_hidden_layers": cfg["layers"],
+        "hidden_size": cfg["d_model"],
+        "num_attention_heads": cfg["heads"],
+        "intermediate_size": cfg["d_ff"],
+        "vocab_size": cfg["vocab"],
+        "max_position_embeddings": cfg["max_len"],
+        "layer_norm_eps": float(cfg.get("ln_eps", 1e-5)),
+        "hidden_act": cfg.get("hidden_act", "gelu"),
+        "pad_token_id": 0,
+    }
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(hf_cfg, f, indent=1)
+    if tokenizer_json is not None:
+        shutil.copyfile(tokenizer_json, os.path.join(out_dir, "tokenizer.json"))
+    return out_dir

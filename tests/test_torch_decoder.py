@@ -262,10 +262,18 @@ def test_ngram_draft_matches_jax() -> None:
         assert got[i].tolist() == want.tolist(), i
 
 
-def test_unported_specs_raise() -> None:
-    for spec in ("hf:/nowhere", "ckpt:/nowhere", "tiny@int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_specs_raise(tmp_path) -> None:
+    """``hf:``, ``ckpt:`` and ``@int8`` are ported: they build (a missing
+    checkpoint is a missing file, not an unported spec)."""
+    for spec in ("hf:/nowhere", "ckpt:/nowhere"):
+        with pytest.raises(FileNotFoundError):
             tdec.TorchChatLLM(spec, device="cpu")
+    llm8 = tdec.TorchChatLLM("tiny@int8", device="cpu")
+    assert llm8.quantized and isinstance(llm8.params["lm_head"], tdec.QuantLinear)
+    pytest.importorskip("tensorstore")
+    tdec.TorchChatLLM("tiny", device="cpu", seed=2).save_checkpoint(str(tmp_path / "ck"))
+    for spec in (f"ckpt:{tmp_path / 'ck'}", f"ckpt:{tmp_path / 'ck'}@int8"):
+        assert _make_llm(f"jax:{spec}", "cpu").cfg == tdec.TorchChatLLM._PRESETS["tiny"]
     # openai: is ported (no request is made until the LLM is called).
     remote = _make_llm("openai:http://localhost:1#m", "cpu")
     assert remote.base_url == "http://localhost:1" and remote.model == "m"

@@ -2,9 +2,11 @@
 keyword index with its native loader, BM25 and RRF ops, deletes, the
 decoder LLM, speculation, the grammar automata, the hash table draw, the
 LLM factory, rag, the attention ops, extraction, evals, the query adapter
-and its NNLS op) loads neither JAX nor the JAX package (nor markdown-it,
-tokenizers, msgpack or filelock on the in-memory path, nor pandas, tqdm or
-pydantic), its public names are the JAX package's, its config asks for the
+and its NNLS op, the safetensors and checkpoint readers and the int8
+matmuls) loads neither JAX nor the JAX package (nor markdown-it,
+tokenizers, safetensors, transformers, orbax, tensorstore, msgpack or
+filelock on the in-memory path, a tokenizer.json read included, nor pandas,
+tqdm or pydantic), its public names are the JAX package's, its config asks for the
 card by default,
 and asking for the card where there is none raises instead of running on
 the CPU."""
@@ -36,6 +38,8 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.models.hash_table
         import raglite_tpu_torch.extract, raglite_tpu_torch.evals, raglite_tpu_torch.query_adapter
         import raglite_tpu_torch.ops.nnls
+        import raglite_tpu_torch.models.safetensors_io, raglite_tpu_torch.models.checkpoint
+        import raglite_tpu_torch.ops.quant_matmul, raglite_tpu_torch.models.transformer
         assert "pydantic" not in sys.modules
         bad = [
             m for m in sys.modules
@@ -53,7 +57,10 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         assert [t.type for t in parse_markdown("# x\\n\\n- y\\n")][:2] == ["heading_open", "bullet_list_open"]
         assert load_tokenizer(str(PACKAGED_ENCODER_DIR / "tokenizer.json")).encode("x")
         Store(":memory:").save()
-        extra = {"markdown_it", "tokenizers", "msgpack", "filelock"} & set(sys.modules)
+        extra = {
+            "markdown_it", "tokenizers", "msgpack", "filelock", "safetensors", "transformers", "orbax",
+            "tensorstore",
+        } & {m.split(".")[0] for m in sys.modules}
         assert not extra, extra
         print("ok")
         """
