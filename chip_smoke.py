@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
-query-adapter and checkpoint paths once on one NVIDIA GPU.
+query-adapter, checkpoint and ingestion-to-surface paths once on one NVIDIA
+GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -142,9 +143,35 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    and search_and_rerank_chunk_spans p50, the int4 scan timed at d = 1,024;
    (f) where tensorstore is installed, the ``small`` preset through
    save_checkpoint and ``ckpt:``, logits equal.
+11. From files to answers through the surfaces (after phase 10 and the
+   stores of 8 (d) and 9 (f); a store of its own in a temporary directory):
+   (a) a PDF (pages, Flate streams, a Type1 body font, a Type0 heading font
+   with a ToUnicode CMap), DOCX, PPTX, ODT, EPUB, RTF, HTML and CSV written
+   from consecutive parts of the four documents' text, each converted with
+   document_to_markdown (host ms) and shown to hold its headings and a
+   sentence of its source; (b) the learned boundary model on the card
+   against its CPU version on those documents and a held-out multilingual
+   corpus (BOUNDARY_ATOL, sentences equal), its boundary-F1 against the
+   heuristic's and its ms per 100,000 characters; (c) a persistent store
+   (``sentence_boundary_model="learned"``, the default encoder, bf16 rows):
+   the PDF inserted through ``python -m raglite_tpu_torch insert`` in a
+   fresh process, the rest through insert_documents, background rows up to
+   ``--rows``, store.save() and DenseIndex.save() (times, bytes on disk);
+   (d) ``search --method vector`` and ``stats`` in fresh processes (time to
+   the first result; ids = this process's vector_search) and
+   DenseIndex.load (ids equal); (e) create_web_app on 127.0.0.1: 64
+   concurrent POST /api/search after a warm-up (p50, p99, the
+   micro-batches, at most 8 asserted, every answer = vector_search),
+   a PDF upload, a streamed /api/chat answer from ``jax:large`` (first
+   token, pieces a second, attention launches asserted), the phases of
+   GET /api/stats; (f) ``mcp run`` in a fresh process over pipes
+   (initialize, tools/list, tools/call; its top document =
+   retrieve_context's); (g) trace_session around four searches (the
+   search.* ranges and int4 kernel events in the Chrome trace).
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
-phase 3 at ``--rows`` and phase 10 (no result line).
+phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
+at ``--rows`` (neither prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2921,6 +2948,721 @@ def profile_search(cfg, queries: list[str], card: str) -> None:
     )
 
 
+# --- Phase 11: from files to answers through the surfaces --------------------
+
+#: Kinds of document phase 11 writes, one each, in this order.
+DOC_KINDS = ("pdf", "docx", "pptx", "odt", "epub", "rtf", "html", "csv")
+
+
+def _plain_inline(text: str) -> str:
+    """Markdown inline marks removed: links to their text, no backticks,
+    no strong marks."""
+    import re
+
+    text = re.sub(r"!?\[([^\]]*)\]\([^)]*\)", r"\1", text)
+    return text.replace("`", "").replace("**", "").strip()
+
+
+def markdown_blocks(text: str) -> list[tuple[int, str]]:
+    """(level, text) blocks of a Markdown text: 1-6 for ATX headings, 0 for
+    a paragraph (its lines joined by a space; a table row or list item is a
+    paragraph of its own); fenced code is left out."""
+    import re
+
+    blocks: list[tuple[int, str]] = []
+    para: list[str] = []
+    fenced = False
+
+    def flush() -> None:
+        if para:
+            blocks.append((0, " ".join(para)))
+            para.clear()
+
+    for line in text.splitlines():
+        if line.lstrip().startswith(("```", "~~~")):
+            flush()
+            fenced = not fenced
+            continue
+        if fenced:
+            continue
+        m = re.match(r"^(#{1,6})\s+(.*?)\s*#*\s*$", line)
+        if m:
+            flush()
+            if _plain_inline(m.group(2)):
+                blocks.append((len(m.group(1)), _plain_inline(m.group(2))))
+        elif not line.strip():
+            flush()
+        elif _plain_inline(line):
+            if re.match(r"^\s*(\||[-*+] |\d+\. )", line):
+                flush()
+            para.append(_plain_inline(line))
+    flush()
+    return blocks
+
+
+def split_blocks(texts: list[str], parts: int) -> list[list[tuple[int, str]]]:
+    """The blocks of ``texts`` in order, cut into ``parts`` consecutive
+    groups of about equal characters, so that no two documents share
+    text."""
+    blocks = [b for text in texts for b in markdown_blocks(text)]
+    total = sum(len(t) for _, t in blocks)
+    groups: list[list[tuple[int, str]]] = [[]]
+    size = 0
+    for level, text in blocks:
+        if size >= total / parts * len(groups) and len(groups) < parts:
+            groups.append([])
+        groups[-1].append((level, text))
+        size += len(text)
+    return groups
+
+
+def _xml(text: str) -> str:
+    from xml.sax.saxutils import escape
+
+    return escape(text)
+
+
+def write_pdf(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """A multi-page PDF in the layout PDF writers emit: body lines in a
+    Type1 font (Helvetica, 10 pt; characters outside Latin-1 written as
+    "?"), headings in a Type0 font (Identity-H, a ToUnicode CMap mapping
+    2-byte codes to every heading character; 18 / 14 / 12 / 11 pt by
+    level), one Flate-compressed content stream a page, pages through a
+    /Pages tree, an xref table.  As tests/test_markdown.py's _mini_pdf and
+    _cid_pdf build theirs, at document scale."""
+    import textwrap
+    import zlib
+
+    heading_chars = sorted({c for level, t in blocks if level for c in t})
+    code = {c: i + 1 for i, c in enumerate(heading_chars)}
+    sizes = {1: 18, 2: 14, 3: 12}
+
+    def literal(s: str) -> bytes:
+        s = "".join(c if 32 <= ord(c) < 127 or 160 <= ord(c) < 256 else "?" for c in s)
+        return "(" + s.replace("\\", "\\\\").replace("(", "\\(").replace(")", "\\)") + ")"
+
+    pages: list[list[str]] = [[]]
+    y = 720.0
+    for level, text in blocks:
+        if level:
+            size = sizes.get(level, 11)
+            lines = [(f"/F2 {size} Tf", "<" + "".join(f"{code[c]:04X}" for c in text) + ">", size + 8)]
+            y -= 10
+        else:
+            lines = [("/F1 10 Tf", literal(line), 13) for line in textwrap.wrap(text, 90)]
+        for font, shown, leading in lines:
+            if y < 72:
+                pages.append([])
+                y = 720.0
+            pages[-1].append(f"BT {font} 72 {y:.1f} Td {shown} Tj ET")
+            y -= leading
+        y -= 7  # paragraph gap
+    cmap = ["/CIDInit /ProcSet findresource begin", "12 dict begin", "begincmap",
+            "1 begincodespacerange", "<0000> <FFFF>", "endcodespacerange"]
+    for i in range(0, len(heading_chars), 100):
+        chunk = heading_chars[i : i + 100]
+        cmap.append(f"{len(chunk)} beginbfchar")
+        cmap += [f"<{code[c]:04X}> <{c.encode('utf-16-be').hex().upper()}>" for c in chunk]
+        cmap.append("endbfchar")
+    cmap += ["endcmap", "end", "end"]
+    tounicode = "\n".join(cmap).encode()
+
+    def stream(data: bytes, compress: bool) -> bytes:
+        if compress:
+            data = zlib.compress(data)
+            head = b"<< /Length %d /Filter /FlateDecode >>" % len(data)
+        else:
+            head = b"<< /Length %d >>" % len(data)
+        return head + b"\nstream\n" + data + b"\nendstream"
+
+    first_page = 10
+    objs: dict[int, bytes] = {
+        1: b"<< /Type /Catalog /Pages 2 0 R >>",
+        3: b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>",
+        4: b"<< /Type /Font /Subtype /Type0 /BaseFont /ABCDEF+NotoSans /Encoding /Identity-H"
+           b" /DescendantFonts [5 0 R] /ToUnicode 6 0 R >>",
+        5: b"<< /Type /Font /Subtype /CIDFontType2 /BaseFont /ABCDEF+NotoSans"
+           b" /CIDSystemInfo << /Registry (Adobe) /Ordering (Identity) /Supplement 0 >> >>",
+        6: stream(tounicode, compress=False),
+    }
+    kids = []
+    for i, ops in enumerate(pages):
+        page, content = first_page + 2 * i, first_page + 2 * i + 1
+        kids.append(f"{page} 0 R".encode())
+        objs[page] = (
+            b"<< /Type /Page /Parent 2 0 R /Contents %d 0 R /MediaBox [0 0 612 792]"
+            b" /Resources << /Font << /F1 3 0 R /F2 4 0 R >> >> >>" % content
+        )
+        objs[content] = stream("\n".join(ops).encode("latin-1"), compress=True)
+    objs[2] = b"<< /Type /Pages /Kids [" + b" ".join(kids) + b"] /Count %d >>" % len(pages)
+    out = bytearray(b"%PDF-1.5\n")
+    offsets = {}
+    for num in sorted(objs):
+        offsets[num] = len(out)
+        out += b"%d 0 obj\n" % num + objs[num] + b"\nendobj\n"
+    xref, size = len(out), max(objs) + 1
+    out += b"xref\n0 %d\n0000000000 65535 f \n" % size
+    for num in range(1, size):
+        out += b"%010d 00000 n \n" % offsets[num] if num in offsets else b"0000000000 65535 f \n"
+    out += b"trailer\n<< /Size %d /Root 1 0 R >>\nstartxref\n%d\n%%%%EOF\n" % (size, xref)
+    path.write_bytes(bytes(out))
+
+
+def write_docx(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """WordprocessingML: Heading<n> paragraph styles and body paragraphs."""
+    import zipfile
+
+    ns = "http://schemas.openxmlformats.org/wordprocessingml/2006/main"
+    body = "".join(
+        (f'<w:p><w:pPr><w:pStyle w:val="Heading{level}"/></w:pPr>' if level else "<w:p>")
+        + f'<w:r><w:t xml:space="preserve">{_xml(text)}</w:t></w:r></w:p>'
+        for level, text in blocks
+    )
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("[Content_Types].xml", '<?xml version="1.0"?><Types xmlns="http://schemas.openxmlformats.org/package/2006/content-types"/>')
+        zf.writestr("word/document.xml", f'<?xml version="1.0"?><w:document xmlns:w="{ns}"><w:body>{body}</w:body></w:document>')
+
+
+def write_pptx(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """PresentationML: a slide per heading (its title placeholder), the
+    paragraphs after it as the body's text."""
+    import zipfile
+
+    slides: list[tuple[str, list[str]]] = []
+    for level, text in blocks:
+        if level or not slides:
+            slides.append((text if level else "", []))
+        if not level:
+            slides[-1][1].append(text)
+    a, p = "http://schemas.openxmlformats.org/drawingml/2006/main", "http://schemas.openxmlformats.org/presentationml/2006/main"
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        for i, (title, paras) in enumerate(slides, start=1):
+            body = "".join(f"<a:p><a:r><a:t>{_xml(t)}</a:t></a:r></a:p>" for t in paras)
+            zf.writestr(
+                f"ppt/slides/slide{i}.xml",
+                f'<?xml version="1.0"?><p:sld xmlns:a="{a}" xmlns:p="{p}"><p:cSld><p:spTree>'
+                f'<p:sp><p:nvSpPr><p:nvPr><p:ph type="title"/></p:nvPr></p:nvSpPr><p:txBody><a:p><a:r><a:t>{_xml(title)}</a:t></a:r></a:p></p:txBody></p:sp>'
+                f'<p:sp><p:nvSpPr><p:nvPr><p:ph type="body"/></p:nvPr></p:nvSpPr><p:txBody>{body}</p:txBody></p:sp>'
+                "</p:spTree></p:cSld></p:sld>",
+            )
+
+
+def write_odt(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """OpenDocument Text: outline-level headings and paragraphs."""
+    import zipfile
+
+    body = "".join(
+        f'<text:h text:outline-level="{level}">{_xml(text)}</text:h>' if level else f"<text:p>{_xml(text)}</text:p>"
+        for level, text in blocks
+    )
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("mimetype", "application/vnd.oasis.opendocument.text")
+        zf.writestr(
+            "content.xml",
+            '<?xml version="1.0"?><office:document-content xmlns:office="urn:oasis:names:tc:opendocument:xmlns:office:1.0" '
+            f'xmlns:text="urn:oasis:names:tc:opendocument:xmlns:text:1.0"><office:body><office:text>{body}'
+            "</office:text></office:body></office:document-content>",
+        )
+
+
+def _html_body(blocks: list[tuple[int, str]]) -> str:
+    import html
+
+    return "".join(f"<h{level}>{html.escape(t)}</h{level}>" if level else f"<p>{html.escape(t)}</p>" for level, t in blocks)
+
+
+def write_epub(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """EPUB: a chapter (XHTML) per level-1 or level-2 heading, read in the
+    OPF spine's order."""
+    import zipfile
+
+    chapters: list[list[tuple[int, str]]] = []
+    for level, text in blocks:
+        if not chapters or level in (1, 2):
+            chapters.append([])
+        chapters[-1].append((level, text))
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as zf:
+        zf.writestr("mimetype", "application/epub+zip")
+        zf.writestr(
+            "META-INF/container.xml",
+            '<?xml version="1.0"?><container xmlns="urn:oasis:names:tc:opendocument:xmlns:container" version="1.0">'
+            '<rootfiles><rootfile full-path="OEBPS/content.opf" media-type="application/oebps-package+xml"/></rootfiles></container>',
+        )
+        items = "".join(f'<item id="c{i}" href="ch{i}.xhtml" media-type="application/xhtml+xml"/>' for i in range(len(chapters)))
+        spine = "".join(f'<itemref idref="c{i}"/>' for i in range(len(chapters)))
+        zf.writestr(
+            "OEBPS/content.opf",
+            f'<?xml version="1.0"?><package xmlns="http://www.idpf.org/2007/opf" version="3.0"><manifest>{items}</manifest>'
+            f"<spine>{spine}</spine></package>",
+        )
+        for i, chapter in enumerate(chapters):
+            zf.writestr(f"OEBPS/ch{i}.xhtml", f"<html><body>{_html_body(chapter)}</body></html>")
+
+
+def write_rtf(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """RTF: a font table, then one \\par-ended paragraph a block (headings
+    as Markdown heading lines: RTF has no outline of its own), non-ASCII
+    characters as \\uN? escapes."""
+
+    def esc(s: str) -> str:
+        out = []
+        for c in s:
+            if c in "\\{}":
+                out.append("\\" + c)
+            elif ord(c) < 128:
+                out.append(c)
+            elif ord(c) < 0x10000:
+                out.append(f"\\u{ord(c) if ord(c) < 32768 else ord(c) - 65536}?")
+            else:
+                out.append("?")
+        return "".join(out)
+
+    paras = "".join(esc(("#" * level + " " if level else "") + text) + "\\par\n" for level, text in blocks)
+    path.write_text("{\\rtf1\\ansi\\deff0{\\fonttbl{\\f0 Helvetica;}}\\f0\\fs20\n" + paras + "}", encoding="ascii")
+
+
+def write_html(path: Path, blocks: list[tuple[int, str]]) -> None:
+    path.write_text(
+        f"<!doctype html><html><head><title>{len(blocks)} blocks</title><style>p {{ margin: 0 }}</style></head>"
+        f"<body>{_html_body(blocks)}</body></html>",
+        encoding="utf-8",
+    )
+
+
+def write_csv(path: Path, blocks: list[tuple[int, str]]) -> None:
+    """A table of (section, text): each paragraph beside its heading."""
+    import csv
+
+    with open(path, "w", newline="", encoding="utf-8") as fh:
+        out = csv.writer(fh)
+        out.writerow(["section", "text"])
+        section = ""
+        for level, text in blocks:
+            if level:
+                section = text
+            else:
+                out.writerow([section, text])
+
+
+def write_documents(directory: Path, texts: list[str]) -> dict[str, tuple[Path, list[str], str]]:
+    """One document of each of DOC_KINDS from consecutive parts of
+    ``texts``: {kind: (path, headings it must show, a sentence it holds)}.
+    The headings are the part's first three (for CSV its header row); the
+    sentence is an ASCII one of 40-200 characters from its paragraphs
+    (table rows count as paragraphs)."""
+    import re
+
+    writers = {
+        "pdf": write_pdf, "docx": write_docx, "pptx": write_pptx, "odt": write_odt,
+        "epub": write_epub, "rtf": write_rtf, "html": write_html, "csv": write_csv,
+    }
+    out = {}
+    for kind, blocks in zip(DOC_KINDS, split_blocks(texts, len(DOC_KINDS))):
+        path = directory / f"part.{kind}"
+        writers[kind](path, blocks)
+        headings = ["section", "text"] if kind == "csv" else [t for level, t in blocks if level][:3]
+        banned = set("#*[]<>\\") | ({"|"} if kind == "csv" else set())
+        sentence = next(
+            s for level, t in blocks if not level for s in re.split(r"(?<=\.)\s+", t)
+            if 40 <= len(s) <= 200 and s.isascii() and not banned & set(s)
+        )
+        out[kind] = (path, headings, sentence)
+    return out
+
+
+def check_conversion(kind: str, markdown: str, headings: list[str], sentence: str) -> None:
+    """The converted Markdown shows each heading on a heading line (the
+    CSV's as its table's header row) and holds the sentence (white space
+    normalised)."""
+    flat = " ".join(markdown.split())
+    assert " ".join(sentence.split()) in flat, (kind, sentence)
+    if kind == "csv":
+        assert markdown.startswith("| section | text |"), markdown[:80]
+        return
+    heading_lines = [" ".join(line.split()) for line in markdown.splitlines() if line.lstrip().startswith("#")]
+    for heading in headings:
+        assert any(" ".join(heading.split()) in line for line in heading_lines), (kind, heading)
+
+
+#: Phase 11 (b): the learned boundary model on the card against its CPU
+#: version: the same f32 weights and windows, TF32 off on the card, so the
+#: two differ only by f32 summation order over 156 + 64 terms (a few ulps
+#: of a logit of order 10; a sigmoid's slope is at most 1/4).
+BOUNDARY_ATOL = 1e-5
+#: Phase 11 (e): concurrent /api/search requests, one thread each.
+PHASE11_SEARCHES = 64
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"", headers: dict | None = None):
+    """One request to the web chat on 127.0.0.1 (http.client: no proxy
+    is ever consulted); returns the open response."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, body=body or None, headers={"Content-Type": "application/json", **(headers or {})})
+    return conn.getresponse()
+
+
+def _disk_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _cli(store: Path, *args: str, stdin: str | None = None, timeout: float = 600) -> tuple[str, float, float]:
+    """``python -m raglite_tpu_torch --store-path <store> <args>`` in a fresh
+    process: (its output, seconds to its first line, seconds to its end)."""
+    import os
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile(mode="w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "raglite_tpu_torch", "--store-path", str(store), *args],
+            cwd=ROOT, stdin=subprocess.PIPE if stdin is not None else subprocess.DEVNULL,
+            stdout=subprocess.PIPE, stderr=err, text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+        )
+        try:
+            if stdin is not None:
+                proc.stdin.write(stdin)
+                proc.stdin.close()
+            first = proc.stdout.readline()
+            first_s = time.perf_counter() - t0
+            text = first + proc.stdout.read()
+            proc.wait(timeout=timeout)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        err.seek(0)
+        assert proc.returncode == 0, (args, err.read()[-4000:])
+    return text, first_s, time.perf_counter() - t0
+
+
+def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, int]) -> dict:
+    """Phase 11: from files to answers through the surfaces, in a temporary
+    directory.  (a) one document of each kind converted to Markdown; (b)
+    the learned boundary model on the card against the CPU; (c) a
+    persistent store of ``rows`` rows (the PDF inserted through the CLI,
+    the rest through insert_documents with learned boundaries, background
+    rows), saved with its dense index; (d) a cold CLI search and stats in
+    fresh processes, and DenseIndex.load, against the parent's
+    vector_search; (e) the web chat: 64 concurrent micro-batched searches,
+    a PDF upload, a streamed chat answer from `jax:large`, the phase
+    timings; (f) the MCP server over pipes; (g) a trace of four searches.
+    Every kernel launched in this process is counted into ``total``."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch import Document, RAGLiteConfig, insert_documents, retrieve_context
+    from raglite_tpu_torch.embed import embed_strings
+    from raglite_tpu_torch.index.dense import DenseIndex, _index_for_store, dense_index_from_config
+    from raglite_tpu_torch.markdown import document_to_markdown
+    from raglite_tpu_torch.models.boundary import (
+        BoundaryModel,
+        boundary_f1,
+        char_class_ids,
+        default_model,
+        windows_for,
+    )
+    from raglite_tpu_torch.models.boundary_data import make_corpus
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.search import corrected_num_hits, vector_search
+    from raglite_tpu_torch.sentences import heuristic_sentence_boundaries, split_sentences
+    from raglite_tpu_torch.store import _store_for_path, store_from_config
+    from raglite_tpu_torch.utils import trace
+    from raglite_tpu_torch.webchat import create_web_app
+
+    _release_llms()
+    fs.reset_launch_counts()
+    _reset_attention_launches()
+    trace.reset()
+    out: dict = {}
+    tmp = scratch_dir(int(5e9), "chip_smoke_p11_")
+    try:
+        # (a) Documents of every kind, converted on the host.
+        docs = write_documents(tmp, texts)
+        markdown, convert_ms = {}, {}
+        for kind, (path, headings, sentence) in docs.items():
+            t0 = time.perf_counter()
+            markdown[kind] = document_to_markdown(path)
+            convert_ms[kind] = (time.perf_counter() - t0) * 1e3
+            check_conversion(kind, markdown[kind], headings, sentence)
+        sizes = {kind: docs[kind][0].stat().st_size for kind in docs}
+        log(f"phase 11 (a) converted {len(docs)} documents (bytes {sizes}) to Markdown: host ms {convert_ms}; "
+            f"each shows its headings and a sentence of its source")
+        out["convert_ms"], out["document_bytes"] = convert_ms, sizes
+
+        # (b) Learned boundaries on the card against the CPU.
+        cpu_model, gpu_model = BoundaryModel.load(device="cpu"), default_model("cuda")
+        assert gpu_model.device.type == "cuda"
+        heldout = make_corpus(num_documents=40, seed=2000)
+        worst = 0.0
+        for doc in [*markdown.values(), *(d for d, _ in heldout)]:
+            worst = max(worst, float(np.abs(gpu_model(doc) - cpu_model(doc)).max()))
+            assert worst <= BOUNDARY_ATOL, worst
+            assert split_sentences(doc, max_len=2048, base_probas="learned", device="cuda") == split_sentences(
+                doc, max_len=2048, base_probas="learned", device="cpu"
+            )
+        f1_learned = float(np.mean([boundary_f1(gpu_model(d), gold)[0] for d, gold in heldout]))
+        f1_heuristic = float(np.mean([boundary_f1(heuristic_sentence_boundaries(d), gold)[0] for d, gold in heldout]))
+        big = "\n\n".join(markdown.values())
+        windows = torch.from_numpy(windows_for(char_class_ids(big))).cuda()
+        with torch.inference_mode():
+            device_ms = median_ms(lambda: gpu_model(windows), reps=10, inner=5)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            gpu_model(big)
+        card_ms = (time.perf_counter() - t0) / 3 * 1e3
+        t0 = time.perf_counter()
+        cpu_model(big)
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        per = 1e5 / len(big)
+        out["boundary"] = {
+            "max_abs_err": worst, "f1_learned": f1_learned, "f1_heuristic": f1_heuristic,
+            "ms_per_100k_chars": card_ms * per, "device_ms_per_100k_chars": device_ms * per,
+            "cpu_ms_per_100k_chars": cpu_ms * per,
+        }
+        log(f"phase 11 (b) learned boundaries on the card = CPU within {worst:.3g} (atol {BOUNDARY_ATOL}) over "
+            f"{len(markdown) + len(heldout)} documents, sentences equal; held-out F1 learned {f1_learned:.4f} vs "
+            f"heuristic {f1_heuristic:.4f} (PARITY.md quotes 0.999 vs 0.87, the JAX package on the CPU); {card_ms * per:.2f} ms per 100k characters on the card (the forward "
+            f"alone {device_ms * per:.3f} ms, CUDA events; the CPU model {cpu_ms * per:.2f} ms), on {card}")
+
+        # (c) A persistent store: the PDF through the CLI, the rest through
+        # insert_documents with learned boundaries, then background rows.
+        store_path = tmp / "store"
+        cfg = RAGLiteConfig(store_path=str(store_path), sentence_boundary_model="learned", device="cuda")
+        assert cfg.embedder == "flax:sem" and cfg.embedding_dtype == "bfloat16" and cfg.use_int4_stage1
+        text, _, cli_insert_s = _cli(store_path, "insert", str(docs["pdf"][0]))
+        assert text.strip() == f"Inserted 1 document(s) into {store_path}.", text
+        t0 = time.perf_counter()
+        insert_documents([Document.from_path(docs[k][0]) for k in DOC_KINDS if k != "pdf"], config=cfg)
+        insert_s = time.perf_counter() - t0
+        store = store_from_config(cfg)
+        assert len(store.documents) == len(DOC_KINDS), sorted(store.documents)
+        doc_rows, doc_chunks = store.num_embedding_vectors, len(store.chunk_order)
+        t0 = time.perf_counter()
+        background = add_background(store, rows - doc_rows, seed)
+        background_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with store.write_lock():
+            store.save()
+        save_s = time.perf_counter() - t0
+        index = dense_index_from_config(cfg)
+        assert index.num_rows == rows, index.num_rows
+        t0 = time.perf_counter()
+        index.save(str(tmp / "index"))
+        index_save_s = time.perf_counter() - t0
+        store_bytes, index_bytes = _disk_bytes(store_path), _disk_bytes(tmp / "index")
+        out["store"] = {
+            "cli_insert_pdf_s": cli_insert_s, "insert_7_s": insert_s, "doc_chunks": doc_chunks, "doc_rows": doc_rows,
+            "background_s": background_s, "save_s": save_s, "store_bytes": store_bytes,
+            "index_save_s": index_save_s, "index_bytes": index_bytes,
+        }
+        log(f"phase 11 (c) store at {rows} rows: the PDF through the CLI in {cli_insert_s:.2f} s (a fresh process), "
+            f"7 documents through insert_documents (learned boundaries on the card) in {insert_s:.2f} s: "
+            f"{doc_chunks} chunks, {doc_rows} rows; {len(background)} background chunks in {background_s:.2f} s; "
+            f"store.save {save_s:.2f} s, {store_bytes / 1e9:.3f} GB on disk; DenseIndex.save {index_save_s:.2f} s, "
+            f"{index_bytes / 1e9:.3f} GB, on {card}")
+
+        # (d) Cold start in fresh processes, and DenseIndex.load here.
+        queries = pick_queries(list(markdown.values()), PHASE11_SEARCHES + 4, seed)
+        query = queries[0]
+        text, first_s, cli_s = _cli(store_path, "search", query, "--method", "vector")
+        cli_ids = [line.split()[1] for line in text.splitlines()]
+        ids, scores = vector_search(query, num_results=5, config=cfg)
+        assert index.last_route == "int4_two_stage", index.last_route
+        assert cli_ids == ids, (cli_ids, ids)
+        assert ids[0] not in background, ids
+        text, _, stats_s = _cli(store_path, "stats")
+        stats = json.loads(text)
+        assert (stats["documents"], stats["chunks"], stats["sub_vectors"]) == (len(store.documents), len(store.chunk_order), rows), stats
+        t0 = time.perf_counter()
+        loaded = DenseIndex.load(str(tmp / "index"), device="cuda")
+        load_s = time.perf_counter() - t0
+        q = embed_strings([query], config=cfg)[0:1].astype(np.float32)
+        hits = min(corrected_num_hits(4, 5, cfg), loaded.num_rows)
+        t0 = time.perf_counter()
+        _, loaded_ord = loaded.search_chunks(q, num_hits=hits, num_results=5)
+        loaded_first_ms = (time.perf_counter() - t0) * 1e3
+        assert loaded.last_route == "int4_two_stage", loaded.last_route
+        assert [loaded.chunk_ids[o] for o in loaded_ord[0]] == ids
+        del loaded
+        # The same cold open in this process (imports, CUDA context and the
+        # encoder already here): the store from disk, the index built from
+        # it, the first search (upload, int4 packing).
+        index = None
+        for cache in (_store_for_path, _index_for_store):
+            cache.cache_clear()
+        t0 = time.perf_counter()
+        store = store_from_config(cfg)
+        open_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        index = dense_index_from_config(cfg)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        assert vector_search(query, num_results=5, config=cfg)[0] == ids
+        reopened_first_ms = (time.perf_counter() - t0) * 1e3
+        out["cold"] = {"cli_first_result_s": first_s, "cli_search_s": cli_s, "cli_stats_s": stats_s,
+                       "index_load_s": load_s, "loaded_first_search_ms": loaded_first_ms,
+                       "store_open_s": open_s, "index_build_s": build_s, "reopened_first_search_ms": reopened_first_ms}
+        log(f"phase 11 (d) cold start: `search --method vector` printed its first result {first_s:.2f} s after "
+            f"process start ({cli_s:.2f} s to exit), ids = the parent's vector_search {ids}; `stats` in "
+            f"{stats_s:.2f} s; DenseIndex.load {load_s:.2f} s, its first search (upload, int4 packing) "
+            f"{loaded_first_ms:.1f} ms, ids equal; in this process the store opens in {open_s:.2f} s, the index "
+            f"builds from it in {build_s:.2f} s and the first search takes {reopened_first_ms:.1f} ms, on {card}")
+
+        # (e) The web chat on 127.0.0.1, answering through `jax:large`.
+        chat_cfg = dataclasses.replace(cfg, llm="jax:large")
+        app = create_web_app(chat_cfg)
+        server, port = app.serve_background("127.0.0.1", 0)
+        try:
+            got, times, batches = _web_searches(app, port, queries[1 : 1 + PHASE11_SEARCHES])
+            direct = {qq: vector_search(qq, num_results=5, config=cfg)[0] for qq in got}
+            for qq, result_ids in got.items():
+                assert result_ids == direct[qq], (qq, result_ids, direct[qq])
+            # One batch in flight: 64 requests gather into a few batches.
+            assert sum(batches) == PHASE11_SEARCHES and len(batches) <= PHASE11_SEARCHES // 8, batches
+            # A binary upload: a PDF of other text, parsed by from_path.
+            upload = tmp / "upload.pdf"
+            write_pdf(upload, [(1, "Upload"), *((0, d) for d, _ in make_corpus(num_documents=30, seed=seed + 11))])
+            t0 = time.perf_counter()
+            resp = _http(port, "POST", "/api/upload", upload.read_bytes(), {"X-Filename": "upload.pdf"})
+            uploaded = json.loads(resp.read())
+            upload_s = time.perf_counter() - t0
+            assert resp.status == 200 and uploaded["status"] == "inserted", uploaded
+            assert store_from_config(cfg).documents[uploaded["id"]].filename == "upload.pdf"
+            # A streamed answer.
+            before = sum(_attention_launches().values())
+            t0 = time.perf_counter()
+            resp = _http(port, "POST", "/api/chat", json.dumps({"messages": [{"role": "user", "content": query}]}).encode())
+            assert resp.status == 200
+            events, first_token_s, buf = [], None, b""
+            while True:
+                chunk = resp.read1(65536)
+                if not chunk:
+                    break
+                buf += chunk
+                while b"\n\n" in buf:
+                    raw, buf = buf.split(b"\n\n", 1)
+                    lines = dict(line.split(": ", 1) for line in raw.decode().split("\n") if ": " in line)
+                    events.append((lines.get("event"), lines.get("data"), time.perf_counter() - t0))
+                    if lines.get("event") == "token" and first_token_s is None:
+                        first_token_s = events[-1][2]
+            tokens = [e for e in events if e[0] == "token"]
+            assert tokens and events[-1][0] == "done", events[-3:]
+            chat_s = events[-1][2]
+            rate = (len(tokens) - 1) / max(tokens[-1][2] - first_token_s, 1e-9)
+            chat_launches = sum(_attention_launches().values()) - before
+            assert chat_launches > 0, _attention_launches()
+            stats = json.loads(_http(port, "GET", "/api/stats").read())
+            phases = stats["phases"]
+            for name in ("insert.split_sentences", "insert.embed", "search.embed_query", "search.dense_scan"):
+                assert name in phases, sorted(phases)
+        finally:
+            server.shutdown()
+            server.server_close()
+        times = sorted(times)
+        out["web"] = {
+            "search_p50_ms": statistics.median(times), "search_p99_ms": times[int(0.99 * (len(times) - 1))],
+            "batch_sizes": batches, "upload_s": upload_s, "chat_ttft_s": first_token_s,
+            "chat_tokens_per_s": rate, "chat_pieces": len(tokens), "chat_s": chat_s, "chat_attention_launches": chat_launches,
+            "phases_mean_ms": {k: v["mean_s"] * 1e3 for k, v in phases.items()},
+        }
+        log(f"phase 11 (e) web chat: {len(times)} concurrent /api/search (vector) p50 {out['web']['search_p50_ms']:.1f} "
+            f"ms, p99 {out['web']['search_p99_ms']:.1f} ms, micro-batches {batches}, every answer = vector_search; "
+            f"PDF upload {upload_s:.2f} s; /api/chat (jax:large, seeded weights) first token {first_token_s:.3f} s, "
+            f"{len(tokens)} pieces at {rate:.1f}/s, {chat_launches} attention launches; stats phases (mean ms) "
+            f"{ {k: round(v, 3) for k, v in out['web']['phases_mean_ms'].items()} }, on {card}")
+        _release_llms()
+
+        # (f) The MCP server over pipes.
+        requests = [
+            {"jsonrpc": "2.0", "id": 1, "method": "initialize", "params": {}},
+            {"jsonrpc": "2.0", "method": "notifications/initialized"},
+            {"jsonrpc": "2.0", "id": 2, "method": "tools/list"},
+            {"jsonrpc": "2.0", "id": 3, "method": "tools/call",
+             "params": {"name": "search_knowledge_base", "arguments": {"query": query}}},
+        ]
+        text, _, mcp_s = _cli(store_path, "mcp", "run", stdin="".join(json.dumps(r) + "\n" for r in requests))
+        responses = {r["id"]: r for r in map(json.loads, text.splitlines())}
+        assert responses[2]["result"]["tools"][0]["name"] == "search_knowledge_base"
+        payload = json.loads(responses[3]["result"]["content"][0]["text"])
+        spans = retrieve_context(query, config=cfg)
+        assert payload["documents"][0] == json.loads(spans[0].to_json(index=1)), (payload["documents"][0], spans[0].to_json(1))
+        out["mcp_s"] = mcp_s
+        log(f"phase 11 (f) MCP over pipes: initialize, tools/list, tools/call in {mcp_s:.2f} s (a fresh process); "
+            f"the top document = retrieve_context's ({len(payload['documents'])} documents), on {card}")
+
+        # (g) A trace of four searches.
+        int4_before = fs.launch_counts["int4_bucket_scan"]
+        with trace.trace_session(str(tmp / "trace")) as trace_path:
+            for qq in queries[:4]:
+                vector_search(qq, num_results=5, config=cfg)
+        events = json.loads(trace_path.read_text())["traceEvents"]
+        names = {e.get("name", "") for e in events}
+        kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+        int4_events = [k for k in kernels if "mma_scan_kernel<true" in k or "bucket_scan_kernel<1>" in k]
+        assert {"search.embed_query", "search.dense_scan"} <= names, sorted(n for n in names if n.startswith("search"))
+        assert int4_events and fs.launch_counts["int4_bucket_scan"] - int4_before == 4
+        out["trace"] = {"events": len(events), "kernel_events": len(kernels), "int4_events": len(int4_events),
+                        "bytes": trace_path.stat().st_size}
+        log(f"phase 11 (g) trace of 4 searches: {len(events)} events, {len(kernels)} kernels, {len(int4_events)} of "
+            f"them the int4 scan, the search.* ranges present ({trace_path.stat().st_size / 1e6:.1f} MB), on {card}")
+    finally:
+        for cache in (_store_for_path, _index_for_store):
+            cache.cache_clear()
+        shutil.rmtree(tmp, ignore_errors=True)
+        for name, count in _all_launches().items():
+            total[name] = total.get(name, 0) + count
+    return out
+
+
+def _web_searches(app, port: int, queries: list[str]) -> tuple[dict[str, list[str]], list[float], list[int]]:
+    """Warm the web chat's search path (one request, then one concurrent
+    burst), then send one POST /api/search a thread, all released at once:
+    ({query: ids}, per-request ms, this run's micro-batch sizes)."""
+    import threading
+
+    def one(q: str) -> tuple[list[str], float]:
+        t0 = time.perf_counter()
+        resp = _http(port, "POST", "/api/search", json.dumps({"query": q, "method": "vector"}).encode())
+        body = json.loads(resp.read())
+        assert resp.status == 200, body
+        return [r["chunk_id"] for r in body["results"]], (time.perf_counter() - t0) * 1e3
+
+    def burst(batch: list[str]) -> list[tuple[list[str], float]]:
+        results: list = [None] * len(batch)
+        gate = threading.Barrier(len(batch))
+
+        def worker(i: int) -> None:
+            gate.wait()
+            try:
+                results[i] = one(batch[i])
+            except Exception as error:  # re-raised below, in this thread
+                results[i] = error
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(batch))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+            assert not t.is_alive(), "a web search did not answer in 600 s"
+        for result in results:
+            if isinstance(result, Exception):
+                raise result
+        return results
+
+    one(queries[0])
+    burst(queries[:32])
+    (batcher,) = app._search_batcher._batchers.values()  # one key: (vector, 5, no filter)
+    done = len(batcher.batch_sizes)
+    results = burst(queries)
+    sizes = list(batcher.batch_sizes)[done:]
+    return {q: r[0] for q, r in zip(queries, results)}, [r[1] for r in results], sizes
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2932,11 +3674,11 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10"],
+        "--only", choices=["prefill", "phase10", "phase11"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
-        "with phase 6's message",
+        "with phase 6's message; 'phase11' builds every kernel and runs phase 11 alone at --rows rows",
     )
     args = parser.parse_args()
 
@@ -2992,6 +3734,14 @@ def main() -> int:
         phase10_encoder(texts, vs_q, args.rows, args.seed, card, launches10)
         phase10_orbax(card, args.seed)
         log(f"phase 10 launches {launches10}; partial run (--only phase10): no result line")
+        return 0
+
+    if args.only == "phase11":
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")]
+        launches11: dict[str, int] = {}
+        summary11 = phase11(texts, args.rows, args.seed, card, launches11)
+        log(f"phase 11 summary on {card}: {json.dumps({**summary11, 'launches': launches11})}")
+        log("partial run (--only phase11): no result line")
         return 0
 
     # 2. Kernels vs plain versions.
@@ -3099,6 +3849,16 @@ def main() -> int:
     # 8 (d) and 9 (f) replace the cached ":memory:" store: they come last.
     hash_on_card(texts, vs_q, card)
     phase9_openai(texts[:2], vs_q[0], card)
+
+    # 11. From files to answers through the surfaces: documents of every
+    # kind, learned boundaries, a persistent store on disk, a cold CLI, the
+    # web chat and MCP (its own store, in a temporary directory).
+    phase11_launches: dict[str, int] = {}
+    summary11 = phase11(texts, args.rows, args.seed, card, phase11_launches)
+    log(f"phase 11 summary on {card}: {json.dumps({**summary11, 'launches': phase11_launches})}")
+    for name in ("int4_bucket_scan", "gqa_prefill_attention"):
+        assert phase11_launches.get(name, 0) > 0, (name, phase11_launches)
+    assert phase11_launches.get("gqa_decode_attention", 0) + phase11_launches.get("gqa_verify_attention", 0) > 0
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -3126,6 +3886,9 @@ def main() -> int:
             # And on phase 10's (the Qwen3-4B-shaped checkpoint's answers,
             # the bge-m3-shaped encoder's searches).
             "launches_phase10": phase10_launches.get(name, 0),
+            # And on phase 11's, in this process (the store's searches, the
+            # web chat's, its chat answer, the trace).
+            "launches_phase11": phase11_launches.get(name, 0),
         })
         p10 = next((x for x in decoder10["timings"] + encoder10["timings"] if x["name"] == name), None)
         if p10 is not None:

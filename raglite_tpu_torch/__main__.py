@@ -1,0 +1,8 @@
+"""``python -m raglite_tpu_torch``: the command-line interface (cli.py)."""
+
+import sys
+
+from raglite_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

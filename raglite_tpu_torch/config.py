@@ -132,11 +132,11 @@ class RAGLiteConfig:
     self_query: bool = False
 
     #: Sentence-boundary probability model: "heuristic" (rule-based) or
-    #: "learned" (tiny packaged JAX model, models/boundary.py — the SaT
-    #: replacement; held-out multilingual boundary-F1 0.9995 vs 0.866).
-    #: Heuristic stays the default: it is tuned for English/Markdown prose
-    #: like the golden specrel corpus, while the learned model leads on
-    #: multilingual text — pick per corpus.
+    #: "learned" (models/boundary.py: the ~12k-parameter windowed MLP the
+    #: JAX package ships, run as a torch module on ``device``; the SaT
+    #: replacement).  Heuristic stays the default: it is tuned for
+    #: English/Markdown prose, while the learned model leads on
+    #: multilingual text (PARITY.md) — pick per corpus.
     sentence_boundary_model: str = "heuristic"
 
     # --- Device ---------------------------------------------------------
@@ -176,15 +176,20 @@ class RAGLiteConfig:
             raise NotImplementedError(msg)
 
     def torch_device(self) -> "torch.device":
-        """The configured device, checked: "cuda" without a usable GPU
-        raises instead of running on the CPU."""
-        import torch
+        """The configured device, checked (see :func:`checked_device`)."""
+        return checked_device(self.device)
 
-        device = torch.device(self.device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            msg = f"device={self.device!r} but CUDA is not available (pass device='cpu')"
-            raise RuntimeError(msg)
-        if device.type not in ("cuda", "cpu"):
-            msg = f"unsupported device {self.device!r} (expected 'cuda' or 'cpu')"
-            raise ValueError(msg)
-        return device
+
+def checked_device(name: str) -> "torch.device":
+    """``torch.device(name)``, checked: "cuda" without a usable GPU raises
+    instead of running on the CPU."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        msg = f"device={name!r} but CUDA is not available (pass device='cpu')"
+        raise RuntimeError(msg)
+    if device.type not in ("cuda", "cpu"):
+        msg = f"unsupported device {name!r} (expected 'cuda' or 'cpu')"
+        raise ValueError(msg)
+    return device

@@ -74,13 +74,14 @@ class Document:
         url: str | None = None,
         **kwargs: Any,
     ) -> "Document":
-        """Create a document from a Markdown or plain-text file; id defaults
-        to a content hash (reference: _database.py:105-149).  PDF and office
-        formats are not ported yet (ROADMAP queue 1 item 3)."""
+        """Create a document from a file path; id defaults to a content hash
+        (reference: _database.py:105-149).  The file is converted to
+        Markdown by suffix (markdown.py:document_to_markdown): PDF, HTML,
+        office formats, CSV/TSV, structured text as code blocks, anything
+        else read as text."""
+        from raglite_tpu_torch.markdown import document_to_markdown
+
         doc_path = Path(doc_path)
-        if doc_path.suffix.lower() not in (".md", ".markdown", ".txt", ""):
-            msg = f"{doc_path.suffix} documents are not ported yet (ROADMAP queue 1 item 3)"
-            raise NotImplementedError(msg)
         metadata = adapt_metadata(
             {
                 "filename": doc_path.name,
@@ -97,7 +98,7 @@ class Document:
             filename=doc_path.name,
             url=url,
             metadata_=metadata,
-            content=doc_path.read_text(encoding="utf-8"),
+            content=document_to_markdown(doc_path),
         )
 
     @staticmethod

@@ -39,6 +39,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from raglite_tpu_torch.config import checked_device
 from raglite_tpu_torch.ops.fused_scan import (
     DEFAULT_NUM_BUCKETS,
     INT4_NUM_BUCKETS,
@@ -65,6 +66,7 @@ _DTYPES = {
     "bfloat16": torch.bfloat16, "float16": torch.float16,
     "float32": torch.float32, "int8": torch.int8,
 }
+_DTYPE_NAMES = {dt: name for name, dt in _DTYPES.items()}
 
 
 def _dense_search(
@@ -194,12 +196,12 @@ class DenseIndex:
         self._dtype = _DTYPES[dtype]
         self.use_pallas = use_pallas
         self.use_int4_stage1 = use_int4_stage1
-        self.device = torch.device(device)
+        self.device = checked_device(device)
         self.num_devices = 1
         self.num_rows = 0
         self.capacity = 0
         # Host mirror (canonical).
-        self._host_rows = np.zeros((0, dim), dtype=np.float16)
+        self._host_rows: np.ndarray | None = np.zeros((0, dim), dtype=np.float16)
         self._host_valid = np.zeros((0,), dtype=np.bool_)
         self.row_chunk = np.zeros((0,), dtype=np.int64)
         self.chunk_ids: list[str] = []
@@ -545,6 +547,102 @@ class DenseIndex:
             queries, num_hits=num_hits, row_mask=row_mask, adapter=adapter, exact=exact
         )
         return _group_max_topk(scores, idx, self._dev_row_chunk, num_results=num_results)
+
+    @classmethod
+    def from_device_arrays(
+        cls,
+        rows: torch.Tensor,  # [N, d] storage dtype, already on the device
+        row_chunk: torch.Tensor,  # [N] row -> chunk ordinal
+        *,
+        row_scale: torch.Tensor | None = None,  # [N] f32 (int8 rows)
+        metric: DistanceMetric = "cosine",
+    ) -> "DenseIndex":
+        """Search-only index over device-resident arrays (no host mirror of
+        the rows), for embeddings produced on the device that must not
+        round-trip through host memory.  The int4 stage's packed copy pads
+        to a multiple of INT4_NUM_BUCKETS (``_ensure_packed4``).  Mutation
+        and :meth:`save` need the host mirror and are unsupported here."""
+        n, dim = rows.shape
+        index = cls(dim=dim, dtype=_DTYPE_NAMES[rows.dtype], metric=metric, device=rows.device)
+        index.num_rows = index.capacity = n
+        index._dev_rows = rows
+        index._dev_scale = row_scale
+        index._dev_valid = torch.ones((n,), dtype=torch.bool, device=rows.device)
+        index._dev_row_chunk = row_chunk.to(device=rows.device, dtype=torch.int64)
+        # The host mirror of the row -> chunk map: metadata filters build
+        # their row masks from it (an empty map would turn every filtered
+        # search into an empty one).
+        index.row_chunk = row_chunk.cpu().numpy().astype(np.int64)
+        if metric == "l2":
+            deq = rows.to(torch.float32)
+            if row_scale is not None:
+                deq = deq * row_scale[:, None]
+            index._dev_sqnorm = (deq * deq).sum(dim=1)
+        else:
+            index._dev_sqnorm = torch.zeros((n,), dtype=torch.float32, device=rows.device)
+        index._host_rows = None  # no host mirror
+        index.chunk_ids = []
+        index._dirty = False
+        index._dev_rows_synced = n
+        return index
+
+    # --- Checkpoint / resume ----------------------------------------------
+
+    def save(self, path: str) -> None:
+        """Persist the index (host mirror + manifest) so a reload skips
+        re-embedding.  The layout is the JAX package's: ``manifest.json``,
+        ``rows.npy`` (the f16 host mirror), ``valid.npy``, ``row_chunk.npy``;
+        an index saved by either package loads in the other."""
+        import json
+        from pathlib import Path
+
+        if self._host_rows is None:
+            msg = "an index built from device arrays has no host mirror to save"
+            raise ValueError(msg)
+        root = Path(path)
+        root.mkdir(parents=True, exist_ok=True)
+        np.save(root / "rows.npy", self._host_rows[: self.num_rows])
+        np.save(root / "valid.npy", self._host_valid[: self.num_rows])
+        np.save(root / "row_chunk.npy", self.row_chunk)
+        (root / "manifest.json").write_text(
+            json.dumps(
+                {
+                    "dim": self.dim,
+                    "metric": self.metric,
+                    "dtype": _DTYPE_NAMES[self._dtype],
+                    "num_rows": self.num_rows,
+                    "num_devices": self.num_devices,
+                    "chunk_ids": self.chunk_ids,
+                }
+            )
+        )
+
+    @classmethod
+    def load(cls, path: str, *, device: torch.device | str = "cuda") -> "DenseIndex":
+        """Load an index written by :meth:`save` (or the JAX package's) onto
+        ``device``; the device copy is uploaded at the first search."""
+        import json
+        from pathlib import Path
+
+        root = Path(path)
+        manifest = json.loads((root / "manifest.json").read_text())
+        index = cls(
+            dim=manifest["dim"],
+            dtype=manifest["dtype"],
+            metric=manifest["metric"],
+            num_devices=manifest["num_devices"],
+            device=device,
+        )
+        rows = np.load(root / "rows.npy")
+        valid = np.load(root / "valid.npy")
+        index._ensure_capacity(rows.shape[0])
+        index._host_rows[: rows.shape[0]] = rows
+        index._host_valid[: valid.shape[0]] = valid
+        index.num_rows = int(manifest["num_rows"])
+        index.row_chunk = np.load(root / "row_chunk.npy").astype(np.int64)
+        index.chunk_ids = list(manifest["chunk_ids"])
+        index._dirty = True
+        return index
 
     def _use_int4_stage1(self, batch: int, exact: bool) -> bool:
         """Two-stage int4 routing: small batches on large indexes on CUDA

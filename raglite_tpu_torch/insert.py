@@ -20,6 +20,7 @@ from raglite_tpu_torch.documents import Chunk, Document
 from raglite_tpu_torch.embed import embed_strings, embed_strings_without_late_chunking, embedding_type
 from raglite_tpu_torch.sentences import split_sentences
 from raglite_tpu_torch.store import Store, store_from_config
+from raglite_tpu_torch.utils.trace import phase
 
 __all__ = ["insert_documents"]
 
@@ -41,18 +42,23 @@ def _create_chunk_records(
     Returns chunk records and one multi-vector embedding matrix per chunk.
     """
     assert document.content is not None
-    sentences = split_sentences(
-        document.content,
-        max_len=config.chunk_max_size,
-        base_probas=config.sentence_boundary_model,
-    )
-    chunklets = split_chunklets(sentences, max_size=config.chunk_max_size)
-    chunklet_embeddings = embed_strings(chunklets, config=config)
-    chunks, chunk_embeddings = split_chunks(
-        chunklets=chunklets,
-        chunklet_embeddings=chunklet_embeddings,
-        max_size=config.chunk_max_size,
-    )
+    with phase("insert.split_sentences"):
+        sentences = split_sentences(
+            document.content,
+            max_len=config.chunk_max_size,
+            base_probas=config.sentence_boundary_model,
+            device=config.device,
+        )
+    with phase("insert.split_chunklets"):
+        chunklets = split_chunklets(sentences, max_size=config.chunk_max_size)
+    with phase("insert.embed"):
+        chunklet_embeddings = embed_strings(chunklets, config=config)
+    with phase("insert.split_chunks"):
+        chunks, chunk_embeddings = split_chunks(
+            chunklets=chunklets,
+            chunklet_embeddings=chunklet_embeddings,
+            max_size=config.chunk_max_size,
+        )
     # Chunk records carry rolling contextual headings (reference: _insert.py:103-111).
     chunk_records: list[Chunk] = []
     headings = ""

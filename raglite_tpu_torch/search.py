@@ -38,6 +38,7 @@ from raglite_tpu_torch.ops.maxsim import maxsim_rank
 from raglite_tpu_torch.store import store_from_config
 from raglite_tpu_torch.types import BasicSearchMethod, ChunkId, FloatVector, MetadataFilter
 from raglite_tpu_torch.utils.lang import detect_language
+from raglite_tpu_torch.utils.trace import phase
 
 __all__ = [
     "vector_search",
@@ -99,11 +100,12 @@ def vector_search(
     if config.self_query and isinstance(query, str):
         metadata_filter = _with_self_query(query, metadata_filter, config)
     # Embed the query (reference: _search.py:54-56).
-    query_embedding = (
-        embed_strings([query], config=config)[0, :].astype(np.float32)
-        if isinstance(query, str)
-        else np.ravel(np.asarray(query, dtype=np.float32))
-    )
+    with phase("search.embed_query"):
+        query_embedding = (
+            embed_strings([query], config=config)[0, :].astype(np.float32)
+            if isinstance(query, str)
+            else np.ravel(np.asarray(query, dtype=np.float32))
+        )
     # The query adapter is applied as a device (HBM) matmul inside
     # index.search (reference does it in numpy, _search.py:58-62).
     adapter = (
@@ -124,13 +126,14 @@ def vector_search(
         row_mask = cmask[index.row_chunk]
     # Fused scan + on-device multi-vector group-max aggregation
     # (reference: :143-152) + final ranking: one device program, one fetch.
-    chunk_scores, chunk_ordinals = index.search_chunks(
-        query_embedding[None, :],
-        num_hits=min(num_hits, index.num_rows),
-        num_results=num_results,
-        row_mask=row_mask,
-        adapter=adapter,
-    )
+    with phase("search.dense_scan"):
+        chunk_scores, chunk_ordinals = index.search_chunks(
+            query_embedding[None, :],
+            num_hits=min(num_hits, index.num_rows),
+            num_results=num_results,
+            row_mask=row_mask,
+            adapter=adapter,
+        )
     keep = (chunk_ordinals[0] >= 0) & (chunk_ordinals[0] < len(index.chunk_ids))
     return (
         [index.chunk_ids[o] for o in chunk_ordinals[0][keep]],

@@ -190,6 +190,8 @@ def split_sentences(
     max_len: int | None = None,
     boundary_probas: FloatVector | Callable[[str], FloatVector] = markdown_sentence_boundaries,
     base_probas: Callable[[str], FloatVector] | str | None = None,
+    *,
+    device: str = "cuda",
 ) -> list[str]:
     """Split a document into sentences (reference: _split_sentences.py:146-219).
 
@@ -198,8 +200,9 @@ def split_sentences(
     first), and respect ``min_len``/``max_len``.
 
     ``base_probas`` selects the per-character boundary model: "heuristic"
-    (default, rule-based) or any callable.  The learned model is not
-    ported yet (ROADMAP queue 1 item 8).
+    (default, rule-based), "learned" (models/boundary.py, the SaT
+    replacement, run on ``device``: the card unless the caller asks for
+    the CPU), or any callable.
     ``boundary_probas`` remains the Markdown-override channel on top.
     """
     if len(doc) <= min_len:
@@ -207,8 +210,9 @@ def split_sentences(
     if base_probas is None or base_probas == "heuristic":
         probas = heuristic_sentence_boundaries(doc)
     elif base_probas == "learned":
-        msg = "the learned sentence-boundary model is not ported yet (ROADMAP queue 1 item 8)"
-        raise NotImplementedError(msg)
+        from raglite_tpu_torch.models.boundary import learned_sentence_boundaries
+
+        probas = np.asarray(learned_sentence_boundaries(doc, device=device), dtype=np.float64)
     else:
         probas = np.asarray(base_probas(doc), dtype=np.float64)
     overrides = boundary_probas(doc) if callable(boundary_probas) else boundary_probas

@@ -790,6 +790,12 @@ class Store:
             self._load_segmented(root)
         elif (root / "records.msgpack").exists():
             self._load_legacy_v1(root)
+        # What this instance has seen on disk: a later absorb_concurrent()
+        # replays the log only if another writer moved the head since.  (The
+        # JAX package leaves this unset, so its first write after an open
+        # replays the whole log and bumps the generation, which makes every
+        # device index rebuild.)
+        self._disk_state = (self.version, self.generation, tuple(self._segments))
         self._load_index_metadata(root)
         if self._lazy_segments:
             return  # postings came from the aux sidecars — no record decode

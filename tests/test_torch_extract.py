@@ -206,7 +206,10 @@ def test_import_leaves_pydantic_out() -> None:
 
 
 def test_pdf_ingestion_names_its_roadmap_item(tmp_path: Path) -> None:
+    """ROADMAP queue 1 item 3 (PDF ingestion) is done: a PDF opens through
+    ``Document.from_path`` as in the JAX package, where it once raised
+    naming the item (tests/test_torch_markdown.py holds real PDFs)."""
     path = tmp_path / "x.pdf"
     path.write_bytes(b"%PDF-1.4\n")
-    with pytest.raises(NotImplementedError, match="item 3"):
-        TDocument.from_path(path)
+    ours, theirs = TDocument.from_path(path), JDocument.from_path(path)
+    assert (ours.id, ours.content) == (theirs.id, theirs.content)

@@ -2,8 +2,10 @@
 keyword index with its native loader, BM25 and RRF ops, deletes, the
 decoder LLM, speculation, the grammar automata, the hash table draw, the
 LLM factory, rag, the attention ops, extraction, evals, the query adapter
-and its NNLS op, the safetensors and checkpoint readers and the int8
-matmuls) loads neither JAX nor the JAX package (nor markdown-it,
+and its NNLS op, the safetensors and checkpoint readers, the int8
+matmuls, the document converters, the boundary model, the tracer, the
+micro-batcher, the MCP server, the web chat and the CLI) loads neither JAX
+nor the JAX package nor click (nor markdown-it,
 tokenizers, safetensors, transformers, orbax, tensorstore, msgpack or
 filelock on the in-memory path, a tokenizer.json read included, nor pandas,
 tqdm or pydantic), its public names are the JAX package's, its config asks for the
@@ -40,7 +42,13 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.ops.nnls
         import raglite_tpu_torch.models.safetensors_io, raglite_tpu_torch.models.checkpoint
         import raglite_tpu_torch.ops.quant_matmul, raglite_tpu_torch.models.transformer
+        import raglite_tpu_torch.markdown, raglite_tpu_torch.utils.pdf, raglite_tpu_torch.utils.office
+        import raglite_tpu_torch.models.boundary, raglite_tpu_torch.models.boundary_data
+        import raglite_tpu_torch.utils.trace, raglite_tpu_torch.utils.microbatch
+        import raglite_tpu_torch.mcp, raglite_tpu_torch.webchat, raglite_tpu_torch.cli
+        import raglite_tpu_torch.__main__
         assert "pydantic" not in sys.modules
+        assert "click" not in sys.modules
         bad = [
             m for m in sys.modules
             if m in ("jax", "raglite_tpu") or m.startswith(("jax.", "raglite_tpu."))
@@ -79,6 +87,30 @@ def test_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyPatch) -> None:
     config = RAGLiteConfig(store_path=":memory:", embedder="flax:tiny", device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         vector_search("anything", config=config)
+
+
+def test_boundary_model_on_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyPatch) -> None:
+    """The learned boundary model of a device="cuda" config raises where
+    there is no card, through the model, split_sentences and an insert."""
+    from raglite_tpu_torch import Document, RAGLiteConfig, insert_documents
+    from raglite_tpu_torch.models.boundary import BoundaryModel, default_model, learned_sentence_boundaries
+    from raglite_tpu_torch.sentences import split_sentences
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        default_model("cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BoundaryModel.load()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BoundaryModel()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        learned_sentence_boundaries("One. Two.")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        split_sentences("One sentence. Two sentences.", base_probas="learned")
+    config = RAGLiteConfig(store_path=":memory:", embedder="hash:64", sentence_boundary_model="learned", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        insert_documents([Document.from_text("One sentence here. And two sentences.")], config=config)
+    assert default_model("cpu") is not None
 
 
 def test_multi_gpu_is_not_ported_yet() -> None:
