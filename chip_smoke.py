@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
-query-adapter, checkpoint and ingestion-to-surface paths once on one NVIDIA
-GPU.
+query-adapter, checkpoint, ingestion-to-surface and multi-GPU paths once on
+one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -31,9 +31,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    output within attention_tolerance (the smaller of a sound and a
    statistical bound on bf16 probability rounding).
 3. Serve with the default config (packaged 8-layer d=768 encoder, bf16
-   rows, ":memory:" store): insert the repo's README, SURVEY, MIGRATION and
+   rows, ":memory:" store): insert the repo's VERDICT, SURVEY, MIGRATION and
    PARITY documents, add seeded background chunks of 2 unit-vector rows each
-   until the index holds ``--rows`` rows (624,580 chunks at the default),
+   until the index holds ``--rows`` rows,
    each with a body of 12 terms drawn as bench.py's hybrid section draws
    them (zipf(1.3) mod 30,000, "w<t>"), answer 8 queries through
    vector_search and 4 through search_and_rerank_chunk_spans with
@@ -168,10 +168,40 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    (initialize, tools/list, tools/call; its top document =
    retrieve_context's); (g) trace_session around four searches (the
    search.* ranges and int4 kernel events in the Chrome trace).
+12. Multi-GPU on the one card (after phase 9, before phase 10 releases
+   phase 6's decoder and replaces the phase-3 store; one card cannot show
+   traffic between cards or a speed-up from more of them): (a) the phase-3
+   store served with ``num_devices=4`` (4 row shards of 315,392 rows on
+   cuda:0), every vector_search on the sharded int4 route with 4 int4
+   launches (asserted), recall@10 against the single-device exact route
+   (counting chunks within PHASE12_TIE_ATOL of the exact 10th as hits, >=
+   RECALL_MIN), the sharded exact route at B = 64 with ids equal to the
+   single-device exact route, one shard's int4 scan bit-exact against its
+   plain version and timed at its shape, p50s beside ``num_devices=1``; (b)
+   the keyword postings in 4 chunk-range shards: 256 tail-term queries equal
+   to resident single-device BM25, ids and scores bit for bit; (c) phase 6's
+   `large` split tensor-parallel over 4 shards (in place, so the LLM factory
+   serves the TP model; the single-device weights kept beside it): a
+   2,048-token forward against the single-device one (top-1 >=
+   PHASE12_TOP1_MIN; the largest difference printed beside
+   PHASE12_LOGIT_RTOL of the largest |logit|; against an f32 forward of the
+   same weights, TP's largest error within PHASE12_ERROR_RATIO of one
+   device's), a rag() answer and a
+   sampled stream with the prefill, verify and decode launches asserted per
+   shard, time to first token and tokens/s beside the single-device model,
+   each attention kernel held against its plain version and timed at the
+   shard's KVH 1, REP 5 (phase 7's cases); then both copies are released;
+   (d) two processes (this script with ``--phase12-rank``), each holding 2 of
+   4 seeded shards of 315,392 x 768 on cuda:0, joined by a gloo group (NCCL
+   refuses two ranks on one card), whose merged exact and int4 results equal
+   this process's 4-shard search (ids equal, scores to f32 rounding); the
+   exact route equal to one scan of the whole matrix; each rank has its own
+   time limit.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
-at ``--rows`` (neither prints a result line).
+at ``--rows``; ``--only phase12`` runs phase 3's store at ``--rows`` and
+phase 12 over it (none of them prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -189,6 +219,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+#: The repo's documents the phases' stores, questions, prompts and trained
+#: tokenizers are made from: Markdown that the port never edits, so that a
+#: documentation change cannot move a phase's shapes (a retrieved prompt's
+#: length, its prefill bucket) or the answers a phase checks.
+FROZEN_DOCS = ("ADVICE.md", "BASELINE.md", "MIGRATION.md", "PAPER.md", "PAPERS.md", "PARITY.md", "SURVEY.md", "VERDICT.md")
+#: The documents of phase 3's store (and of the later phases over it).
+STORE_DOCS = ("VERDICT.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")
 D = 768
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and int8 ops/s.
 PEAK_BYTES_PER_S = 3.35e12
@@ -969,6 +1006,22 @@ def _weight_bytes(params) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def rag_spans(question: str, rag_cfg) -> list:
+    """``question``'s retrieved spans, as many as rag() keeps: its clip
+    estimates a message's tokens as its JSON's characters / 3 and drops a
+    message over the window whole, so an add_context message that
+    _limit_chunkspans let through (it counts the spans' XML, not the JSON
+    escapes) may leave an empty prompt; the last spans go until it fits."""
+    from raglite_tpu_torch import add_context, retrieve_context
+    from raglite_tpu_torch.models.llm import get_context_size
+    from raglite_tpu_torch.rag import _clip
+
+    spans = retrieve_context(question, config=rag_cfg)
+    while len(spans) > 1 and not _clip([add_context(question, spans, rag_cfg)], get_context_size(rag_cfg)):
+        spans = spans[:-1]
+    return spans
+
+
 def serve_rag(cfg, question: str, card: str, *, spec: str = "jax:large", messages=None, profile: bool = False) -> dict:
     """Phase 6: rag() answers from the ``large`` decoder over the phase-3
     index; a sampled stream; greedy with speculation off against on.  Phase
@@ -980,7 +1033,7 @@ def serve_rag(cfg, question: str, card: str, *, spec: str = "jax:large", message
 
     import torch
 
-    from raglite_tpu_torch import add_context, rag, retrieve_context
+    from raglite_tpu_torch import add_context, rag
     from raglite_tpu_torch.models.decoder import DECODE_CHUNK, _bucket
     from raglite_tpu_torch.models.llm import llm_from_config
     from raglite_tpu_torch.rag import _clip
@@ -996,9 +1049,9 @@ def serve_rag(cfg, question: str, card: str, *, spec: str = "jax:large", message
 
     t0 = time.perf_counter()
     if messages is None:
-        spans = retrieve_context(question, config=rag_cfg)
+        spans = rag_spans(question, rag_cfg)
         messages = [add_context(question, spans, rag_cfg)]
-        found = f"{len(spans)} spans retrieved"
+        found = f"{len(spans)} spans retrieved and kept"
     else:
         messages = [dict(m) for m in messages]
         found = "phase 6's message"
@@ -1013,6 +1066,7 @@ def serve_rag(cfg, question: str, card: str, *, spec: str = "jax:large", message
     llm.tokenizer.encode(prompt)
     encode_again_ms = (time.perf_counter() - t0) * 1e3
     prompt_tokens = min(len(encoded), llm.context_size - max_new - 1) + int(llm._byte_level)  # + BOS
+    assert prompt_tokens > 1000, prompt_tokens  # a RAG prompt, not an empty one
     rag_s = _bucket(prompt_tokens) + _bucket(max_new) + DECODE_CHUNK
     log(f"rag question {question!r}: {found} in {retrieve_ms:.1f} ms, {len(prompt)} characters, "
         f"prompt {prompt_tokens} tokens (encoded on the host in {encode_ms:.1f} ms, {encode_again_ms:.1f} ms again "
@@ -1124,7 +1178,7 @@ PHASE8_SCHEMA = {
 #: The batch of phase 8 (c): 8 of the repo's documents, clipped to these
 #: lengths in bytes (ragged prompts; the longest, with the system prompt and
 #: the chat template, stays inside one 4,096-token prefill bucket).
-BATCH_DOCS = ("ADVICE.md", "BASELINE.md", "PAPER.md", "MIGRATION.md", "README.md", "PARITY.md", "VERDICT.md", "SURVEY.md")
+BATCH_DOCS = ("ADVICE.md", "BASELINE.md", "PAPER.md", "MIGRATION.md", "PAPERS.md", "PARITY.md", "VERDICT.md", "SURVEY.md")
 BATCH_CLIPS = (256, 512, 768, 1024, 1536, 2048, 3072, 3584)
 
 
@@ -1642,11 +1696,11 @@ def phase9_async(cfg, question: str, rag_first_ms: float, total: dict[str, int],
 
     import torch
 
-    from raglite_tpu_torch import add_context, async_rag, rag, retrieve_context
+    from raglite_tpu_torch import add_context, async_rag, rag
 
     rag_mod = importlib.import_module("raglite_tpu_torch.rag")
     large_cfg = dataclasses.replace(cfg, llm="jax:large")
-    spans = retrieve_context(question, config=large_cfg)
+    spans = rag_spans(question, large_cfg)
 
     def fresh():
         return [add_context(question, spans, large_cfg)]
@@ -1805,7 +1859,7 @@ def phase9_openai(texts: list[str], question: str, card: str) -> None:
         insert_s = time.perf_counter() - t0
         index = dense_index_from_config(ocfg)
         ids, scores = vector_search(question, num_results=5, config=ocfg)
-        assert index.device.type == index._dev_rows.device.type == "cuda" and len(ids) == 5, (index.device, ids)
+        assert index.device.type == index._rows[0].device.type == "cuda" and len(ids) == 5, (index.device, ids)
         rag_mod._async_rag_bridge = no_bridge
         messages = [{"role": "user", "content": question}]
         retrieved = []
@@ -1877,7 +1931,7 @@ TIE_ATOL = 2 * 1024 * 2.0**-24
 
 
 def _markdown_texts() -> list[str]:
-    return [p.read_text(encoding="utf-8") for p in sorted(ROOT.glob("*.md"))]
+    return [(ROOT / f).read_text(encoding="utf-8") for f in FROZEN_DOCS]
 
 
 def scratch_dir(need: int, prefix: str) -> Path:
@@ -2165,6 +2219,25 @@ def _forward_logits(llm, ids):
     return logits[0]
 
 
+def _f32_logits(llm, ids):
+    """The logits [T, V] of ``llm``'s single-device forward of one prompt in
+    f32: an f32 copy of its weights (dropped on return), f32 caches, f32
+    matmuls (TF32 off) and each attention op's plain version."""
+    import torch
+
+    from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+
+    def f32(x):
+        return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
+
+    params = {k: f32(v) for k, v in llm.params.items() if k != "layers"}
+    params["layers"] = [{k: f32(v) for k, v in layer.items()} for layer in llm.params["layers"]]
+    cache = llm.model.init_cache(1, ids.shape[1], dtype=torch.float32, device="cuda")
+    with torch.inference_mode(), full_f32_matmul(), _plain_attention():
+        logits, _ = llm.model.forward(params, ids, cache, 0)
+    return logits[0]
+
+
 def time_int8_matmuls(card: str, seed: int) -> list[dict]:
     """W8A8 and W8A16 at Qwen3-4B's decode shapes (1 and 8 rows) beside the
     bf16 matmul of the same shape and the bytes bound of each (the int8 or
@@ -2315,14 +2388,23 @@ def phase10_decoder(cfg, question: str, rag_messages, seed: int, card: str, tota
             f"({items[0].name}({items[0].arguments[:60]})); extract_json (extract_with_llm's core, the schema in the "
             f"prompt, the answer kept as text) {extract_ms:.1f} ms")
 
-        # The attention kernels at this model's shapes (REP 4, KVH 8).
+        # The attention kernels at this model's shapes (REP 4, KVH 8): the
+        # answer's own, then at the 8,192-token bucket (S = 8,352) whatever
+        # length the retrieved prompt has (it follows the docs the store
+        # holds).
+        cases = [
+            ("gqa_decode_attention", 1, answer["rag_s"], [answer["rag_pos"]]),
+            ("gqa_verify_attention", 8, answer["rag_s"], [answer["rag_pos"]]),
+            ("gqa_prefill_attention", answer["rag_t"], answer["rag_s"], [0]),
+        ]
+        if answer["rag_s"] != 8352:
+            cases += [
+                ("gqa_decode_attention", 1, 8352, [8192 + 40]),
+                ("gqa_verify_attention", 8, 8352, [8192]),
+                ("gqa_prefill_attention", 8192, 8352, [0]),
+            ]
         out["timings"] = time_attention(
-            seed + 10, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card, kvh=8, rep=4,
-            cases=[
-                ("gqa_decode_attention", 1, answer["rag_s"], [answer["rag_pos"]]),
-                ("gqa_verify_attention", 8, answer["rag_s"], [answer["rag_pos"]]),
-                ("gqa_prefill_attention", answer["rag_t"], answer["rag_s"], [0]),
-            ],
+            seed + 10, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card, kvh=8, rep=4, cases=cases,
         )
 
         # (d) The same checkpoint @int8.
@@ -2467,13 +2549,12 @@ def _recall_diagnosis(index, query_emb, hits: int, query: str, card: str) -> Non
 
     index._refresh_device()
     index._ensure_packed4()
-    q, valid = index._queries(query_emb), index._valid_with(None)
-    es, eid = _dense_search(
-        index._dev_rows, index._dev_sqnorm, valid, q, index._dev_scale, num_hits=hits, metric=index.metric,
-    )
+    q, valid, rows, sqnorm = index._queries(query_emb), index._valid[0], index._rows[0], index._sqnorm[0]
+    scale = None if index._scale is None else index._scale[0]
+    es, eid = _dense_search(rows, sqnorm, valid, q, scale, num_hits=hits, metric=index.metric)
     pool = max(fs.INT4_STAGE1_CANDIDATES, 2 * hits)
     cs_, cid = fs.int4_two_stage_block(
-        index._dev_packed4, index._dev_scale4, index._dev_rows, index._dev_scale, index._dev_sqnorm, valid, q,
+        index._packed4[0], index._scale4[0], rows, scale, sqnorm, valid, q,
         num_hits=pool, candidates=pool, metric=index.metric, num_buckets=fs.INT4_NUM_BUCKETS,
     )
     exact_rows, scores = eid[0].tolist(), es[0].tolist()
@@ -2871,26 +2952,28 @@ def time_kernels(index_bf16, index_i8, q_emb, card: str, *, dim: int = D, batche
 
     n = index_bf16.capacity
     out = []
-    bias4 = torch.where(index_bf16._dev_valid, 0.0, fs.NEG).contiguous()
-    unpacked = fs.unpack_rows_int4(index_bf16._dev_packed4)
+    packed4, scale4 = index_bf16._packed4[0], index_bf16._scale4[0]
+    bias4 = torch.where(index_bf16._valid[0], 0.0, fs.NEG).contiguous()
+    unpacked = fs.unpack_rows_int4(packed4)
     for batch in batches:
         q = torch.as_tensor(q_emb[:batch], device="cuda")
         q_abs = q.abs().amax(dim=1, keepdim=True)
         q_i8 = torch.clamp(torch.round(q / (q_abs / 127.0)), -127, 127).to(torch.int8)
         specs = {
             "int4_bucket_scan": (
-                lambda: fs.int4_bucket_scan(q_i8, index_bf16._dev_packed4, index_bf16._dev_scale4, bias4, num_buckets=fs.INT4_NUM_BUCKETS),
-                lambda: fs.int4_bucket_scan_plain(q_i8, index_bf16._dev_packed4, index_bf16._dev_scale4, bias4, num_buckets=fs.INT4_NUM_BUCKETS),
-                lambda: _library_scan(q_i8, unpacked, index_bf16._dev_scale4, bias4, fs.INT4_NUM_BUCKETS),
+                lambda: fs.int4_bucket_scan(q_i8, packed4, scale4, bias4, num_buckets=fs.INT4_NUM_BUCKETS),
+                lambda: fs.int4_bucket_scan_plain(q_i8, packed4, scale4, bias4, num_buckets=fs.INT4_NUM_BUCKETS),
+                lambda: _library_scan(q_i8, unpacked, scale4, bias4, fs.INT4_NUM_BUCKETS),
                 n * dim // 2, fs.INT4_NUM_BUCKETS,
             ),
         }
         if index_i8 is not None:
-            bias8 = torch.where(index_i8._dev_valid, 0.0, fs.NEG).contiguous()
+            rows8, scale8 = index_i8._rows[0], index_i8._scale[0]
+            bias8 = torch.where(index_i8._valid[0], 0.0, fs.NEG).contiguous()
             specs["bucketed_max_scan"] = (
-                lambda: fs.bucketed_max_scan(q_i8, index_i8._dev_rows, bias8, index_i8._dev_scale),
-                lambda: fs.bucketed_max_scan_plain(q_i8, index_i8._dev_rows, bias8, index_i8._dev_scale),
-                lambda: _library_scan(q_i8, index_i8._dev_rows, index_i8._dev_scale, bias8, fs.DEFAULT_NUM_BUCKETS),
+                lambda: fs.bucketed_max_scan(q_i8, rows8, bias8, scale8),
+                lambda: fs.bucketed_max_scan_plain(q_i8, rows8, bias8, scale8),
+                lambda: _library_scan(q_i8, rows8, scale8, bias8, fs.DEFAULT_NUM_BUCKETS),
                 n * dim, fs.DEFAULT_NUM_BUCKETS,
             )
         for name, (kernel, plain, library, row_bytes, L) in specs.items():
@@ -3663,6 +3746,447 @@ def _web_searches(app, port: int, queries: list[str]) -> tuple[dict[str, list[st
     return {q: r[0] for q, r in zip(queries, results)}, [r[1] for r in results], sizes
 
 
+#: Phase 12: row shards of the sharded index (all on the one card) and the
+#: tensor-parallel degree of the `large` decoder.
+PHASE12_SHARDS = 4
+PHASE12_TP = 4
+#: Phase 12 (a): the sharded int4 route's chunks against the single-device
+#: exact route's, counting a chunk scored within the two routes' f32
+#: rounding of the exact 10th (2 * d * 2^-24, as TIE_ATOL at d = 768) as a
+#: hit, as phase 10 (e) does.
+PHASE12_TIE_ATOL = 2 * D * 2.0**-24
+#: Phase 12 (c): the TP forward's logits against the single-device
+#: forward's: top-1 equal on at least this share of positions, and their
+#: largest difference printed beside this share of the largest |logit| (the
+#: bound of the JAX package's own test, tests/test_tp_decoder.py, on a
+#: 2-layer model and 8 tokens).  At 36 layers and 2,048 tokens in bf16 the
+#: two forwards differ by bf16 re-association alone (GEMMs of other shapes
+#: sum in other orders) by about that much: 0.0216 and 0.0203 of the
+#: largest |logit| in the first two runs on an H100.  So the accuracy
+#: asserted is against an f32 forward of the same weights (f32 matmuls,
+#: plain attention, f32 caches): the TP forward's largest error no more than
+#: PHASE12_ERROR_RATIO times the single-device forward's.
+PHASE12_LOGIT_RTOL = 0.02
+PHASE12_TOP1_MIN = 0.95
+PHASE12_ERROR_RATIO = 1.5
+#: Phase 12 (d): each rank's time limit (seconds), the rows of each of the
+#: 4 shards (77 buckets of 4,096: the 4-shard capacity of phase 3's store)
+#: and the queries.
+PHASE12_RANK_TIMEOUT = 300
+PHASE12_SHARD_ROWS = 77 * 4096
+PHASE12_RANK_QUERIES = 8
+
+
+def phase12_index(cfg, queries: list[str], bench_queries: list[str], card: str, total: dict[str, int]) -> dict:
+    """Phase 12 (a): phase 3's store served with ``num_devices=4`` (4 row
+    shards on the one card): every vector_search on the sharded int4 route
+    with 4 int4 launches, recall@10 against the single-device exact route,
+    the sharded exact route at B = 64 equal to the single-device one, one
+    shard's int4 scan bit-exact against its plain version and timed at its
+    shape; p50s beside ``num_devices=1``."""
+    import dataclasses
+    import types
+
+    import torch
+
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.search import corrected_num_hits, vector_search
+
+    cfg4 = dataclasses.replace(cfg, num_devices=PHASE12_SHARDS)
+    index1 = dense_index_from_config(cfg)
+    t0 = time.perf_counter()
+    index4 = dense_index_from_config(cfg4)
+    index4._refresh_device()
+    index4._ensure_packed4()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    c = index4.shard_rows
+    assert index4.num_devices == PHASE12_SHARDS and len(index4._rows) == PHASE12_SHARDS
+    assert index4.num_rows == index1.num_rows and c % fs.INT4_NUM_BUCKETS == 0, (c, index4.capacity)
+    assert all(r.shape[0] == c and r.device.type == "cuda" for r in index4._rows)
+    log(f"phase 12 (a) the phase-3 store ({index4.num_rows} rows x {index4.dim}) as {PHASE12_SHARDS} row shards of {c} "
+        f"rows (capacity {index4.capacity}) on {index4.devices}: synced, uploaded and packed in {build_s:.1f} s, on {card}")
+
+    latencies: dict[int, list[float]] = {1: [], PHASE12_SHARDS: []}
+    per_search: list[int] = []
+    for query in queries:
+        for n, conf, index in ((1, cfg, index1), (PHASE12_SHARDS, cfg4, index4)):
+            launches: dict[str, int] = {}
+            t0 = time.perf_counter()
+            ids, scores = _counted(launches, lambda: vector_search(query, num_results=10, config=conf))
+            latencies[n].append((time.perf_counter() - t0) * 1e3)
+            assert index.last_route == "int4_two_stage" and len(ids) == 10, (n, index.last_route, ids)
+            if n == PHASE12_SHARDS:
+                per_search.append(launches.get("int4_bucket_scan", 0))
+                for name, count in launches.items():
+                    total[name] = total.get(name, 0) + count
+    assert per_search == [PHASE12_SHARDS] * len(queries), per_search
+    p50 = {n: statistics.median(v) for n, v in latencies.items()}
+
+    # Recall@10 against the single-device exact route.
+    emb = embed_queries(queries, config=cfg)
+    hits = min(corrected_num_hits(4, 10, cfg), index1.num_rows)
+    recalls, tie_recalls = [], []
+    for b in range(len(queries)):
+        routed = index4.search_chunks_device(emb[b : b + 1], num_hits=hits, num_results=10)[1][0].tolist()
+        scores, ordinals = index1.search_chunks_device(emb[b : b + 1], num_hits=hits, num_results=hits, exact=True)
+        exact_score = dict(zip(ordinals[0].tolist(), scores[0].tolist()))
+        exact = set(ordinals[0, :10].tolist())
+        tenth = float(scores[0, 9])
+        recalls.append(len(set(routed) & exact) / len(exact))
+        tie_recalls.append(sum(ch in exact or exact_score.get(ch, -math.inf) >= tenth - PHASE12_TIE_ATOL for ch in routed) / 10)
+    recall, tie_recall = statistics.mean(recalls), statistics.mean(tie_recalls)
+    assert tie_recall >= RECALL_MIN, (recall, tie_recall)
+
+    # The sharded exact route at B = 64 against the single-device one.
+    emb64 = embed_queries(bench_queries[:64], config=cfg)
+    assert emb64.shape[0] == 64, emb64.shape
+    launches64: dict[str, int] = {}
+    s4, o4 = _counted(launches64, lambda: index4.search_chunks_device(emb64, num_hits=hits, num_results=10, exact=True))
+    assert index4.last_route == "dense" and launches64.get("int4_bucket_scan", 0) == 0, launches64
+    s1, o1 = index1.search_chunks_device(emb64, num_hits=hits, num_results=10, exact=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o4, o1), int((o4 != o1).sum())
+    exact_equal_scores = bool(torch.equal(s4, s1))
+    exact_ms = {
+        PHASE12_SHARDS: _p50_ms(lambda _: index4.search_chunks_device(emb64, num_hits=hits, num_results=10, exact=True), range(5)),
+        1: _p50_ms(lambda _: index1.search_chunks_device(emb64, num_hits=hits, num_results=10, exact=True), range(5)),
+    }
+    log(f"phase 12 (a) on {card}: vector_search p50 {p50[PHASE12_SHARDS]:.3f} ms with {PHASE12_SHARDS} shards "
+        f"(int4 launches per search {per_search[0]}, asserted), {p50[1]:.3f} ms with num_devices=1, over "
+        f"{len(queries)} queries (embed included); recall@10 against the single-device exact route {recall:.4f} by ids, "
+        f"{tie_recall:.4f} counting chunks within {PHASE12_TIE_ATOL:.3g} of the exact 10th as hits; the sharded exact "
+        f"route at B = 64: ids equal to the single-device exact route (scores bit-equal: {exact_equal_scores}), "
+        f"{exact_ms[PHASE12_SHARDS]:.3f} ms against {exact_ms[1]:.3f} ms a batch")
+
+    # Shard 0's int4 scan: bit-exact against its plain version, timed at the
+    # shard's shape (phase 5's timing on a view of the shard's arrays).
+    shard = types.SimpleNamespace(
+        capacity=c, _valid=index4._valid[:1], _packed4=index4._packed4[:1], _scale4=index4._scale4[:1],
+    )
+    timings = time_kernels(shard, None, emb, card, batches=(1,))
+    return {
+        "shards": PHASE12_SHARDS, "shard_rows": c, "build_s": build_s,
+        "vector_search_p50_ms": p50[PHASE12_SHARDS], "vector_search_p50_ms_one_device": p50[1],
+        "recall_at_10": recall, "recall_at_10_ties": tie_recall,
+        "exact_b64_ms": exact_ms[PHASE12_SHARDS], "exact_b64_ms_one_device": exact_ms[1],
+        "timings": timings,
+    }
+
+
+def phase12_bm25(cfg, seed: int, card: str) -> dict:
+    """Phase 12 (b): the keyword index's postings in 4 chunk-range shards on
+    the card; 256 tail-term queries equal to resident single-device BM25,
+    ids and scores bit for bit."""
+    import torch
+
+    from raglite_tpu_torch.index.keyword import keyword_index_from_config
+    from raglite_tpu_torch.parallel.mesh import index_devices
+
+    kw = keyword_index_from_config(cfg)
+    devices = index_devices(PHASE12_SHARDS, "cuda")
+    tail = tail_queries(256, seed)
+    single = kw.search_batch(tail, num_hits=20)
+    assert kw.last_route == "resident", kw.last_route
+    t0 = time.perf_counter()
+    sharded = kw.sharded_search_batch(tail, num_hits=20, devices=devices)
+    first_s = time.perf_counter() - t0
+    assert sharded is not None
+    mismatches = sum(s != one for s, one in zip(sharded, single, strict=True))
+    assert mismatches == 0, mismatches
+    per_shard = kw._res["sharded"]["postings_per_shard"]
+    single_ms = _p50_ms(lambda _: kw.search_batch(tail, num_hits=20), range(5))
+    sharded_ms = _p50_ms(lambda _: kw.sharded_search_batch(tail, num_hits=20, devices=devices), range(5))
+    hits = sum(len(ids) for ids, _ in single)
+    log(f"phase 12 (b) BM25 over {PHASE12_SHARDS} chunk-range shards on {card} (C = {kw._res['sharded']['C']} chunks "
+        f"each, postings per shard {per_shard}; built and first batch in {first_s:.3f} s): 256 tail-term queries equal "
+        f"to resident single-device BM25, ids and scores bit for bit ({hits} hits); a batch of 256 {sharded_ms:.3f} ms "
+        f"against {single_ms:.3f} ms on one device")
+    torch.cuda.synchronize()
+    return {"bm25_batch256_ms": sharded_ms, "bm25_batch256_ms_one_device": single_ms, "bm25_postings_per_shard": per_shard}
+
+
+def phase12_tp(cfg, question: str, seed: int, card: str, total: dict[str, int], messages=None) -> dict:
+    """Phase 12 (c): the `large` decoder (phase 6's object from the LLM
+    factory, or one seeded draw) split tensor-parallel over 4 shards on the
+    one card, in place: the factory then serves the TP model.  A copy of the
+    single-device object keeps the weights it had (the TP shards are fresh
+    copies or views of them).  A 2,048-token forward against the
+    single-device one, each attention kernel against its plain version at
+    the shard's KVH 1, REP 5 (phase 7's cases), a rag() answer and a sampled
+    stream through the TP model with every attention launch counted, and
+    time to first token and tokens/s beside the single-device model."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from raglite_tpu_torch import add_context, rag
+    from raglite_tpu_torch.models.decoder import DECODE_CHUNK, _bucket
+    from raglite_tpu_torch.models.llm import llm_from_config
+    from raglite_tpu_torch.parallel.tp_decoder import TPDecoderModel, shard_chat_llm, tp_devices
+    from raglite_tpu_torch.rag import _clip
+
+    rag_cfg = dataclasses.replace(cfg, llm="jax:large")
+    llm = llm_from_config(rag_cfg)
+    layers = llm.cfg["layers"]
+    single = copy.copy(llm)
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    shard_chat_llm(llm, tp_devices(PHASE12_TP, "cuda"))
+    torch.cuda.synchronize()
+    shard_s = time.perf_counter() - t0
+    added = torch.cuda.memory_allocated() - before
+    assert isinstance(llm_from_config(rag_cfg).model, TPDecoderModel) and llm.model.tp == PHASE12_TP
+    shard0 = llm.params["layers"][0]["shards"][0]
+    kvh, rep = llm.cfg["kv_heads"] // PHASE12_TP, llm.cfg["heads"] // llm.cfg["kv_heads"]
+    log(f"phase 12 (c) `large` split over {PHASE12_TP} tensor-parallel shards on {llm.model.devices} in {shard_s:.2f} s "
+        f"(+{added / 1e9:.3f} GB: column shards copied, row shards views): per shard wq {tuple(shard0['wq'].shape)}, "
+        f"w_gate {tuple(shard0['w_gate'].shape)}, w_down {tuple(shard0['w_down'].shape)}, lm_head "
+        f"{tuple(llm.params['lm_head'][0].shape)}, KV groups {kvh} (REP {rep}), on {card}")
+
+    # A 2,048-token forward, TP against single-device.
+    texts = _markdown_texts()
+    ids = torch.tensor([llm.tokenizer.encode("\n\n".join(texts))[:2048]], device="cuda")
+    assert ids.shape[1] == 2048, ids.shape
+    launches: dict[str, int] = {}
+    tp_logits = _counted(launches, lambda: _forward_logits(llm, ids))
+    assert launches["gqa_prefill_attention"] == layers * PHASE12_TP, launches
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+    one_logits = _forward_logits(single, ids)
+    diff = float((tp_logits - one_logits).abs().max())
+    rel = diff / float(one_logits.abs().max())
+    agree = float((tp_logits.argmax(dim=-1) == one_logits.argmax(dim=-1)).float().mean())
+    ref = _f32_logits(single, ids)
+    scale = float(ref.abs().max())
+    err_tp = float((tp_logits - ref).abs().max()) / scale
+    err_one = float((one_logits - ref).abs().max()) / scale
+    del tp_logits, one_logits, ref
+    torch.cuda.empty_cache()
+    log(f"phase 12 (c) a 2,048-token forward through {PHASE12_TP} TP shards (prefill kernel launches {launches}) "
+        f"against the single-device forward on {card}: max |logit difference| {diff:.4f} = {rel:.4f} of the largest "
+        f"|logit| (the JAX test's bound {PHASE12_LOGIT_RTOL}: {'met' if rel <= PHASE12_LOGIT_RTOL else 'missed'}), top-1 "
+        f"equal at {agree:.4f} of 2,048 positions (bound {PHASE12_TOP1_MIN}); against an f32 forward of the same weights "
+        f"the largest error is {err_tp:.4f} of its largest |logit| with TP, {err_one:.4f} on one device (TP's bounded by "
+        f"{PHASE12_ERROR_RATIO} x one device's)")
+    assert agree >= PHASE12_TOP1_MIN and err_tp <= PHASE12_ERROR_RATIO * err_one, (rel, agree, err_tp, err_one)
+
+    # A rag() answer through the TP model (the factory's object), to phase
+    # 6's message (alone, --only phase12: the same message made again).
+    if messages is None:
+        messages = [add_context(question, rag_spans(question, rag_cfg), rag_cfg)]
+    messages = [dict(m) for m in messages]
+    prompt = llm._format_messages(_clip(messages, llm.context_size), None)
+    prompt_tokens = min(len(llm.tokenizer.encode(prompt)), llm.context_size - 129) + 1
+    assert prompt_tokens > 1000, prompt_tokens  # a RAG prompt, not an empty one
+    rag_s = _bucket(prompt_tokens) + _bucket(128) + DECODE_CHUNK
+    launches_rag: dict[str, int] = {}
+    pieces, first_ms, rag_ms = _counted(launches_rag, lambda: _timed_tokens(rag(messages, config=rag_cfg)))
+    stats = dict(llm.spec_stats)
+    assert pieces and stats["tokens"] > 0, stats
+    assert launches_rag["gqa_prefill_attention"] == layers * PHASE12_TP, launches_rag
+    assert launches_rag["gqa_verify_attention"] == layers * PHASE12_TP * stats["verify_iters"], (launches_rag, stats)
+    launches_sampled: dict[str, int] = {}
+    sampled = _counted(launches_sampled, lambda: "".join(llm.stream(messages[:1], max_tokens=DECODE_CHUNK, **llm.RECOMMENDED_SAMPLING)))
+    assert sampled and launches_sampled["gqa_decode_attention"] == layers * PHASE12_TP * DECODE_CHUNK, launches_sampled
+    for counts in (launches_rag, launches_sampled):
+        for name, count in counts.items():
+            total[name] = total.get(name, 0) + count
+    per_shard = {
+        "gqa_prefill_attention": launches_rag["gqa_prefill_attention"] // PHASE12_TP,
+        "gqa_verify_attention": launches_rag["gqa_verify_attention"] // PHASE12_TP,
+        "gqa_decode_attention": launches_sampled["gqa_decode_attention"] // PHASE12_TP,
+    }
+    assert all(v > 0 for v in per_shard.values()), per_shard
+    log(f"phase 12 (c) rag() through the TP model: {stats['tokens']} tokens in {rag_ms:.1f} ms (first piece after "
+        f"{first_ms:.1f} ms, {stats['verify_iters']} verify forwards), then a sampled stream of {DECODE_CHUNK} decode "
+        f"forwards; attention launches per shard {per_shard}, on {card}")
+
+    # Time to first token and tokens/s: TP against single-device, greedy
+    # speculative, the same prompt.
+    metrics = {}
+    for name, model in (("tp", llm), ("one_device", single)):
+        tokens, ttft, ms = _timed_tokens(model._generate_tokens(prompt, max_new_tokens=128))
+        metrics[name] = {"ttft_ms": ttft, "tokens_per_s": len(tokens) / max((ms - ttft) / 1e3, 1e-9), "tokens": tokens}
+    common = next(
+        (i for i, (a, b) in enumerate(zip(metrics["tp"]["tokens"], metrics["one_device"]["tokens"])) if a != b),
+        min(len(metrics["tp"]["tokens"]), len(metrics["one_device"]["tokens"])),
+    )
+    log(f"phase 12 (c) on {card}, prompt {prompt_tokens} tokens, greedy speculative, 128 new tokens at most: "
+        f"time to first token {metrics['tp']['ttft_ms']:.1f} ms with TP {PHASE12_TP} on one card, "
+        f"{metrics['one_device']['ttft_ms']:.1f} ms on one device; decode after it "
+        f"{metrics['tp']['tokens_per_s']:.2f} tokens/s with TP, {metrics['one_device']['tokens_per_s']:.2f} on one "
+        f"device; the two greedy answers share their first {common} tokens")
+
+    # Each attention kernel at the shard's KV groups, checked and timed at
+    # the shapes this phase launched: the answer's decode, verify and
+    # prefill, and the 2,048-token forward's prefill.
+    cases = [
+        ("gqa_decode_attention", 1, rag_s, [prompt_tokens]),
+        ("gqa_verify_attention", 8, rag_s, [prompt_tokens]),
+        ("gqa_prefill_attention", _bucket(prompt_tokens), rag_s, [0]),
+        ("gqa_prefill_attention", 2048, 2048, [0]),
+    ]
+    timings = time_attention(seed + 12, rag_s, prompt_tokens, _bucket(prompt_tokens), card, cases=cases, kvh=kvh, rep=rep)
+    del single, llm
+    _release_llms()
+    return {
+        "tp": PHASE12_TP, "shard_s": shard_s, "tp_added_gb": added / 1e9, "logits_rel_diff": rel, "top1_share": agree,
+        "f32_error_tp": err_tp, "f32_error_one_device": err_one,
+        "launches_per_shard": per_shard, "common_prefix": common,
+        **{f"{k}_{name}": v[k] for name, v in metrics.items() for k in ("ttft_ms", "tokens_per_s")},
+        "timings": timings,
+    }
+
+
+def phase12_shard_data(seed: int, shards: range):
+    """The rows of ``shards`` of phase 12 (d)'s global index (unit bf16 rows
+    drawn on the card, one generator per shard, so a rank draws only its
+    own) and its queries (unit f32 rows of their own generator): (rows per
+    shard, queries [Q, d])."""
+    import torch
+
+    def unit(n: int, stream: int):
+        g = torch.Generator(device="cuda").manual_seed(seed * 1000 + stream)
+        x = torch.randn((n, D), generator=g, device="cuda")
+        return x / x.norm(dim=1, keepdim=True)
+
+    return [unit(PHASE12_SHARD_ROWS, s).to(torch.bfloat16) for s in shards], unit(PHASE12_RANK_QUERIES, 999)
+
+
+def phase12_search(rows, queries, devices, group=None):
+    """Phase 12 (d)'s two searches over row shards ``rows``: the sharded
+    exact scan and the sharded int4 two-stage route, top 10."""
+    import torch
+
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.parallel.sharded import sharded_int4_two_stage, sharded_topk_search
+
+    zeros = [torch.zeros(r.shape[0], device=r.device) for r in rows]
+    valid = [torch.ones(r.shape[0], dtype=torch.bool, device=r.device) for r in rows]
+    exact = sharded_topk_search(rows, zeros, valid, queries, None, num_hits=10, metric="cosine", devices=devices, group=group)
+    packed = [fs.pack_rows_int4(r) for r in rows]
+    int4 = sharded_int4_two_stage(
+        [p for p, _ in packed], [s for _, s in packed], rows, None, zeros, valid, queries,
+        num_hits=10, candidates=fs.INT4_STAGE1_CANDIDATES, metric="cosine", devices=devices,
+        num_buckets=fs.INT4_NUM_BUCKETS, group=group,
+    )
+    return exact, int4
+
+
+def phase12_rank(rank: int, coordinator: str, out: str, seed: int) -> int:
+    """One rank of phase 12 (d) (run as ``chip_smoke.py --phase12-rank``):
+    its 2 of the 4 shards on cuda:0, both searches merged across the gloo
+    group, rank 0 saving the merged winners."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from raglite_tpu_torch.ops import fused_scan as fs
+    from raglite_tpu_torch.parallel.mesh import distributed_init, index_devices
+
+    distributed_init(coordinator, 2, rank, backend="gloo")
+    local = PHASE12_SHARDS // 2
+    rows, queries = phase12_shard_data(seed, range(rank * local, (rank + 1) * local))
+    devices = index_devices(local, "cuda")
+    fs.reset_launch_counts()
+    (es, ei), (s4, i4) = phase12_search(rows, queries, devices, group=dist.group.WORLD)
+    torch.cuda.synchronize()
+    log(f"phase 12 (d) rank {rank}: backend {dist.get_backend()}, world {dist.get_world_size()}, shards "
+        f"{list(range(rank * local, (rank + 1) * local))} on {devices}, int4 launches {fs.launch_counts['int4_bucket_scan']}")
+    if rank == 0:
+        np.savez(out, es=es.cpu().numpy(), ei=ei.cpu().numpy(), s4=s4.cpu().numpy(), i4=i4.cpu().numpy())
+    dist.destroy_process_group()
+    return 0
+
+
+def phase12_ranks(seed: int, card: str) -> dict:
+    """Phase 12 (d): two processes, each holding 2 of the 4 shards on
+    cuda:0, joined by a gloo group (NCCL refuses two ranks on one card, so
+    the winners cross through host memory), against the same 4 shards in
+    this process: ids equal, scores equal to f32 rounding.  Each rank has
+    its own time limit; a rank that fails fails the run."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.parallel.mesh import index_devices
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coordinator = f"127.0.0.1:{sock.getsockname()[1]}"
+    with tempfile.TemporaryDirectory(prefix="phase12_") as tmp:
+        out = str(Path(tmp) / "ranks.npz")
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--phase12-rank", str(rank), "--coordinator", coordinator,
+                 "--out", out, "--seed", str(seed)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=str(ROOT),
+            )
+            for rank in (0, 1)
+        ]
+        try:
+            for rank, proc in enumerate(procs):
+                text, _ = proc.communicate(timeout=PHASE12_RANK_TIMEOUT)
+                for line in text.splitlines():
+                    log(f"  [rank {rank}] {line}")
+                assert proc.returncode == 0, f"phase 12 (d) rank {rank} exited {proc.returncode}"
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        ranks_s = time.perf_counter() - t0
+        got = np.load(out)
+        rows, queries = phase12_shard_data(seed, range(PHASE12_SHARDS))
+        (es, ei), (s4, i4) = phase12_search(rows, queries, index_devices(PHASE12_SHARDS, "cuda"))
+        torch.cuda.synchronize()
+        for ids_key, scores_key, ids, scores in (("ei", "es", ei, es), ("i4", "s4", i4, s4)):
+            np.testing.assert_array_equal(got[ids_key], ids.cpu().numpy())
+            np.testing.assert_allclose(got[scores_key], scores.cpu().numpy(), rtol=2.0**-23, atol=0)
+        bit_equal = all(np.array_equal(got[k], v.cpu().numpy()) for k, v in (("es", es), ("s4", s4)))
+    # The exact route against one scan of the whole matrix.
+    from raglite_tpu_torch.index.dense import _dense_search
+
+    whole = torch.cat(rows)
+    n = whole.shape[0]
+    _, oracle = _dense_search(
+        whole, torch.zeros(n, device="cuda"), torch.ones(n, dtype=torch.bool, device="cuda"), queries,
+        num_hits=10, metric="cosine",
+    )
+    assert torch.equal(ei, oracle), int((ei != oracle).sum())
+    del whole
+    overlap = float(sum(len(set(a) & set(b)) for a, b in zip(i4.tolist(), ei.tolist())) / ei.numel())
+    log(f"phase 12 (d) two ranks (gloo, 2 of {PHASE12_SHARDS} shards of {PHASE12_SHARD_ROWS} x {D} each, on cuda:0) "
+        f"= this process's {PHASE12_SHARDS}-shard search on {card}: exact and int4 routes, ids equal, scores equal to "
+        f"f32 rounding (bit-equal: {bit_equal}), the exact route = one scan of the whole matrix, int4 top-10 overlap with it "
+        f"{overlap:.4f}; both ranks done in {ranks_s:.1f} s")
+    del rows
+    return {"ranks_s": ranks_s, "ranks_bit_equal": bit_equal, "ranks_int4_overlap": overlap}
+
+
+def _without_timings(summary: dict) -> dict:
+    """A phase summary without its per-kernel timing lists (printed apart)."""
+    return {k: _without_timings(v) if isinstance(v, dict) else v for k, v in summary.items() if k != "timings"}
+
+
+def phase12(cfg, texts: list[str], queries: list[str], seed: int, card: str, total: dict[str, int], messages=None) -> dict:
+    """Phase 12 (a)-(d) on the one card over the phase-3 store and phase
+    6's decoder (and its RAG message, where given); ``total`` gathers the
+    launches of (a)-(c) in this process."""
+    out = {"index": phase12_index(cfg, queries, pick_queries(texts, 64, seed + 12), card, total)}
+    out["bm25"] = phase12_bm25(cfg, seed, card)
+    out["tp"] = phase12_tp(cfg, queries[0], seed, card, total, messages)
+    out["ranks"] = phase12_ranks(seed, card)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3674,12 +4198,17 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11"],
+        "--only", choices=["prefill", "phase10", "phase11", "phase12"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
-        "with phase 6's message; 'phase11' builds every kernel and runs phase 11 alone at --rows rows",
+        "with phase 6's message; 'phase11' builds every kernel and runs phase 11 alone at --rows rows; 'phase12' builds "
+        "every kernel, serves phase 3's store at --rows rows and runs phase 12 over it",
     )
+    # One rank of phase 12 (d), started by phase 12 itself.
+    parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--coordinator", help=argparse.SUPPRESS)
+    parser.add_argument("--out", help=argparse.SUPPRESS)
     args = parser.parse_args()
 
     import torch
@@ -3691,6 +4220,8 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if args.phase12_rank is not None:
+        return phase12_rank(args.phase12_rank, args.coordinator, args.out, args.seed)
 
     from raglite_tpu_torch import Document, RAGLiteConfig, insert_documents
     from raglite_tpu_torch.index.dense import dense_index_from_config
@@ -3718,16 +4249,16 @@ def main() -> int:
     if args.only == "phase10":
         import dataclasses
 
-        from raglite_tpu_torch import add_context, retrieve_context
+        from raglite_tpu_torch import add_context
 
-        texts = [(ROOT / f).read_text(encoding="utf-8") for f in ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")]
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
         cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
         insert_documents([Document.from_text(t) for t in texts], config=cfg)
         store = store_from_config(cfg)
         add_background(store, args.rows - sum(m.shape[0] for m in store.embeddings.values()), args.seed)
         vs_q = pick_queries(texts, 8 + 4 + 32, args.seed)[:8]  # phase 3's 8 sentences
         rag_cfg = dataclasses.replace(cfg, llm="jax:large")
-        messages = [add_context(vs_q[0], retrieve_context(vs_q[0], config=rag_cfg), rag_cfg)]
+        messages = [add_context(vs_q[0], rag_spans(vs_q[0], rag_cfg), rag_cfg)]
         _release_llms()
         launches10: dict[str, int] = {}
         phase10_decoder(cfg, vs_q[0], messages, args.seed, card, launches10)
@@ -3736,8 +4267,21 @@ def main() -> int:
         log(f"phase 10 launches {launches10}; partial run (--only phase10): no result line")
         return 0
 
+    if args.only == "phase12":
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
+        cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
+        insert_documents([Document.from_text(t) for t in texts], config=cfg)
+        store = store_from_config(cfg)
+        add_background(store, args.rows - sum(m.shape[0] for m in store.embeddings.values()), args.seed)
+        vs_q = pick_queries(texts, 8 + 4 + 32, args.seed)[:8]  # phase 3's 8 sentences
+        launches12: dict[str, int] = {}
+        summary12 = phase12(cfg, texts, vs_q, args.seed, card, launches12)
+        log(f"phase 12 summary on {card}: {json.dumps(_without_timings(summary12))}; launches {launches12}")
+        log("partial run (--only phase12): no result line")
+        return 0
+
     if args.only == "phase11":
-        texts = [(ROOT / f).read_text(encoding="utf-8") for f in ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")]
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
         launches11: dict[str, int] = {}
         summary11 = phase11(texts, args.rows, args.seed, card, launches11)
         log(f"phase 11 summary on {card}: {json.dumps({**summary11, 'launches': launches11})}")
@@ -3750,7 +4294,7 @@ def main() -> int:
     errs.update(check_attention_kernels(args.seed))
 
     # 3. Serve, default config (int4 two-stage route).
-    texts = [(ROOT / f).read_text(encoding="utf-8") for f in ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")]
+    texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
     cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
     assert cfg.embedder == "flax:sem" and cfg.embedding_dtype == "bfloat16" and cfg.use_int4_stage1
     t0 = time.perf_counter()
@@ -3827,6 +4371,15 @@ def main() -> int:
     for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase9_launches.get(name, 0) > 0, (name, phase9_launches)
 
+    # 12. Multi-GPU on the one card, over the phase-3 store and phase 6's
+    # decoder (before phase 10 releases it and replaces the store): the
+    # sharded index, sharded BM25, tensor-parallel `large`, two ranks.
+    phase12_launches: dict[str, int] = {}
+    summary12 = phase12(cfg, texts, vs_q, args.seed, card, phase12_launches, answer["messages"])
+    log(f"phase 12 summary on {card}: {json.dumps(_without_timings(summary12))}; launches {phase12_launches}")
+    for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
+        assert phase12_launches.get(name, 0) > 0, (name, phase12_launches)
+
     # 10. Real checkpoints: a Qwen3-4B-shaped hf: checkpoint (bf16 and
     # @int8) answering over the phase-3 store, a bge-m3-shaped encoder at
     # d = 1,024 in a fresh store (phase-3's replaced), ckpt: where
@@ -3889,7 +4442,19 @@ def main() -> int:
             # And on phase 11's, in this process (the store's searches, the
             # web chat's, its chat answer, the trace).
             "launches_phase11": phase11_launches.get(name, 0),
+            # And on phase 12's, in this process (the sharded index's
+            # searches, the TP decoder's forward, answer and stream).
+            "launches_phase12": phase12_launches.get(name, 0),
         })
+        p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
+        if p12 is not None:
+            # Phase 12's shapes: the int4 scan at one shard's rows, attention
+            # at one TP shard's KV groups (KVH 1, REP 5).
+            kernels[-1]["phase12"] = {k: p12[k] for k in (
+                "batch", "T", "S", "KVH", "REP", "d", "N", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err",
+            ) if k in p12}
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], p12["max_abs_err"])
         p10 = next((x for x in decoder10["timings"] + encoder10["timings"] if x["name"] == name), None)
         if p10 is not None:
             # Phase 10's shapes: attention at Qwen3-4B's KVH 8, REP 4 (the
@@ -3898,7 +4463,9 @@ def main() -> int:
                 "batch", "T", "S", "KVH", "REP", "d", "N", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "max_abs_err",
             ) if k in p10}
-            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], p10["max_abs_err"])
+            kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], *(
+                x["max_abs_err"] for x in decoder10["timings"] + encoder10["timings"] if x["name"] == name
+            ))
         b8 = next((x for x in structured["timings"] if x["name"] == name), None)
         if b8 is not None:
             kernels[-1]["batch8"] = {

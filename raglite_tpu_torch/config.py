@@ -6,7 +6,7 @@ Entry points run on the card ("cuda", the default) unless the caller asks
 for the CPU; asking for "cuda" where CUDA is not available raises.  Field
 names keep the JAX package's, so configs map one to one: ``use_pallas``
 switches the single-stage CUDA scan kernel on, and ``num_devices`` counts
-GPUs (only 1 in this version; multi-GPU is ROADMAP queue 1 item 10).
+the dense index's row shards (parallel/mesh.py:index_devices places them).
 """
 
 from __future__ import annotations
@@ -140,8 +140,9 @@ class RAGLiteConfig:
     sentence_boundary_model: str = "heuristic"
 
     # --- Device ---------------------------------------------------------
-    #: Number of GPUs to shard the index over.  Only 1 is supported in this
-    #: version (multi-GPU is ROADMAP queue 1 item 10).
+    #: Row shards of the dense index (0 = one per card): shard s on card s,
+    #: round-robin over the cards there are when fewer exist (shards then
+    #: share a card, as on the CPU, where they all share the one device).
     num_devices: int = 1
     #: Allow the single-stage CUDA scan kernel (ops/fused_scan.py:
     #: bucketed_max_scan) on the dense query path, for B <= 32 on indexes
@@ -171,9 +172,6 @@ class RAGLiteConfig:
         if self.embedding_type not in ("auto", "late_chunking", "standard"):
             msg = f"unknown embedding type {self.embedding_type!r}"
             raise ValueError(msg)
-        if self.num_devices != 1:
-            msg = "num_devices != 1: multi-GPU indexes are ROADMAP queue 1 item 10"
-            raise NotImplementedError(msg)
 
     def torch_device(self) -> "torch.device":
         """The configured device, checked (see :func:`checked_device`)."""

@@ -26,7 +26,18 @@ TPU backend; the thresholds are the JAX package's, kept as semantics:
 
 PyTorch has no ``approx_max_k``, so the plain scan is always exact; every
 top-k puts the lower index first on ties, as ``jax.lax.top_k`` does.
-Multi-device sharding is not ported yet (ROADMAP queue 1 item 10).
+
+With ``num_devices > 1`` the device copies split into contiguous row shards,
+one per device of ``index_devices`` (parallel/mesh.py; shards may share a
+card), and the capacity rounds to ``INT4_NUM_BUCKETS`` x the shard count,
+so every shard holds whole int4 buckets.  Appends write into the shard that
+owns the rows, tombstones flip bits there.  One device is one shard: every
+index scans through parallel/sharded.py, the int4 route (with whole buckets
+per shard when there are several) through ``sharded_int4_two_stage`` and
+the exact scan through ``sharded_topk_search``; only the single-stage
+kernel stays single-device, as in the JAX package.  The row -> chunk map
+stays whole on the first device, where the merged winners' multi-vector
+group-max runs.
 """
 
 from __future__ import annotations
@@ -47,10 +58,11 @@ from raglite_tpu_torch.ops.fused_scan import (
     _topk_stable,
     full_f32_matmul,
     fused_scan_topk,
-    int4_two_stage_block,
     pack_rows_int4,
     quantize_rows_int8,
 )
+from raglite_tpu_torch.parallel.mesh import index_devices, split_rows
+from raglite_tpu_torch.parallel.sharded import sharded_int4_two_stage, sharded_topk_search
 from raglite_tpu_torch.types import DistanceMetric
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
@@ -125,47 +137,6 @@ def _group_max_topk(
     return final_scores, final_chunks
 
 
-def _dense_search_chunks_fused(
-    rows, row_sqnorm, valid, row_chunk, queries, row_scale=None, adapter=None,
-    *, num_hits: int, num_results: int, metric: str,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Small-batch path: adapter matmul + exact scan + group-max."""
-    if adapter is not None:
-        queries = queries @ adapter.T
-    scores, idx = _dense_search(
-        rows, row_sqnorm, valid, queries, row_scale, num_hits=num_hits, metric=metric
-    )
-    return _group_max_topk(scores, idx, row_chunk, num_results=num_results)
-
-
-def _int4_two_stage_chunks(
-    packed: torch.Tensor,  # [Np, d//2] int4-packed rows
-    scale4: torch.Tensor,  # [Np] f32
-    rows: torch.Tensor,  # [Np, d] full-precision rows for the rescore
-    row_scale: torch.Tensor | None,
-    row_sqnorm: torch.Tensor,
-    valid: torch.Tensor,
-    row_chunk: torch.Tensor,
-    queries: torch.Tensor,  # [B, d] f32
-    adapter: torch.Tensor | None = None,
-    *,
-    num_hits: int,
-    num_results: int,
-    candidates: int,
-    metric: str,
-    num_buckets: int = 1024,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two-stage path: int4 scan over the packed copy -> top-``candidates``
-    -> exact rescore against the full rows -> multi-vector group-max."""
-    if adapter is not None:
-        queries = queries @ adapter.T
-    sc, ridx = int4_two_stage_block(
-        packed, scale4, rows, row_scale, row_sqnorm, valid, queries,
-        num_hits=num_hits, candidates=candidates, metric=metric, num_buckets=num_buckets,
-    )
-    return _group_max_topk(sc, ridx, row_chunk, num_results=num_results)
-
-
 def fetch_scored(scores: torch.Tensor, ordinals: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     """(scores [B, k] f32, ordinals [B, k] int64) to the host in ONE
     device-to-host copy (f64 holds both exactly)."""
@@ -188,16 +159,17 @@ class DenseIndex:
         use_int4_stage1: bool = True,
         device: torch.device | str = "cuda",
     ) -> None:
-        if num_devices != 1:
-            msg = "multi-GPU indexes are ROADMAP queue 1 item 10"
-            raise NotImplementedError(msg)
         self.dim = dim
         self.metric: DistanceMetric = metric
         self._dtype = _DTYPES[dtype]
         self.use_pallas = use_pallas
         self.use_int4_stage1 = use_int4_stage1
         self.device = checked_device(device)
-        self.num_devices = 1
+        #: One device per row shard (0 = one per card); the first holds the
+        #: row -> chunk map and the merged results.
+        self.devices = index_devices(num_devices, self.device)
+        self.device = self.devices[0]
+        self.num_devices = len(self.devices)
         self.num_rows = 0
         self.capacity = 0
         # Host mirror (canonical).
@@ -205,14 +177,15 @@ class DenseIndex:
         self._host_valid = np.zeros((0,), dtype=np.bool_)
         self.row_chunk = np.zeros((0,), dtype=np.int64)
         self.chunk_ids: list[str] = []
-        # Device copies.
-        self._dev_rows: torch.Tensor | None = None
-        self._dev_sqnorm: torch.Tensor | None = None
-        self._dev_valid: torch.Tensor | None = None
-        self._dev_scale: torch.Tensor | None = None  # int8 dequant scales
-        self._dev_row_chunk: torch.Tensor | None = None
-        self._dev_packed4: torch.Tensor | None = None  # int4 stage-1 copy
-        self._dev_scale4: torch.Tensor | None = None
+        # Device copies, one tensor per row shard (lists of length
+        # num_devices).
+        self._rows: list[torch.Tensor] | None = None
+        self._sqnorm: list[torch.Tensor] | None = None
+        self._valid: list[torch.Tensor] | None = None
+        self._scale: list[torch.Tensor] | None = None  # int8 dequant scales
+        self._packed4: list[torch.Tensor] | None = None  # int4 stage-1 copy
+        self._scale4: list[torch.Tensor] | None = None
+        self._dev_row_chunk: torch.Tensor | None = None  # whole, on the first device
         self._dirty = True  # full upload required
         self._valid_dirty = False
         self._dev_rows_synced = 0
@@ -229,14 +202,20 @@ class DenseIndex:
         #: Serializes sync() against concurrent server threads.
         self._sync_lock = threading.Lock()
 
+    @property
+    def shard_rows(self) -> int:
+        """Rows per shard (capacity / num_devices)."""
+        return self.capacity // self.num_devices
+
     # --- Build / mutate (host mirror) ------------------------------------
 
     def _ensure_capacity(self, needed: int) -> None:
         if needed <= self.capacity:
             return
         self._dirty = True
-        # A multiple of the int4 bucket count, so no scan ever pads.
-        new_cap = _round_up(max(needed, 2 * max(self.capacity, 1)), INT4_NUM_BUCKETS)
+        # A multiple of the shard count x the int4 bucket count: the rows
+        # split evenly, every shard holds whole buckets, no scan ever pads.
+        new_cap = _round_up(max(needed, 2 * max(self.capacity, 1)), INT4_NUM_BUCKETS * self.num_devices)
         rows = np.zeros((new_cap, self.dim), dtype=np.float16)
         rows[: self.num_rows] = self._host_rows[: self.num_rows]
         valid = np.zeros((new_cap,), dtype=np.bool_)
@@ -319,7 +298,7 @@ class DenseIndex:
     # --- Device copies ----------------------------------------------------
 
     def _refresh_device(self) -> None:
-        if self._dev_rows is not None and not self._dirty:
+        if self._rows is not None and not self._dirty:
             if self._dev_rows_synced != self.num_rows:
                 self._append_to_device()
             if self._valid_dirty:
@@ -329,13 +308,17 @@ class DenseIndex:
 
     def _upload_valid(self) -> None:
         """Re-ship only the tombstone mask: deletes never re-upload rows."""
-        self._dev_valid = torch.from_numpy(self._host_valid.copy()).to(self.device)
+        c = self.shard_rows
+        self._valid = [
+            torch.from_numpy(self._host_valid[s * c : (s + 1) * c].copy()).to(dev)
+            for s, dev in enumerate(self.devices)
+        ]
         self._valid_dirty = False
 
-    def _device_rows(self, host_f16: np.ndarray):
-        """(rows in the storage dtype, int8 scales or None, sqnorm) on the
-        device for a block of host rows."""
-        x = torch.from_numpy(np.ascontiguousarray(host_f16)).to(self.device).to(torch.float32)
+    def _device_rows(self, host_f16: np.ndarray, device: torch.device):
+        """(rows in the storage dtype, int8 scales or None, sqnorm) on
+        ``device`` for a block of host rows."""
+        x = torch.from_numpy(np.ascontiguousarray(host_f16)).to(device).to(torch.float32)
         if self._dtype == torch.int8:
             rows, scale = quantize_rows_int8(x)
             deq = rows.to(torch.float32) * scale[:, None]
@@ -344,40 +327,55 @@ class DenseIndex:
 
     def _append_to_device(self) -> None:
         """Write only the rows appended since the last sync, in place into
-        the preallocated device arrays (the JAX package rebuilds them with
-        ``dynamic_update_slice``)."""
+        the preallocated device arrays of the shards that own them (the JAX
+        package rebuilds them with ``dynamic_update_slice``)."""
         start, end = self._dev_rows_synced, self.num_rows
-        rows, scale, sqnorm = self._device_rows(self._host_rows[start:end])
-        self._dev_rows[start:end] = rows
-        self._dev_sqnorm[start:end] = sqnorm
-        if scale is not None:
-            self._dev_scale[start:end] = scale
-        self._dev_valid[start:end] = torch.from_numpy(self._host_valid[start:end]).to(self.device)
+        c = self.shard_rows
+        for s, dev in enumerate(self.devices):
+            lo, hi = max(start, s * c), min(end, (s + 1) * c)
+            if lo >= hi:
+                continue
+            rows, scale, sqnorm = self._device_rows(self._host_rows[lo:hi], dev)
+            a, b = lo - s * c, hi - s * c
+            self._rows[s][a:b] = rows
+            self._sqnorm[s][a:b] = sqnorm
+            if scale is not None:
+                self._scale[s][a:b] = scale
+            self._valid[s][a:b] = torch.from_numpy(self._host_valid[lo:hi]).to(dev)
         self._dev_row_chunk[start:end] = torch.from_numpy(self.row_chunk[start:end]).to(self.device)
         self._dev_rows_synced = end
-        self._dev_packed4 = None  # the stage-1 copy is stale; rebuilt lazily
+        self._packed4 = None  # the stage-1 copy is stale; rebuilt lazily
 
     def _full_upload(self) -> None:
-        self._dev_rows, self._dev_scale, self._dev_sqnorm = self._device_rows(self._host_rows)
+        c = self.shard_rows
+        shards = [self._device_rows(self._host_rows[s * c : (s + 1) * c], dev) for s, dev in enumerate(self.devices)]
+        self._rows = [r for r, _, _ in shards]
+        self._scale = [sc for _, sc, _ in shards] if self._dtype == torch.int8 else None
+        self._sqnorm = [q for _, _, q in shards]
         row_chunk = np.full((self.capacity,), -1, dtype=np.int64)
         row_chunk[: len(self.row_chunk)] = self.row_chunk
         self._dev_row_chunk = torch.from_numpy(row_chunk).to(self.device)
         self._upload_valid()
         self._dirty = False
         self._dev_rows_synced = self.num_rows
-        self._dev_packed4 = None
+        self._packed4 = None
 
     def _ensure_packed4(self) -> None:
-        """Build the int4-packed stage-1 copy from the device rows (one
-        elementwise pass; +d/2 bytes per row of device memory)."""
-        if self._dev_packed4 is None:
-            packed, scale4 = pack_rows_int4(self._dev_rows, self._dev_scale)
+        """Build the int4-packed stage-1 copy of every shard from its device
+        rows (one elementwise pass; +d/2 bytes per row of device memory)."""
+        if self._packed4 is not None:
+            return
+        packed4, scale4 = [], []
+        for s in range(self.num_devices):
+            packed, sc4 = pack_rows_int4(self._rows[s], None if self._scale is None else self._scale[s])
             target = _round_up(packed.shape[0], INT4_NUM_BUCKETS)
-            if target != packed.shape[0]:
+            if target != packed.shape[0]:  # single-device from_device_arrays
                 pad = target - packed.shape[0]
                 packed = torch.cat([packed, packed.new_zeros((pad, packed.shape[1]))])
-                scale4 = torch.cat([scale4, scale4.new_ones(pad)])
-            self._dev_packed4, self._dev_scale4 = packed.contiguous(), scale4.contiguous()
+                sc4 = torch.cat([sc4, sc4.new_ones(pad)])
+            packed4.append(packed.contiguous())
+            scale4.append(sc4.contiguous())
+        self._packed4, self._scale4 = packed4, scale4
 
     # --- Search -----------------------------------------------------------
 
@@ -394,13 +392,14 @@ class DenseIndex:
             self._adapter = cached
         return cached[1]
 
-    def device_row_mask(self, row_mask: np.ndarray | None) -> torch.Tensor | None:
-        """Capacity-padded device copy of a row filter mask, cached by
-        content digest (up to 4 entries)."""
+    def device_row_mask(self, row_mask: np.ndarray | None) -> list[torch.Tensor] | None:
+        """Device copies of a row filter mask, padded to the capacity and
+        split like the rows (one per shard), cached by content digest (up to
+        4 entries)."""
         if row_mask is None:
             return None
         if isinstance(row_mask, torch.Tensor):
-            return row_mask.to(self.device)
+            return [m.to(dev) for m, dev in zip(row_mask.split(self.shard_rows), self.devices)]
         mask_np = np.asarray(row_mask, dtype=np.bool_)
         key = (hashlib.blake2b(mask_np.tobytes(), digest_size=16).digest(), len(mask_np), self.capacity)
         hit = self._row_mask_cache.get(key)
@@ -408,20 +407,24 @@ class DenseIndex:
             return hit
         padded = np.zeros((self.capacity,), dtype=np.bool_)
         padded[: len(mask_np)] = mask_np
-        dev = torch.from_numpy(padded).to(self.device)
+        c = self.shard_rows
+        dev = [torch.from_numpy(padded[s * c : (s + 1) * c]).to(d) for s, d in enumerate(self.devices)]
         if len(self._row_mask_cache) >= 4:
             self._row_mask_cache.pop(next(iter(self._row_mask_cache)))
         self._row_mask_cache[key] = dev
         return dev
 
-    def _valid_with(self, row_mask) -> torch.Tensor:
-        valid = self._dev_valid
-        if row_mask is not None:
-            valid = valid & self.device_row_mask(row_mask)
-        return valid
+    def _valid_shards(self, row_mask) -> list[torch.Tensor]:
+        """Each shard's valid mask, ANDed with the row filter."""
+        if row_mask is None:
+            return self._valid
+        return [v & m for v, m in zip(self._valid, self.device_row_mask(row_mask))]
 
-    def _queries(self, queries) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(queries, dtype=np.float32), device=self.device)
+    def _queries(self, queries, adapter=None) -> torch.Tensor:
+        """The queries on the first device, the adapter applied."""
+        queries_dev = torch.as_tensor(np.asarray(queries, dtype=np.float32), device=self.device)
+        adapter_dev = self._adapter_device(adapter)
+        return queries_dev if adapter_dev is None else queries_dev @ adapter_dev.T
 
     def search(
         self,
@@ -452,26 +455,24 @@ class DenseIndex:
     def _scan_device(
         self, queries, *, num_hits: int, row_mask, adapter, exact: bool | None = None
     ) -> tuple[torch.Tensor, torch.Tensor]:
-        """Scan returning device tensors (scores [B, K], row ids [B, K])."""
+        """Scan returning device tensors (scores [B, K], row ids [B, K]):
+        the single-stage kernel on one device, else each shard's exact scan
+        (the JAX package's sharded route ignores ``exact`` too)."""
         self._refresh_device()
-        queries_dev = self._queries(queries)
-        adapter_dev = self._adapter_device(adapter)
-        if adapter_dev is not None:
-            queries_dev = queries_dev @ adapter_dev.T
-        valid = self._valid_with(row_mask)
+        queries_dev = self._queries(queries, adapter)
         k = min(num_hits, self.capacity)
         if exact is None:
             exact = self.num_rows <= EXACT_TOPK_MAX_ROWS
-        if not exact and self._use_fused_kernel(queries.shape[0]):
+        if self.num_devices == 1 and not exact and self._use_fused_kernel(queries.shape[0]):
             self.last_route = "fused_scan"
             return fused_scan_topk(
-                self._dev_rows, self._dev_sqnorm, valid, queries_dev,
-                num_hits=k, metric=self.metric, row_scale=self._dev_scale,
+                self._rows[0], self._sqnorm[0], self._valid_shards(row_mask)[0], queries_dev,
+                num_hits=k, metric=self.metric, row_scale=None if self._scale is None else self._scale[0],
             )
         self.last_route = "dense"
-        return _dense_search(
-            self._dev_rows, self._dev_sqnorm, valid, queries_dev, self._dev_scale,
-            num_hits=k, metric=self.metric,
+        return sharded_topk_search(
+            self._rows, self._sqnorm, self._valid_shards(row_mask), queries_dev, self._scale,
+            num_hits=k, metric=self.metric, devices=self.devices,
         )
 
     def search_chunks(
@@ -523,29 +524,19 @@ class DenseIndex:
             self._ensure_packed4()
             self.last_route = "int4_two_stage"
             hits = min(num_hits, self.capacity)
-            return _int4_two_stage_chunks(
-                self._dev_packed4, self._dev_scale4, self._dev_rows, self._dev_scale,
-                self._dev_sqnorm, self._valid_with(row_mask), self._dev_row_chunk,
-                self._queries(queries), self._adapter_device(adapter),
-                num_hits=hits,
-                num_results=num_results,
-                # The rescore pool always covers the hits with headroom.
-                candidates=max(INT4_STAGE1_CANDIDATES, 2 * hits),
-                metric=self.metric,
-                num_buckets=INT4_NUM_BUCKETS,
+            # The rescore pool always covers the hits with headroom.
+            candidates = max(INT4_STAGE1_CANDIDATES, 2 * hits)
+            scores, idx = sharded_int4_two_stage(
+                self._packed4, self._scale4, self._rows, self._scale, self._sqnorm,
+                self._valid_shards(row_mask), self._queries(queries, adapter),
+                num_hits=hits, candidates=candidates, metric=self.metric,
+                devices=self.devices, num_buckets=INT4_NUM_BUCKETS,
             )
-        if batch <= 32 and not (not exact_resolved and self._use_fused_kernel(batch)):
-            self._refresh_device()
-            self.last_route = "dense"
-            return _dense_search_chunks_fused(
-                self._dev_rows, self._dev_sqnorm, self._valid_with(row_mask),
-                self._dev_row_chunk, self._queries(queries), self._dev_scale,
-                self._adapter_device(adapter),
-                num_hits=min(num_hits, self.capacity), num_results=num_results, metric=self.metric,
+        else:
+            scores, idx = self._scan_device(
+                queries, num_hits=num_hits, row_mask=row_mask, adapter=adapter, exact=exact
             )
-        scores, idx = self._scan_device(
-            queries, num_hits=num_hits, row_mask=row_mask, adapter=adapter, exact=exact
-        )
+        # The multi-vector group-max, after the merge, on the first device.
         return _group_max_topk(scores, idx, self._dev_row_chunk, num_results=num_results)
 
     @classmethod
@@ -556,30 +547,37 @@ class DenseIndex:
         *,
         row_scale: torch.Tensor | None = None,  # [N] f32 (int8 rows)
         metric: DistanceMetric = "cosine",
+        num_devices: int = 1,
     ) -> "DenseIndex":
         """Search-only index over device-resident arrays (no host mirror of
         the rows), for embeddings produced on the device that must not
-        round-trip through host memory.  The int4 stage's packed copy pads
-        to a multiple of INT4_NUM_BUCKETS (``_ensure_packed4``).  Mutation
-        and :meth:`save` need the host mirror and are unsupported here."""
+        round-trip through host memory.  With ``num_devices > 1`` the arrays
+        split into that many equal row shards (``index_devices`` of the rows'
+        device; a shard on that device is a view).  A single-device int4
+        stage's packed copy pads to a multiple of INT4_NUM_BUCKETS
+        (``_ensure_packed4``); a sharded one takes the int4 route only when
+        every shard holds whole buckets.  Mutation and :meth:`save` need the
+        host mirror and are unsupported here."""
         n, dim = rows.shape
-        index = cls(dim=dim, dtype=_DTYPE_NAMES[rows.dtype], metric=metric, device=rows.device)
+        index = cls(
+            dim=dim, dtype=_DTYPE_NAMES[rows.dtype], metric=metric, num_devices=num_devices, device=rows.device,
+        )
         index.num_rows = index.capacity = n
-        index._dev_rows = rows
-        index._dev_scale = row_scale
-        index._dev_valid = torch.ones((n,), dtype=torch.bool, device=rows.device)
-        index._dev_row_chunk = row_chunk.to(device=rows.device, dtype=torch.int64)
-        # The host mirror of the row -> chunk map: metadata filters build
-        # their row masks from it (an empty map would turn every filtered
-        # search into an empty one).
-        index.row_chunk = row_chunk.cpu().numpy().astype(np.int64)
         if metric == "l2":
             deq = rows.to(torch.float32)
             if row_scale is not None:
                 deq = deq * row_scale[:, None]
-            index._dev_sqnorm = (deq * deq).sum(dim=1)
+            sqnorm = (deq * deq).sum(dim=1)
         else:
-            index._dev_sqnorm = torch.zeros((n,), dtype=torch.float32, device=rows.device)
+            sqnorm = torch.zeros((n,), dtype=torch.float32, device=rows.device)
+        valid = torch.ones((n,), dtype=torch.bool, device=rows.device)
+        index._rows, index._sqnorm, index._valid = (split_rows(x, index.devices) for x in (rows, sqnorm, valid))
+        index._scale = None if row_scale is None else split_rows(row_scale, index.devices)
+        index._dev_row_chunk = row_chunk.to(device=index.device, dtype=torch.int64)
+        # The host mirror of the row -> chunk map: metadata filters build
+        # their row masks from it (an empty map would turn every filtered
+        # search into an empty one).
+        index.row_chunk = row_chunk.cpu().numpy().astype(np.int64)
         index._host_rows = None  # no host mirror
         index.chunk_ids = []
         index._dirty = False
@@ -618,9 +616,12 @@ class DenseIndex:
         )
 
     @classmethod
-    def load(cls, path: str, *, device: torch.device | str = "cuda") -> "DenseIndex":
+    def load(
+        cls, path: str, *, num_devices: int | None = None, device: torch.device | str = "cuda"
+    ) -> "DenseIndex":
         """Load an index written by :meth:`save` (or the JAX package's) onto
-        ``device``; the device copy is uploaded at the first search."""
+        ``device``, in ``num_devices`` row shards (default: the saved
+        count); the device copy is uploaded at the first search."""
         import json
         from pathlib import Path
 
@@ -630,7 +631,7 @@ class DenseIndex:
             dim=manifest["dim"],
             dtype=manifest["dtype"],
             metric=manifest["metric"],
-            num_devices=manifest["num_devices"],
+            num_devices=num_devices if num_devices is not None else manifest["num_devices"],
             device=device,
         )
         rows = np.load(root / "rows.npy")
@@ -647,7 +648,8 @@ class DenseIndex:
     def _use_int4_stage1(self, batch: int, exact: bool) -> bool:
         """Two-stage int4 routing: small batches on large indexes on CUDA
         (the kernel is the point: half the bytes of the int8 scan);
-        ``exact=True`` bypasses it."""
+        ``exact=True`` bypasses it.  A sharded index takes the sharded
+        variant (parallel/sharded.py)."""
         return (
             self.use_int4_stage1
             and not exact
@@ -655,6 +657,9 @@ class DenseIndex:
             and self.dim % 256 == 0
             and self.device.type == "cuda"
             and self.num_rows > EXACT_TOPK_MAX_ROWS
+            # Only a sharded index needs whole buckets per shard: a single
+            # device pads its packed copy.
+            and (self.num_devices == 1 or self.capacity % (INT4_NUM_BUCKETS * self.num_devices) == 0)
         )
 
     def _use_fused_kernel(self, batch: int) -> bool:

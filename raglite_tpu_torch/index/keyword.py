@@ -8,9 +8,9 @@ first-party C++ builder (native/postings.cpp) when it compiles, else in a
 pure-Python dict build with the same results; scoring runs on the
 configured device (ops/bm25.py).
 
-The postings sharded over several GPUs (the JAX package's
-``_ensure_sharded`` / ``sharded_search_batch``) are not ported yet (ROADMAP
-queue 1 item 10).
+``sharded_search_batch`` scores postings partitioned by chunk range over a
+device list (``_ensure_sharded``; parallel/sharded.py:sharded_bm25_topk);
+as in the JAX package, the search layer does not call it.
 """
 
 from __future__ import annotations
@@ -350,6 +350,8 @@ class KeywordIndex:
         w_dev = np.zeros(len(chunks) + res["slice_pad"], np.float32)
         w_dev[: len(chunks)] = w
         res["w"] = torch.as_tensor(w_dev, device=self.device)
+        res["host_w"] = w.astype(np.float32)
+        res.pop("sharded", None)  # per-shard weights re-derive lazily
 
     def _resident_term_ids(self, queries: list[str]) -> np.ndarray | None:
         """[B, T] int32 unique term ids per query (pad -1), or None when a
@@ -422,6 +424,118 @@ class KeywordIndex:
             torch.as_tensor(block, device=self.device),
             num_chunks=res["n_pad"], lcap=lcap_b, num_hits=num_hits, masked=masked,
         )
+
+    # --- Sharded postings (multi-GPU) ------------------------------------
+
+    def _ensure_sharded(self, devices: list[torch.device]) -> dict | None:
+        """Partition the resident postings by chunk ordinal range over
+        ``devices``: shard s owns chunks [s·C, (s+1)·C), C the padded corpus
+        over the shard count rounded up to 256, with a CSR of its own (local
+        ordinals, impact order kept within each term).  Every posting keeps
+        its GLOBAL Okapi weight (idf and avg_len are corpus statistics, and
+        truncation already happened over the whole corpus), so scoring each
+        shard and merging equals the single-device program exactly."""
+        res = self._ensure_resident()
+        if res is None:
+            return None
+        devices = list(devices)
+        cached = res.get("sharded")
+        if cached is not None and cached["devices"] == devices:
+            return cached
+        n_shards = len(devices)
+        chunks, w, df = res["host_chunks"], res["host_w"], res["df_host"]
+        vocab = len(df)
+        term_of = np.repeat(np.arange(vocab, dtype=np.int64), df)
+        c = _round_up(-(-res["n_pad"] // n_shards), 256)
+        shard_of = chunks // c
+        # A stable sort groups postings by (shard, term) and keeps the
+        # impact order within each group.
+        order = np.lexsort((term_of, shard_of))
+        sh_s, c_s, w_s = shard_of[order], chunks[order], w[order]
+        counts = np.zeros((n_shards, vocab), np.int64)
+        np.add.at(counts, (sh_s, term_of[order]), 1)
+        shard_tot = counts.sum(axis=1)
+        start = np.concatenate([[0], np.cumsum(shard_tot)])
+        slice_pad = res["slice_pad"]
+        offsets, post_chunk, post_w = [], [], []
+        for s, dev in enumerate(devices):
+            off = np.zeros(vocab + 1, np.int64)
+            np.cumsum(counts[s], out=off[1:])
+            seg = slice(int(start[s]), int(start[s + 1]))
+            pc = np.full(int(shard_tot[s]) + slice_pad, c, np.int32)  # pad = local sentinel C
+            pc[: int(shard_tot[s])] = c_s[seg] - s * c
+            pw = np.zeros(int(shard_tot[s]) + slice_pad, np.float32)
+            pw[: int(shard_tot[s])] = w_s[seg]
+            offsets.append(torch.as_tensor(off, device=dev))
+            post_chunk.append(torch.as_tensor(pc, device=dev))
+            post_w.append(torch.as_tensor(pw, device=dev))
+        sharded = {
+            "devices": devices,
+            "offsets": offsets,
+            "chunk": post_chunk,
+            "w": post_w,
+            "C": int(c),
+            "df_max": counts.max(axis=0),  # per term, the most postings a shard holds
+            "dummy_mask": [torch.zeros((1,), dtype=torch.bool, device=dev) for dev in devices],
+            "postings_per_shard": [int(x) for x in shard_tot],
+        }
+        res["sharded"] = sharded
+        return sharded
+
+    def sharded_search_batch(
+        self,
+        queries: list[str],
+        *,
+        num_hits: int,
+        devices: list[torch.device],
+        chunk_mask: np.ndarray | None = None,
+    ) -> list[tuple[list[str], list[float]]] | None:
+        """Batched BM25 over postings sharded across ``devices``
+        (parallel/sharded.py:sharded_bm25_topk); the output contract of
+        :meth:`search_batch`, or None where the resident path cannot serve
+        the batch."""
+        from raglite_tpu_torch.parallel.sharded import sharded_bm25_topk
+
+        n = len(self.chunk_ids)
+        if not queries:
+            return []
+        if n == 0:
+            return [([], []) for _ in queries]
+        sharded = self._ensure_sharded(devices)
+        if sharded is None:
+            return None
+        term_ids = self._resident_term_ids(queries)
+        if term_ids is None:
+            return None
+        c, devices = sharded["C"], sharded["devices"]
+        if chunk_mask is not None:
+            m = np.zeros(len(devices) * c, bool)
+            m[:n] = chunk_mask[:n]
+            mask = [torch.as_tensor(m[s * c : (s + 1) * c], device=dev) for s, dev in enumerate(devices)]
+            masked = True
+        else:
+            mask, masked = sharded["dummy_mask"], False
+        k = min(num_hits, n)
+        results: list[tuple[list[str], list[float]]] = []
+        for start in range(0, len(queries), RESIDENT_BLOCK):
+            block = term_ids[start : start + RESIDENT_BLOCK]
+            # The adaptive postings width of resident_block_device, over the
+            # shards' own (smaller) postings.
+            valid = block[block >= 0]
+            max_df = int(sharded["df_max"][valid].max()) if valid.size else 1
+            lcap_b = 128
+            while lcap_b < max_df:
+                lcap_b *= 2
+            scores_b, ordinals_b = fetch_scored(
+                *sharded_bm25_topk(
+                    sharded["offsets"], sharded["chunk"], sharded["w"], mask,
+                    torch.as_tensor(block, device=devices[0]),
+                    chunks_per_shard=c, lcap=lcap_b, num_hits=k, devices=devices,
+                    masked=masked,
+                )
+            )
+            results.extend(self._hits(s, o) for s, o in zip(scores_b, ordinals_b))
+        return results
 
     def _hits(self, scores: np.ndarray, ordinals: np.ndarray) -> tuple[list[str], list[float]]:
         n = len(self.chunk_ids)

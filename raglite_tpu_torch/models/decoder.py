@@ -150,6 +150,18 @@ def _linear(x: torch.Tensor, w) -> torch.Tensor:
     return x @ w
 
 
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` returned in f32, its products summed in f32 and rounded
+    once (a row-parallel shard's partial, which the tensor-parallel reduce
+    adds in f32 before the one rounding a single device makes): cuBLAS's
+    matmul with an f32 output for bf16/f16 CUDA tensors, the f32 matmul of
+    the same values otherwise."""
+    if x.is_cuda and x.dtype != torch.float32:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[1])
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
 #: Per-layer matrices, in the order they are drawn.
 _LAYER_MATRICES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 
@@ -485,93 +497,126 @@ class DecoderModel:
         T)``, the clamp of JAX's ``dynamic_update_slice``.  Attention takes
         the decode kernel at T = 1, the verify kernel at T <= 16 and the
         prefill kernel above; on CPU tensors each is its plain version."""
-        cfg = self.cfg
-        heads, kv_heads, hd = cfg["heads"], cfg["kv_heads"], self.head_dim
-        rep = heads // kv_heads
         b, t = ids.shape
         device = ids.device
-        s = cache["k"][0].shape[3]
+        s = self._cache_seq(cache)
         row_offsets = torch.as_tensor(cache_len, device=device).to(torch.int64)
         if row_offsets.ndim == 0:
             row_offsets = row_offsets.expand(b)
-        # The attention kernels read int32 positions: made once a forward, not
-        # once a layer.
-        attn_offsets = row_offsets.to(torch.int32).contiguous()
         steps = torch.arange(t, device=device)
-        positions = row_offsets[:, None] + steps[None, :]  # [B, T]
-        # KV write columns: the clamped start per row, then T consecutive slots.
-        write_cols = (torch.clamp(row_offsets, max=s - t)[:, None] + steps[None, :])
-        write_cols = write_cols[:, None, None, :].expand(b, kv_heads, hd, t)
         inv_freq_global, inv_freq_local = self._freqs(device)
+        pos = {
+            "positions": row_offsets[:, None] + steps[None, :],  # [B, T]
+            # KV write columns: the clamped start per row, then T
+            # consecutive slots.
+            "write_cols": torch.clamp(row_offsets, max=s - t)[:, None] + steps[None, :],  # [B, T]
+            # The attention kernels read int32 positions: made once a
+            # forward, not once a layer.
+            "offsets": row_offsets.to(torch.int32).contiguous(),
+        }
         x = params["tok_emb"][ids]
         if self.emb_scale != 1.0:
             x = x * torch.tensor(self.emb_scale, dtype=x.dtype)
         for li, layer in enumerate(params["layers"]):
             sliding = self.layer_sliding[li] and self.sliding_window
-            inv_freq = inv_freq_local if self.layer_sliding[li] else inv_freq_global
+            pos["inv_freq"] = inv_freq_local if self.layer_sliding[li] else inv_freq_global
+            pos["window"] = int(self.sliding_window if sliding else 0)
             h = _rms_norm(x, layer["attn_norm"], self.rms_eps)
-            if "wqkv" in layer:  # int8: one matmul for q, k and v
-                q, k, v = quant_linear_apply_fused(h, layer["wqkv"])
-            else:
-                q = h @ layer["wq"]
-                k = h @ layer["wk"]
-                v = h @ layer["wv"]
-            if "bq" in layer:
-                q = q + layer["bq"]
-                k = k + layer["bk"]
-                v = v + layer["bv"]
-            q = q.reshape(b, t, heads, hd).transpose(1, 2)
-            k = k.reshape(b, t, kv_heads, hd).transpose(1, 2)
-            v = v.reshape(b, t, kv_heads, hd).transpose(1, 2)
-            if "q_norm" in layer:
-                q = _rms_norm(q, layer["q_norm"], self.rms_eps)
-                k = _rms_norm(k, layer["k_norm"], self.rms_eps)
-            q = _rope(q, positions, inv_freq)
-            k = _rope(k, positions, inv_freq)
-            k_cache, v_cache = cache["k"][li], cache["v"][li]
-            k_cache.scatter_(3, write_cols, k.transpose(2, 3).to(k_cache.dtype))
-            v_cache.scatter_(3, write_cols, v.transpose(2, 3).to(v_cache.dtype))
-            qg = q.reshape(b, kv_heads, rep, t, hd).to(k_cache.dtype)
-            kw = dict(
-                scale=self.attn_scale,
-                softcap=float(self.attn_softcap or 0.0),
-                window=int(self.sliding_window if sliding else 0),
-            )
-            if t == 1:
-                ctx = gqa_decode_attention(qg[:, :, :, 0], k_cache, v_cache, attn_offsets, **kw)[:, :, :, None]
-            elif t <= _VERIFY_KERNEL_MAX_T:
-                ctx = gqa_verify_attention(qg, k_cache, v_cache, attn_offsets, **kw)
-            else:
-                ctx = gqa_prefill_attention(qg, k_cache, v_cache, attn_offsets, **kw)
-            ctx = ctx.reshape(b, heads, t, hd).transpose(1, 2).reshape(b, t, heads * hd).to(x.dtype)
-            attn_out = _linear(ctx, layer["wo"])
+            attn_out = self._attention(li, layer, h, cache, pos)
             if "post_attn_norm" in layer:
                 attn_out = _rms_norm(attn_out, layer["post_attn_norm"], self.rms_eps)
             x = x + attn_out
-            # Gated MLP, gate and up in f32: SwiGLU or GeGLU.
             h = _rms_norm(x, layer["mlp_norm"], self.rms_eps)
-            if "w_gate_up" in layer:  # int8: one matmul for gate and up
-                gate_pre, up = quant_linear_apply_fused(h, layer["w_gate_up"])
-                gate_pre, up = gate_pre.to(torch.float32), up.to(torch.float32)
-            else:
-                gate_pre = (h @ layer["w_gate"]).to(torch.float32)
-                up = (h @ layer["w_up"]).to(torch.float32)
-            gate = (
-                F.gelu(gate_pre, approximate="tanh")
-                if self.hidden_act == "gelu_pytorch_tanh"
-                else F.silu(gate_pre)
-            )
-            mlp_out = _linear((gate * up).to(x.dtype), layer["w_down"])
+            mlp_out = self._mlp(layer, h)
             if "post_mlp_norm" in layer:
                 mlp_out = _rms_norm(mlp_out, layer["post_mlp_norm"], self.rms_eps)
             x = x + mlp_out
         x = _rms_norm(x, params["final_norm"], self.rms_eps)
         if last_positions is not None:
             x = x[torch.arange(b, device=device), last_positions.to(device)]  # [B, d]
-        logits = _linear(x, params["lm_head"]).to(torch.float32)
+        logits = self._lm_head(params, x).to(torch.float32)
         if self.final_softcap:
             logits = self.final_softcap * torch.tanh(logits / self.final_softcap)
         return logits, cache
+
+    # The three sublayers a tensor-parallel model runs per shard
+    # (parallel/tp_decoder.py:TPDecoderModel overrides the first four).
+
+    def _cache_seq(self, cache: dict) -> int:
+        """The caches' sequence capacity S."""
+        return cache["k"][0].shape[3]
+
+    def _attention(self, li: int, layer: dict, h: torch.Tensor, cache: dict, pos: dict) -> torch.Tensor:
+        return self._attend(layer, h, cache["k"][li], cache["v"][li], pos, self.cfg["heads"], self.cfg["kv_heads"])
+
+    def _mlp(self, layer: dict, h: torch.Tensor) -> torch.Tensor:
+        return self._gated_mlp(layer, h)
+
+    def _lm_head(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        return _linear(x, params["lm_head"])
+
+    def _attend(
+        self, layer: dict, h: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: dict,
+        heads: int, kv_heads: int, *, partial: bool = False,
+    ) -> torch.Tensor:
+        """Self-attention of ``heads`` query heads over ``kv_heads`` KV
+        groups (all of them, or one tensor-parallel shard's): q/k/v
+        projections, biases, q/k norms, RoPE, the KV write at
+        ``pos["write_cols"]``, the attention kernel, the output
+        projection.  Returns [B, T, d]; with ``partial`` (a TP shard's
+        partial sum) in f32 (:func:`_matmul_f32`)."""
+        hd = self.head_dim
+        rep = heads // kv_heads
+        b, t, _ = h.shape
+        if "wqkv" in layer:  # int8: one matmul for q, k and v
+            q, k, v = quant_linear_apply_fused(h, layer["wqkv"])
+        else:
+            q = h @ layer["wq"]
+            k = h @ layer["wk"]
+            v = h @ layer["wv"]
+        if "bq" in layer:
+            q = q + layer["bq"]
+            k = k + layer["bk"]
+            v = v + layer["bv"]
+        q = q.reshape(b, t, heads, hd).transpose(1, 2)
+        k = k.reshape(b, t, kv_heads, hd).transpose(1, 2)
+        v = v.reshape(b, t, kv_heads, hd).transpose(1, 2)
+        if "q_norm" in layer:
+            q = _rms_norm(q, layer["q_norm"], self.rms_eps)
+            k = _rms_norm(k, layer["k_norm"], self.rms_eps)
+        q = _rope(q, pos["positions"], pos["inv_freq"])
+        k = _rope(k, pos["positions"], pos["inv_freq"])
+        write_cols = pos["write_cols"][:, None, None, :].expand(b, kv_heads, hd, t)
+        k_cache.scatter_(3, write_cols, k.transpose(2, 3).to(k_cache.dtype))
+        v_cache.scatter_(3, write_cols, v.transpose(2, 3).to(v_cache.dtype))
+        qg = q.reshape(b, kv_heads, rep, t, hd).to(k_cache.dtype)
+        kw = dict(scale=self.attn_scale, softcap=float(self.attn_softcap or 0.0), window=pos["window"])
+        offsets = pos["offsets"]
+        if t == 1:
+            ctx = gqa_decode_attention(qg[:, :, :, 0], k_cache, v_cache, offsets, **kw)[:, :, :, None]
+        elif t <= _VERIFY_KERNEL_MAX_T:
+            ctx = gqa_verify_attention(qg, k_cache, v_cache, offsets, **kw)
+        else:
+            ctx = gqa_prefill_attention(qg, k_cache, v_cache, offsets, **kw)
+        ctx = ctx.reshape(b, heads, t, hd).transpose(1, 2).reshape(b, t, heads * hd).to(h.dtype)
+        return _matmul_f32(ctx, layer["wo"]) if partial else _linear(ctx, layer["wo"])
+
+    def _gated_mlp(self, layer: dict, h: torch.Tensor, *, partial: bool = False) -> torch.Tensor:
+        """Gated MLP, gate and up in f32: SwiGLU or GeGLU.  Returns [B, T, d];
+        with ``partial`` (a TP shard's partial sum) in f32."""
+        if "w_gate_up" in layer:  # int8: one matmul for gate and up
+            gate_pre, up = quant_linear_apply_fused(h, layer["w_gate_up"])
+            gate_pre, up = gate_pre.to(torch.float32), up.to(torch.float32)
+        else:
+            gate_pre = (h @ layer["w_gate"]).to(torch.float32)
+            up = (h @ layer["w_up"]).to(torch.float32)
+        gate = (
+            F.gelu(gate_pre, approximate="tanh")
+            if self.hidden_act == "gelu_pytorch_tanh"
+            else F.silu(gate_pre)
+        )
+        act = (gate * up).to(h.dtype)
+        return _matmul_f32(act, layer["w_down"]) if partial else _linear(act, layer["w_down"])
 
 
 def _prefill_last(model: DecoderModel, params: Params, ids, cache, lens):
@@ -637,7 +682,7 @@ def _decode_chunk_device(  # noqa: PLR0913
 
 def _forward_one(model: DecoderModel, params, token: int, cache, cache_len: int) -> torch.Tensor:
     """One-token decode forward at ``cache_len``; returns the logits [V]."""
-    device = cache["k"][0].device
+    device = params["tok_emb"].device
     ids = torch.tensor([[token]], dtype=torch.int64, device=device)
     logits, _ = model.forward(params, ids, cache, cache_len)
     return logits[0, -1]

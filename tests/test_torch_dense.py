@@ -17,6 +17,7 @@ from raglite_tpu.ops import fused_scan as jfs
 from raglite_tpu.store import Store as JStore
 from raglite_tpu_torch.documents import Chunk as TChunk
 from raglite_tpu_torch.index import dense as td
+from raglite_tpu_torch.parallel.sharded import sharded_int4_two_stage
 from raglite_tpu_torch.store import Store as TStore
 
 RTOL = 1e-5
@@ -56,6 +57,9 @@ def test_group_max_topk_matches_jax(num_results: int) -> None:
 @pytest.mark.parametrize("metric", ["cosine", "l2"])
 @pytest.mark.parametrize("dtype", ["int8", "float32"])
 def test_int4_two_stage_chunks_matches_jax(metric: str, dtype: str) -> None:
+    """JAX's two-stage program against the port's route for it: the int4
+    scan and rescore of one shard (``sharded_int4_two_stage``), then the
+    group-max."""
     rng = np.random.default_rng(1)
     Np, d, L, B = 2048, 64, 256, 3
     rows = _unit(rng, Np, d)
@@ -79,12 +83,13 @@ def test_int4_two_stage_chunks_matches_jax(metric: str, dtype: str) -> None:
             jnp.asarray(adapter), interpret=True, **kw,
         )
     )
-    ts, tc = td._int4_two_stage_chunks(
-        torch.from_numpy(np.array(jp)), torch.from_numpy(np.array(j4)),
-        torch.from_numpy(rows_s), None if scale is None else torch.from_numpy(scale),
-        torch.from_numpy(sq), torch.from_numpy(valid), torch.from_numpy(row_chunk),
-        torch.from_numpy(q), torch.from_numpy(adapter), **kw,
+    one = lambda x: None if x is None else [torch.from_numpy(np.array(x))]  # noqa: E731
+    num_results = kw.pop("num_results")
+    sc, ridx = sharded_int4_two_stage(
+        one(jp), one(j4), one(rows_s), one(scale), one(sq), one(valid),
+        torch.from_numpy(q) @ torch.from_numpy(adapter).T, devices=[torch.device("cpu")], **kw,
     )
+    ts, tc = td._group_max_topk(sc, ridx, torch.from_numpy(row_chunk), num_results=num_results)
     np.testing.assert_allclose(ts.numpy(), jpacked[0], rtol=RTOL, atol=1e-6)
     np.testing.assert_array_equal(tc.numpy(), jpacked[1].astype(np.int64))
 

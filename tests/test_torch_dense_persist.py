@@ -109,7 +109,7 @@ def test_from_device_arrays_equals_jax(metric: str) -> None:
     jidx = jd.DenseIndex.from_device_arrays(jnp.asarray(rows, jnp.bfloat16), jnp.asarray(row_chunk), metric=metric)
     tidx = td.DenseIndex.from_device_arrays(torch.from_numpy(rows).to(torch.bfloat16), torch.from_numpy(row_chunk), metric=metric)
     np.testing.assert_array_equal(tidx.row_chunk, np.asarray(jidx.row_chunk))
-    np.testing.assert_allclose(tidx._dev_sqnorm.numpy(), np.asarray(jidx._dev_sqnorm), rtol=1e-6)
+    np.testing.assert_allclose(tidx._sqnorm[0].numpy(), np.asarray(jidx._dev_sqnorm), rtol=1e-6)
     kw = dict(num_hits=40, num_results=8)
     jsc, jord = jidx.search_chunks(q, **kw)
     tsc, tord = tidx.search_chunks(q, **kw)
@@ -128,7 +128,9 @@ def test_from_device_arrays_equals_jax(metric: str) -> None:
 
 def test_from_device_arrays_int8_and_packed_padding() -> None:
     """int8 rows with scales; the int4 stage's packed copy pads to a
-    multiple of INT4_NUM_BUCKETS as the JAX package's does."""
+    multiple of INT4_NUM_BUCKETS as the JAX package's does, and the int4
+    route (forced here; it opens on a card) scans it as the JAX package's
+    two-stage program does."""
     from raglite_tpu.ops import fused_scan as jfs
 
     rng = np.random.default_rng(4)
@@ -142,14 +144,24 @@ def test_from_device_arrays_int8_and_packed_padding() -> None:
     assert tidx._dtype == torch.int8 and tidx.capacity == n
     jidx._ensure_packed4()
     tidx._ensure_packed4()
-    assert tidx._dev_packed4.shape[0] == 2 * INT4_NUM_BUCKETS == np.asarray(jidx._dev_packed4).shape[0]
-    np.testing.assert_array_equal(tidx._dev_packed4.numpy(), np.asarray(jidx._dev_packed4))
-    np.testing.assert_array_equal(tidx._dev_scale4.numpy(), np.asarray(jidx._dev_scale4))
+    assert tidx._packed4[0].shape[0] == 2 * INT4_NUM_BUCKETS == np.asarray(jidx._dev_packed4).shape[0]
+    np.testing.assert_array_equal(tidx._packed4[0].numpy(), np.asarray(jidx._dev_packed4))
+    np.testing.assert_array_equal(tidx._scale4[0].numpy(), np.asarray(jidx._dev_scale4))
     q = rng.normal(size=(2, 256)).astype(np.float32)
     jsc, jord = jidx.search_chunks(q, num_hits=16, num_results=5)
     tsc, tord = tidx.search_chunks(q, num_hits=16, num_results=5)
     np.testing.assert_array_equal(tord, jord)
     np.testing.assert_array_equal(tsc, jsc)
+    tidx._use_int4_stage1 = lambda batch, exact: True
+    tsc, tord = tidx.search_chunks(q, num_hits=16, num_results=5)
+    assert tidx.last_route == "int4_two_stage"
+    jsc, jord = np.asarray(jd._int4_two_stage_chunks(
+        jidx._dev_packed4, jidx._dev_scale4, jidx._dev_rows, jidx._dev_scale, jidx._dev_sqnorm, jidx._dev_valid,
+        jidx._dev_row_chunk, jnp.asarray(q), num_hits=16, num_results=5, candidates=256, metric="cosine",
+        num_buckets=INT4_NUM_BUCKETS, interpret=True,
+    ))
+    np.testing.assert_array_equal(tord, jord.astype(np.int64))
+    np.testing.assert_allclose(tsc, jsc, rtol=1e-5)
 
 
 def test_device_built_index_has_no_mirror_to_save(tmp_path) -> None:

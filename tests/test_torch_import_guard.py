@@ -4,7 +4,8 @@ decoder LLM, speculation, the grammar automata, the hash table draw, the
 LLM factory, rag, the attention ops, extraction, evals, the query adapter
 and its NNLS op, the safetensors and checkpoint readers, the int8
 matmuls, the document converters, the boundary model, the tracer, the
-micro-batcher, the MCP server, the web chat and the CLI) loads neither JAX
+micro-batcher, the MCP server, the web chat, the CLI and the multi-GPU
+modules) loads neither JAX
 nor the JAX package nor click (nor markdown-it,
 tokenizers, safetensors, transformers, orbax, tensorstore, msgpack or
 filelock on the in-memory path, a tokenizer.json read included, nor pandas,
@@ -47,6 +48,8 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.utils.trace, raglite_tpu_torch.utils.microbatch
         import raglite_tpu_torch.mcp, raglite_tpu_torch.webchat, raglite_tpu_torch.cli
         import raglite_tpu_torch.__main__
+        import raglite_tpu_torch.parallel.mesh, raglite_tpu_torch.parallel.sharded
+        import raglite_tpu_torch.parallel.tp_decoder
         assert "pydantic" not in sys.modules
         assert "click" not in sys.modules
         bad = [
@@ -114,10 +117,40 @@ def test_boundary_model_on_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyP
 
 
 def test_multi_gpu_is_not_ported_yet() -> None:
+    """Multi-GPU indexes are ported: ``num_devices`` no longer raises, and
+    asking for the card's shards where there is no card still does."""
     from raglite_tpu_torch import RAGLiteConfig
+    from raglite_tpu_torch.index.dense import DenseIndex
 
-    with pytest.raises(NotImplementedError):
-        RAGLiteConfig(num_devices=2)
+    assert RAGLiteConfig(num_devices=2).num_devices == 2
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DenseIndex(dim=64, num_devices=2)
+
+
+def test_config_num_devices_builds_a_sharded_index(tmp_path) -> None:
+    """``RAGLiteConfig(num_devices=4, device="cpu")`` serves its store from
+    a 4-shard index, and ``DenseIndex.load`` of that index's save (4 shards
+    again, or 1) answers as it does."""
+    import numpy as np
+
+    from raglite_tpu_torch import Document, RAGLiteConfig, insert_documents, vector_search
+    from raglite_tpu_torch.index.dense import DenseIndex, dense_index_from_config
+
+    config = RAGLiteConfig(store_path=str(tmp_path / "kb"), embedder="hash:64", num_devices=4, device="cpu")
+    insert_documents([Document.from_text("Katydids sing at night. They are relatives of crickets.")], config=config)
+    ids, _ = vector_search("which insects sing at night?", num_results=2, config=config)
+    index = dense_index_from_config(config)
+    assert ids and index.num_devices == 4 and len(index._rows) == 4
+    assert {r.shape[0] for r in index._rows} == {index.capacity // 4}
+    q = np.random.default_rng(0).normal(size=(2, 64)).astype(np.float32)
+    want = index.search_chunks(q, num_hits=8, num_results=3)
+    index.save(str(tmp_path / "idx"))
+    for num_devices in (None, 1):
+        loaded = DenseIndex.load(str(tmp_path / "idx"), num_devices=num_devices, device="cpu")
+        assert loaded.num_devices == (num_devices or 4)
+        got = loaded.search_chunks(q, num_hits=8, num_results=3)
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6)
 
 
 def test_kernel_sources_build_for_sm90a() -> None:

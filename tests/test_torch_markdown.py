@@ -24,7 +24,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 import chip_smoke  # noqa: E402
 
-TEXTS = ("README.md", "SURVEY.md", "MIGRATION.md", "PARITY.md")
+TEXTS = chip_smoke.STORE_DOCS
 
 
 @pytest.fixture(scope="module")
