@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
-query-adapter, checkpoint, ingestion-to-surface and multi-GPU paths once on
-one NVIDIA GPU.
+query-adapter, checkpoint, ingestion-to-surface, multi-GPU and IR-benchmark
+paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -197,11 +197,31 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    this process's 4-shard search (ids equal, scores to f32 rounding); the
    exact route equal to one scan of the whole matrix; each rank has its own
    time limit.
+13. The IR benchmark (after phase 11; a temporary directory of its own):
+   (a) run_ir_benchmark on the synthetic dataset (64 documents and
+   queries), all seven variants one by one, on the default config on the
+   card and again on the CPU (fresh run caches): keyword's AP@10 equal,
+   every other within PHASE13_AP_ATOL, the hnsw row present; each
+   variant's AP@10 and seconds; (b) a BERT-shaped BF16 encoder at
+   BAAI/bge-base-en-v1.5's published widths (seeded weights) with a
+   hand-made WordPiece tokenizer.json from the frozen Markdown, serving
+   RAGLiteTPUEvaluators (multivector, rerank, hybrid: one store) over a
+   BEIR directory of the synthetic dataset, the store seeded with
+   background rows up to ``--rows`` before their runs: one int4 launch a
+   dense query (asserted), the multivector document runs' recall@10 against
+   the exact route >= RECALL_MIN, a search's p50, AP@10, insert and seeding
+   seconds, the encoder's tokens/s; (c) hnsw_recall_comparison at 3,000 x
+   256 (the scan on the card): recall and memory of the f16 and int8 scans
+   and of HNSW, its build seconds and ms a query, the claim asserted; (d)
+   ``bench --num-queries 16`` and ``bench --hnsw-recall --num-rows 1000``
+   through the CLI in fresh processes, started as (c) starts and run
+   beside it.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
 at ``--rows``; ``--only phase12`` runs phase 3's store at ``--rows`` and
-phase 12 over it (none of them prints a result line).
+phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``
+(none of them prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -209,6 +229,7 @@ last line is {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -2049,12 +2070,96 @@ def qwen_tokenizer_json(texts: list[str], merges: int = PHASE10_MERGES) -> dict:
     }
 
 
+def precompiled_charsmap(mapping: dict[str, str]) -> bytes:
+    """A SentencePiece ``precompiled_charsmap`` made by hand (what the
+    ``Precompiled`` normalizer of an XLM-R tokenizer.json holds, base64):
+    the byte size of the trie as a little-endian u32, the trie as a
+    darts-clone double array of u32 units over the keys' UTF-8 bytes, then
+    the replacements, each ending in a NUL.  A unit holds its label in bits
+    0-7 (bit 31 set on a leaf, whose low 31 bits are the replacement's
+    offset), a has-leaf flag in bit 8 and its offset to its children in bits
+    10-30; a child of the node at ``p`` with label ``c`` sits at ``p ^
+    offset ^ c``, its leaf at ``p ^ offset``."""
+    import struct
+
+    blob, value_of = bytearray(), {}
+    for value in sorted(set(mapping.values())):
+        value_of[value] = len(blob)
+        blob += value.encode("utf-8") + b"\0"
+    trie: dict = {}
+    for key, value in mapping.items():
+        if not key:
+            msg = "an empty key"
+            raise ValueError(msg)
+        node = trie
+        for b in key.encode("utf-8"):
+            node = node.setdefault(b, {})
+        node[-1] = value_of[value]
+    units, used, bases = [0] * 256, bytearray(256), set()
+    used[0] = 1
+    free = 1  # no slot below this is free
+    stack = [(trie, 0)]
+    while stack:
+        node, pos = stack.pop()
+        labels = sorted(k for k in node if k != -1)
+        slots = ([0] if -1 in node else []) + labels
+        while used[free]:
+            free += 1
+        q = free
+        while True:  # the first base whose slots are all free
+            base = q ^ slots[0]
+            if base not in bases and base > 0 and all(base ^ c >= len(used) or not used[base ^ c] for c in slots):
+                break
+            q += 1
+            while q < len(used) and used[q]:
+                q += 1
+        bases.add(base)
+        end = (base | 0xFF) + 1
+        if end > len(units):
+            units.extend([0] * (end - len(units)))
+            used.extend(bytes(end - len(used)))
+        offset = pos ^ base
+        if offset >= 1 << 21:
+            msg = "charsmap too large for offsets without the extension bit"
+            raise ValueError(msg)
+        units[pos] |= offset << 10
+        if -1 in node:
+            units[pos] |= 1 << 8
+            units[base] = node[-1] | (1 << 31)
+            used[base] = 1
+        for c in labels:
+            units[base ^ c] = c
+            used[base ^ c] = 1
+            stack.append((node[c], base ^ c))
+    return struct.pack(f"<I{len(units)}I", 4 * len(units), *units) + bytes(blob)
+
+
+def nfkc_charsmap(texts: list[str]) -> bytes:
+    """An NFKC-style charsmap over the characters of ``texts``: each
+    character NFKC changes to its NFKC form, each whitespace character other
+    than the space to a space, and each base letter + combining mark pair
+    of the texts to its NFC composition (multi-character keys)."""
+    import unicodedata
+
+    chars = {c for text in texts for c in text}
+    mapping = {c: unicodedata.normalize("NFKC", c) for c in chars if unicodedata.normalize("NFKC", c) != c}
+    mapping.update({c: " " for c in chars if c.isspace() and c not in " \n"})
+    for text in texts:
+        decomposed = unicodedata.normalize("NFD", text)
+        for a, b in zip(decomposed, decomposed[1:]):
+            if unicodedata.combining(b) and not unicodedata.combining(a):
+                mapping[a + b] = unicodedata.normalize("NFKC", a + b)
+    return precompiled_charsmap(mapping)
+
+
 def unigram_tokenizer_json(texts: list[str], pieces: int = 30_000) -> dict:
     """An XLM-R-style Unigram tokenizer.json made by hand: XLM-R's special
     pieces (<s>, <pad>, </s>, <unk> at 0-3, <mask> last), the ``pieces`` most
     frequent Metaspace words of ``texts`` and every character, scored by
-    their log-frequency; the Metaspace pre-tokenizer and decoder (XLM-R's
-    ``Precompiled`` normalizer is left out: ROADMAP)."""
+    their log-frequency; XLM-R's normalizer (a ``Precompiled`` charsmap,
+    here :func:`nfkc_charsmap` over the characters of ``texts``, then runs
+    of spaces replaced by one); the Metaspace pre-tokenizer and decoder."""
+    import base64
     import math
     from collections import Counter
 
@@ -2078,15 +2183,19 @@ def unigram_tokenizer_json(texts: list[str], pieces: int = 30_000) -> dict:
             {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False, "special": True}
             for i, t in [*enumerate(specials), (len(vocab) - 1, "<mask>")]
         ],
-        "normalizer": None, "pre_tokenizer": metaspace, "post_processor": None, "decoder": metaspace,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled", "precompiled_charsmap": base64.b64encode(nfkc_charsmap(texts)).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "},
+        ]},
+        "pre_tokenizer": metaspace, "post_processor": None, "decoder": metaspace,
         "model": {"type": "Unigram", "unk_id": 3, "vocab": vocab, "byte_fallback": False},
     }
 
 
-def _seeded(g, shape, std: float):
+def _seeded(g, shape, std: float, dtype=None):
     import torch
 
-    return (torch.randn(shape, generator=g, device=g.device, dtype=torch.float32) * std).to(torch.bfloat16)
+    return (torch.randn(shape, generator=g, device=g.device, dtype=torch.float32) * std).to(dtype or torch.bfloat16)
 
 
 def write_qwen3_checkpoint(path: Path, seed: int, *, shards: int = 3, config: dict = QWEN3_4B_CONFIG, device: str = "cuda") -> int:
@@ -2138,10 +2247,13 @@ def write_qwen3_checkpoint(path: Path, seed: int, *, shards: int = 3, config: di
     return written
 
 
-def write_bge_m3_checkpoint(path: Path, seed: int, *, config: dict = BGE_M3_CONFIG, device: str = "cuda") -> int:
-    """A bge-m3-shaped BF16 XLM-R encoder in seeded random weights (HF names,
-    0.02-scaled embeddings, N(0, 1/fan_in) matrices, small biases, unit
-    LayerNorms, a pooler the loader skips) as one model.safetensors."""
+def write_bge_m3_checkpoint(path: Path, seed: int, *, config: dict = BGE_M3_CONFIG, device: str = "cuda", dtype=None) -> int:
+    """A bge-m3-shaped BF16 XLM-R encoder (or, with another config, any
+    BERT-family one: phase 13's bge-base) in seeded random weights (HF
+    names, 0.02-scaled embeddings, N(0, 1/fan_in) matrices, small biases,
+    unit LayerNorms, a pooler the loader skips) as one model.safetensors;
+    ``dtype`` (default bfloat16) float32 writes a file the JAX package's
+    loader reads too (it reads no bfloat16)."""
     import torch
 
     from raglite_tpu_torch.models.safetensors_io import save_file
@@ -2149,12 +2261,14 @@ def write_bge_m3_checkpoint(path: Path, seed: int, *, config: dict = BGE_M3_CONF
     c = config
     d, ff = c["hidden_size"], c["intermediate_size"]
     g = torch.Generator(device=device).manual_seed(seed)
-    ones = lambda n: torch.ones(n, dtype=torch.bfloat16, device=device)  # noqa: E731
+    dtype = dtype or torch.bfloat16
+    ones = lambda n: torch.ones(n, dtype=dtype, device=device)  # noqa: E731
+    seeded = functools.partial(_seeded, dtype=dtype)
     t = {
-        "embeddings.word_embeddings.weight": _seeded(g, (c["vocab_size"], d), 0.02),
-        "embeddings.position_embeddings.weight": _seeded(g, (c["max_position_embeddings"], d), 0.02),
-        "embeddings.token_type_embeddings.weight": _seeded(g, (c["type_vocab_size"], d), 0.02),
-        "embeddings.LayerNorm.weight": ones(d), "embeddings.LayerNorm.bias": _seeded(g, (d,), 0.02),
+        "embeddings.word_embeddings.weight": seeded(g, (c["vocab_size"], d), 0.02),
+        "embeddings.position_embeddings.weight": seeded(g, (c["max_position_embeddings"], d), 0.02),
+        "embeddings.token_type_embeddings.weight": seeded(g, (c["type_vocab_size"], d), 0.02),
+        "embeddings.LayerNorm.weight": ones(d), "embeddings.LayerNorm.bias": seeded(g, (d,), 0.02),
     }
     for i in range(c["num_hidden_layers"]):
         b = f"encoder.layer.{i}."
@@ -2162,11 +2276,11 @@ def write_bge_m3_checkpoint(path: Path, seed: int, *, config: dict = BGE_M3_CONF
             "attention.self.query": (d, d), "attention.self.key": (d, d), "attention.self.value": (d, d),
             "attention.output.dense": (d, d), "intermediate.dense": (ff, d), "output.dense": (d, ff),
         }.items():
-            t[b + name + ".weight"] = _seeded(g, (out, inp), inp**-0.5)
-            t[b + name + ".bias"] = _seeded(g, (out,), 0.02)
+            t[b + name + ".weight"] = seeded(g, (out, inp), inp**-0.5)
+            t[b + name + ".bias"] = seeded(g, (out,), 0.02)
         for name in ("attention.output.LayerNorm", "output.LayerNorm"):
-            t[b + name + ".weight"], t[b + name + ".bias"] = ones(d), _seeded(g, (d,), 0.02)
-    t["pooler.dense.weight"], t["pooler.dense.bias"] = _seeded(g, (d, d), d**-0.5), _seeded(g, (d,), 0.02)
+            t[b + name + ".weight"], t[b + name + ".bias"] = ones(d), seeded(g, (d,), 0.02)
+    t["pooler.dense.weight"], t["pooler.dense.bias"] = seeded(g, (d, d), d**-0.5), seeded(g, (d,), 0.02)
     path.mkdir(parents=True, exist_ok=True)
     save_file(t, path / "model.safetensors", {"format": "pt"})
     (path / "config.json").write_text(json.dumps(c))
@@ -3390,9 +3504,12 @@ def _disk_bytes(path: Path) -> int:
     return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
 
 
-def _cli(store: Path, *args: str, stdin: str | None = None, timeout: float = 600) -> tuple[str, float, float]:
+def _cli(
+    store: Path, *args: str, stdin: str | None = None, timeout: float = 600, env: dict[str, str] | None = None
+) -> tuple[str, float, float]:
     """``python -m raglite_tpu_torch --store-path <store> <args>`` in a fresh
-    process: (its output, seconds to its first line, seconds to its end)."""
+    process (with ``env`` added to this one's environment): (its output,
+    seconds to its first line, seconds to its end)."""
     import os
     import tempfile
 
@@ -3401,7 +3518,7 @@ def _cli(store: Path, *args: str, stdin: str | None = None, timeout: float = 600
         proc = subprocess.Popen(
             [sys.executable, "-m", "raglite_tpu_torch", "--store-path", str(store), *args],
             cwd=ROOT, stdin=subprocess.PIPE if stdin is not None else subprocess.DEVNULL,
-            stdout=subprocess.PIPE, stderr=err, text=True, env={**os.environ, "PYTHONUNBUFFERED": "1"},
+            stdout=subprocess.PIPE, stderr=err, text=True, env={**os.environ, **(env or {}), "PYTHONUNBUFFERED": "1"},
         )
         try:
             if stdin is not None:
@@ -4187,6 +4304,323 @@ def phase12(cfg, texts: list[str], queries: list[str], seed: int, card: str, tot
     return out
 
 
+# --- Phase 13: the IR benchmark, its HNSW baseline and the CLI's bench -----
+
+#: BAAI/bge-base-en-v1.5's config.json: its published widths.
+BGE_BASE_CONFIG = {
+    "architectures": ["BertModel"], "model_type": "bert", "num_hidden_layers": 12, "hidden_size": 768,
+    "num_attention_heads": 12, "intermediate_size": 3072, "vocab_size": 30522, "max_position_embeddings": 512,
+    "type_vocab_size": 2, "pad_token_id": 0, "layer_norm_eps": 1e-12, "hidden_act": "gelu",
+    "position_embedding_type": "absolute",
+}
+#: BERT's special tokens at their ids in bert-base-uncased's (and bge-base's) vocabulary.
+BERT_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
+#: Phase 13: the IR benchmark's queries (and the synthetic corpus's documents).
+PHASE13_QUERIES = 64
+#: Phase 13 (a): the dense variants' AP@10 on the card against the CPU's.
+#: The two encoders round differently (bf16 on the card, f32 on the CPU), so
+#: near-tied chunks may trade ranks (ROADMAP queue 3): 0.05 is one query in
+#: 64 losing its document from the top 10, or a few dropping a rank or two.
+#: Keyword (BM25, no encoder) must be equal.
+PHASE13_AP_ATOL = 0.05
+#: Phase 13 (c): the HNSW comparison's rows and width (the graph is built in
+#: one thread on the host; M 32, ef_construction 200, ef_search 160).
+PHASE13_HNSW_ROWS = 3000
+PHASE13_HNSW_DIM = 256
+
+
+def wordpiece_tokenizer_json(texts: list[str], vocab_size: int = 30_522) -> dict:
+    """A bge-base-style WordPiece tokenizer.json made by hand (the card has
+    no ``tokenizers``): BERT's layout (``[PAD]`` 0, ``[unused0-98]``,
+    ``[UNK]`` 100, ``[CLS]`` 101, ``[SEP]`` 102, ``[MASK]`` 103), then the
+    characters of ``texts`` as BERT normalizes them (lowercased, accents
+    stripped) and each as a ``##`` piece, the frequent words, frequent word
+    endings as ``##`` pieces, and ``[unused]`` fillers up to ``vocab_size``;
+    BertNormalizer, BertPreTokenizer, the [CLS]/[SEP] template and the
+    WordPiece decoder."""
+    import re
+    import unicodedata
+    from collections import Counter
+
+    words, chars, endings = Counter(), Counter(), Counter()
+    for text in texts:
+        folded = "".join(c for c in unicodedata.normalize("NFD", text.lower()) if unicodedata.category(c) != "Mn")
+        for word in re.findall(r"\w+|[^\w\s]", folded):
+            words[word] += 1
+            chars.update(word)
+            for k in (2, 3, 4):
+                if len(word) > k + 1:
+                    endings["##" + word[-k:]] += 1
+    vocab = {f"[unused{i}]": i + 1 for i in range(99)}
+    vocab.update(BERT_SPECIALS)
+    for piece in [*(c for c, _ in chars.most_common()), *("##" + c for c, _ in chars.most_common())]:
+        vocab.setdefault(piece, len(vocab))
+    for piece in [*(w for w, _ in words.most_common(20_000) if len(w) > 1), *(e for e, _ in endings.most_common(3_000))]:
+        if len(vocab) < vocab_size:
+            vocab.setdefault(piece, len(vocab))
+    filler = 99
+    while len(vocab) < vocab_size:
+        vocab.setdefault(f"[unused{filler}]", len(vocab))
+        filler += 1
+    return {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [
+            {"id": i, "content": t, "single_word": False, "lstrip": False, "rstrip": False, "normalized": False, "special": True}
+            for t, i in BERT_SPECIALS.items()
+        ],
+        "normalizer": {"type": "BertNormalizer", "clean_text": True, "handle_chinese_chars": True, "strip_accents": None, "lowercase": True},
+        "pre_tokenizer": {"type": "BertPreTokenizer"},
+        "post_processor": {
+            "type": "TemplateProcessing",
+            "single": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}, {"SpecialToken": {"id": "[SEP]", "type_id": 0}}],
+            "pair": [{"SpecialToken": {"id": "[CLS]", "type_id": 0}}, {"Sequence": {"id": "A", "type_id": 0}}, {"SpecialToken": {"id": "[SEP]", "type_id": 0}},
+                     {"Sequence": {"id": "B", "type_id": 1}}, {"SpecialToken": {"id": "[SEP]", "type_id": 1}}],
+            "special_tokens": {t: {"id": t, "ids": [BERT_SPECIALS[t]], "tokens": [t]} for t in ("[CLS]", "[SEP]")},
+        },
+        "decoder": {"type": "WordPiece", "prefix": "##", "cleanup": True},
+        "model": {"type": "WordPiece", "unk_token": "[UNK]", "continuing_subword_prefix": "##", "max_input_chars_per_word": 100, "vocab": vocab},
+    }
+
+
+def write_beir(directory: Path, dataset) -> Path:
+    """``dataset`` as a BEIR directory (corpus.jsonl, queries.jsonl,
+    qrels.tsv): each document's first line as its title, the rest as its
+    text, so that beir_directory_dataset gives the same contents back."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / "corpus.jsonl", "w", encoding="utf-8") as fh:
+        for doc in dataset.documents:
+            title, _, text = doc.content.partition("\n\n")
+            fh.write(json.dumps({"_id": doc.id, "title": title.lstrip("# "), "text": text}) + "\n")
+    with open(directory / "queries.jsonl", "w", encoding="utf-8") as fh:
+        for qid, text in dataset.queries.items():
+            fh.write(json.dumps({"_id": qid, "text": text}) + "\n")
+    with open(directory / "qrels.tsv", "w", encoding="utf-8") as fh:
+        fh.write("query-id\tcorpus-id\tscore\n")
+        for qid, qrel in dataset.qrels.items():
+            fh.writelines(f"{qid}\t{did}\t{rel}\n" for did, rel in qrel.items())
+    return directory
+
+
+@contextlib.contextmanager
+def _bench_cache(path: Path):
+    """Point ``RAGLITE_TPU_BENCH_CACHE`` (the IR benchmark's run cache) at a
+    fresh directory for the block."""
+    import os
+
+    old = os.environ.get("RAGLITE_TPU_BENCH_CACHE")
+    os.environ["RAGLITE_TPU_BENCH_CACHE"] = str(path)
+    try:
+        yield path
+    finally:
+        if old is None:
+            os.environ.pop("RAGLITE_TPU_BENCH_CACHE", None)
+        else:
+            os.environ["RAGLITE_TPU_BENCH_CACHE"] = old
+
+
+def _ap(table, variant: str, measure: str = "AP@10") -> float:
+    """A variant's value in run_ir_benchmark's table (a DataFrame, or its
+    rows where pandas is missing)."""
+    if hasattr(table, "loc"):
+        return float(table.loc[variant, measure])
+    return float(next(row[measure] for row in table if row["variant"] == variant))
+
+
+def phase13_synthetic(root: Path, card: str) -> dict:
+    """Phase 13 (a): run_ir_benchmark on the synthetic dataset, every
+    variant, on the default config on the card and then on the CPU."""
+    from raglite_tpu_torch import RAGLiteConfig
+    from raglite_tpu_torch.irbench import VARIANTS, run_ir_benchmark
+
+    out: dict = {}
+    for device in ("cuda", "cpu"):
+        cfg = RAGLiteConfig(store_path=str(root / f"a-{device}" / "store"), device=device)
+        rows = {}
+        with _bench_cache(root / f"a-{device}-cache"):
+            for variant in VARIANTS:
+                t0 = time.perf_counter()
+                table = run_ir_benchmark(dataset="synthetic", num_queries=PHASE13_QUERIES, variants=(variant,), config=cfg)
+                assert len(table) == 1, (variant, table)  # the hnsw row too: the card's machine has g++
+                rows[variant] = {"AP@10": _ap(table, variant), "s": time.perf_counter() - t0}
+        out[device] = rows
+        log(f"phase 13 (a) run_ir_benchmark(synthetic, {PHASE13_QUERIES} queries) on {device}: "
+            + ", ".join(f"{v} AP@10 {r['AP@10']:.4f} in {r['s']:.2f} s" for v, r in rows.items()) + f" ({card})")
+    cuda, cpu = out["cuda"], out["cpu"]
+    assert cuda["keyword"]["AP@10"] == cpu["keyword"]["AP@10"], (cuda["keyword"], cpu["keyword"])
+    for variant in VARIANTS:
+        assert abs(cuda[variant]["AP@10"] - cpu[variant]["AP@10"]) <= PHASE13_AP_ATOL, (variant, cuda[variant], cpu[variant])
+    return out
+
+
+def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, int]) -> dict:
+    """Phase 13 (b): a BERT-shaped encoder at bge-base-en-v1.5's widths with
+    a hand-made WordPiece tokenizer.json, serving the multivector, rerank
+    and hybrid evaluators over a BEIR directory of the synthetic dataset in
+    one store seeded with background rows up to ``rows``."""
+    import dataclasses
+
+    import torch
+
+    from raglite_tpu_torch import RAGLiteConfig
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.irbench import RAGLiteTPUEvaluator, beir_directory_dataset, synthetic_dataset
+    from raglite_tpu_torch.models.encoder import encoder_from_config
+    from raglite_tpu_torch.store import store_from_config
+
+    ckpt = root / "bge-base"
+    t0 = time.perf_counter()
+    ckpt.mkdir(parents=True)
+    (ckpt / "tokenizer.json").write_text(json.dumps(wordpiece_tokenizer_json(_markdown_texts())))
+    written = write_bge_m3_checkpoint(ckpt, seed + 13, config=BGE_BASE_CONFIG)
+    write_s = time.perf_counter() - t0
+    dataset = beir_directory_dataset(str(write_beir(root / "synthetic-beir", synthetic_dataset(num_docs=PHASE13_QUERIES))))
+    cfg = RAGLiteConfig(store_path=str(root / "b" / "store"), embedder=f"flax:{ckpt}", device="cuda")
+    evaluators = {
+        v: RAGLiteTPUEvaluator(dataset, variant=v, config=cfg, cache_dir=str(root / "b-cache")) for v in ("multivector", "rerank", "hybrid")
+    }
+    first = evaluators["multivector"]
+    t0 = time.perf_counter()
+    first.insert_documents()
+    insert_s = time.perf_counter() - t0
+    store = store_from_config(first.config)
+    doc_rows = sum(m.shape[0] for m in store.embeddings.values())
+    t0 = time.perf_counter()
+    add_background(store, rows - doc_rows, seed + 13)
+    seed_s = time.perf_counter() - t0
+    index = dense_index_from_config(first.config)
+    assert index.num_rows == rows, index.num_rows
+    log(f"phase 13 (b) bge-base-shaped BF16 BERT (12 layers, d 768, 30,522 x 768 embedding, 512 positions): "
+        f"{written / 1e9:.3f} GB and a WordPiece tokenizer.json written in {write_s:.2f} s; {len(dataset.documents)} "
+        f"documents of the BEIR directory ({doc_rows} rows) inserted in {insert_s:.2f} s, {rows - doc_rows} background "
+        f"rows in {seed_s:.2f} s, on {card}")
+    runs, out = {}, {"insert_s": insert_s, "seed_s": seed_s, "write_s": write_s}
+    for variant, evaluator in evaluators.items():
+        launches: dict[str, int] = {}
+        t0 = time.perf_counter()
+        runs[variant] = _counted(launches, lambda e=evaluator: e.runs(num_results=10, refresh=True))
+        seconds = time.perf_counter() - t0
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        assert index.last_route == "int4_two_stage", (variant, index.last_route)
+        assert launches.get("int4_bucket_scan", 0) == len(dataset.queries), (variant, launches)
+        out[variant] = {"AP@10": evaluator.score("AP@10"), "runs_s": seconds}
+    exact = RAGLiteTPUEvaluator(
+        dataset, variant="multivector", config=dataclasses.replace(cfg, use_int4_stage1=False), cache_dir=str(root / "b-exact-cache")
+    )
+    exact_runs = exact.runs(num_results=10, refresh=True)
+    assert dense_index_from_config(exact.config).last_route == "dense"
+    recall = statistics.mean(
+        len(set(runs["multivector"][q]) & set(want)) / max(len(want), 1) for q, want in exact_runs.items()
+    )
+    assert recall >= RECALL_MIN, recall
+    queries = list(dataset.queries.values())
+    search_p50 = _counted(total, lambda: _p50_ms(lambda q: first.search(q, 10), queries[:32]))
+    encoder = encoder_from_config(first.config)
+    texts = [d.content for d in dataset.documents]
+    encoder.embed_token_level_batch(texts[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    encoder.embed_token_level_batch(texts)
+    torch.cuda.synchronize()
+    tokens_per_s = sum(encoder.count_tokens(texts)) / (time.perf_counter() - t0)
+    out.update({"recall_at_10_docs": recall, "search_p50_ms": search_p50, "encoder_tokens_per_s": tokens_per_s})
+    log(f"phase 13 (b) over {index.num_rows} rows on {card}: AP@10 (seeded weights: not a quality number) "
+        + ", ".join(f"{v} {out[v]['AP@10']:.4f} (runs of {len(dataset.queries)} queries {out[v]['runs_s']:.2f} s)" for v in evaluators)
+        + f"; int4 launches one a dense query (asserted); multivector document runs' recall@10 against the exact route "
+        f"{recall:.4f}; one evaluator search p50 {search_p50:.3f} ms; the encoder {tokens_per_s:.0f} tokens/s "
+        f"(token-level batches of the {len(texts)} documents)")
+    return out
+
+
+def phase13_hnsw(card: str) -> dict:
+    """Phase 13 (c): hnsw_recall_comparison with the dense scan on the card;
+    the graph's build and query times read through a timing subclass."""
+    from raglite_tpu_torch import native
+    from raglite_tpu_torch.irbench import hnsw_recall_comparison
+
+    times: dict[str, float] = {}
+
+    class TimedHnsw(native.HnswIndex):
+        def add(self, vectors):
+            t0 = time.perf_counter()
+            super().add(vectors)
+            times["build_s"] = time.perf_counter() - t0
+
+        def search(self, queries, k, *, ef_search=160):
+            t0 = time.perf_counter()
+            found = super().search(queries, k, ef_search=ef_search)
+            times["query_ms"] = (time.perf_counter() - t0) * 1e3 / len(queries)
+            return found
+
+    plain = native.HnswIndex
+    native.HnswIndex = TimedHnsw
+    try:
+        t0 = time.perf_counter()
+        report = hnsw_recall_comparison(num_rows=PHASE13_HNSW_ROWS, dim=PHASE13_HNSW_DIM, M=32, device="cuda")
+        total_s = time.perf_counter() - t0
+    finally:
+        native.HnswIndex = plain
+    assert report["tpu_fp16_recall"] >= report["hnsw_recall"] - 1e-9, report
+    assert report["tpu_fp16_memory_bytes"] < report["hnsw_memory_bytes"], report
+    assert report["tpu_int8_memory_bytes"] < 0.5 * report["hnsw_memory_bytes"], report
+    assert report["tpu_int8_recall"] >= 0.95, report
+    log(f"phase 13 (c) hnsw_recall_comparison({PHASE13_HNSW_ROWS} x {PHASE13_HNSW_DIM}, M 32, ef_search 160; the scan on "
+        f"the card) in {total_s:.1f} s: recall@10 f16 scan {report['tpu_fp16_recall']:.4f} ({report['tpu_fp16_memory_bytes']:.0f} B), "
+        f"int8 scan {report['tpu_int8_recall']:.4f} ({report['tpu_int8_memory_bytes']:.0f} B), HNSW {report['hnsw_recall']:.4f} "
+        f"({report['hnsw_memory_bytes']:.0f} B); HNSW build {times['build_s']:.2f} s (one host thread), "
+        f"{times['query_ms']:.3f} ms a query ({card})")
+    return {**report, **times, "total_s": total_s}
+
+
+def phase13_cli_start(root: Path):
+    """Phase 13 (d), started: ``bench`` and ``bench --hnsw-recall`` through
+    the CLI, each in a fresh process on the card, from two threads (they
+    run beside (c), whose HNSW build holds one host core)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    env = {"RAGLITE_TPU_BENCH_CACHE": str(root / "d-cache")}
+    pool = ThreadPoolExecutor(2)
+    table = pool.submit(_cli, root / "d" / "store", "--device", "cuda", "bench", "--num-queries", "16", env=env)
+    report = pool.submit(_cli, root / "d2" / "store", "--device", "cuda", "bench", "--hnsw-recall", "--num-rows", "1000", env=env)
+    pool.shutdown(wait=False)
+    return table, report
+
+
+def phase13_cli(started, card: str) -> dict:
+    """Phase 13 (d), finished: both commands exited 0 and printed the seven
+    variants' table and the report."""
+    from raglite_tpu_torch.irbench import VARIANTS
+
+    (table, _, table_s), (report_text, _, report_s) = (future.result() for future in started)
+    lines = table.strip().splitlines()
+    values = {line.split()[0]: float(line.split()[1]) for line in lines[2:]}
+    assert list(values) == list(VARIANTS) and "AP@10" in lines[0], table
+    report = json.loads(report_text.strip().splitlines()[-1])
+    assert report["num_rows"] == 1000.0 and report["tpu_fp16_recall"] >= report["hnsw_recall"] - 1e-9, report
+    log(f"phase 13 (d) `bench --num-queries 16` in a fresh process: {table_s:.1f} s, AP@10 {values}; "
+        f"`bench --hnsw-recall --num-rows 1000`: {report_s:.1f} s, {report} (both beside (c); {card})")
+    return {"bench_s": table_s, "bench": values, "hnsw_recall_s": report_s}
+
+
+def phase13(rows: int, seed: int, card: str, total: dict[str, int]) -> dict:
+    """Phase 13: (a)-(d) in a temporary directory (deleted at the end)."""
+    import shutil
+
+    root = scratch_dir(1_000_000_000, "phase13_")
+    try:
+        out = {"synthetic": phase13_synthetic(root, card)}
+        _fresh_memory_store()
+        out["bert"] = phase13_bert(rows, seed, root, card, total)
+        _fresh_memory_store()
+        started = phase13_cli_start(root)
+        out["hnsw"] = phase13_hnsw(card)
+        out["cli"] = phase13_cli(started, card)
+    finally:
+        _fresh_memory_store()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4198,12 +4632,13 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11", "phase12"],
+        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
         "with phase 6's message; 'phase11' builds every kernel and runs phase 11 alone at --rows rows; 'phase12' builds "
-        "every kernel, serves phase 3's store at --rows rows and runs phase 12 over it",
+        "every kernel, serves phase 3's store at --rows rows and runs phase 12 over it; 'phase13' builds every kernel and "
+        "runs phase 13 alone at --rows rows",
     )
     # One rank of phase 12 (d), started by phase 12 itself.
     parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
@@ -4278,6 +4713,13 @@ def main() -> int:
         summary12 = phase12(cfg, texts, vs_q, args.seed, card, launches12)
         log(f"phase 12 summary on {card}: {json.dumps(_without_timings(summary12))}; launches {launches12}")
         log("partial run (--only phase12): no result line")
+        return 0
+
+    if args.only == "phase13":
+        launches13: dict[str, int] = {}
+        summary13 = phase13(args.rows, args.seed, card, launches13)
+        log(f"phase 13 summary on {card}: {json.dumps({**summary13, 'launches': launches13})}")
+        log("partial run (--only phase13): no result line")
         return 0
 
     if args.only == "phase11":
@@ -4412,6 +4854,14 @@ def main() -> int:
     for name in ("int4_bucket_scan", "gqa_prefill_attention"):
         assert phase11_launches.get(name, 0) > 0, (name, phase11_launches)
     assert phase11_launches.get("gqa_decode_attention", 0) + phase11_launches.get("gqa_verify_attention", 0) > 0
+
+    # 13. The IR benchmark: every variant on the card and the CPU, a
+    # bge-base-shaped BERT over a store at --rows (the int4 route), the
+    # HNSW baseline, and the CLI's bench (its own temporary directory).
+    phase13_launches: dict[str, int] = {}
+    summary13 = phase13(args.rows, args.seed, card, phase13_launches)
+    log(f"phase 13 summary on {card}: {json.dumps({**summary13, 'launches': phase13_launches})}")
+    assert phase13_launches.get("int4_bucket_scan", 0) > 0, phase13_launches
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -4445,6 +4895,9 @@ def main() -> int:
             # And on phase 12's, in this process (the sharded index's
             # searches, the TP decoder's forward, answer and stream).
             "launches_phase12": phase12_launches.get(name, 0),
+            # And on phase 13's (the IR benchmark's evaluators over the
+            # bge-base-shaped encoder's store).
+            "launches_phase13": phase13_launches.get(name, 0),
         })
         p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
         if p12 is not None:

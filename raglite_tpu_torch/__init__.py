@@ -11,14 +11,15 @@ attention kernels), ``async_rag``, OpenAI-compatible endpoints (``openai:``
 LLMs and embedders), schema-constrained, forced-tool and batched generation,
 structured extraction (``extract_with_llm``, ``expand_document_metadata``
 and self-query search), evals (``insert_evals``, ``answer_evals``,
-``evaluate``) and the query adapter (``update_query_adapter``); see
-ROADMAP.md for what is still to be ported.  Entry points run on the card
-unless ``RAGLiteConfig(device="cpu")``.
+``evaluate``), the query adapter (``update_query_adapter``), the
+surfaces (CLI, MCP, web chat) and the IR benchmark (``irbench``, with its
+C++ HNSW baseline): every module of the JAX package has a counterpart.
+Entry points run on the card unless ``RAGLiteConfig(device="cpu")``.
 
 ``import raglite_tpu_torch`` loads neither pydantic, which the extraction
 entry points import when called, nor pandas, which ``answer_evals`` and
-``evaluate`` import to build their DataFrames: a GPU machine may have
-neither.
+``evaluate`` (and ``irbench.run_ir_benchmark``, where it can) import to
+build their DataFrames: a GPU machine may have neither.
 """
 
 from raglite_tpu_torch.config import RAGLiteConfig

@@ -12,8 +12,11 @@ asks for the CPU.
     python -m raglite_tpu_torch --store-path kb --device cpu serve --port 8080
     python -m raglite_tpu_torch --store-path kb mcp run
 
-``bench`` needs the IR benchmark and its HNSW baseline, which are not
-ported yet (ROADMAP queue 1 item 7): it exits with an error saying so.
+    python -m raglite_tpu_torch bench --num-queries 16
+    python -m raglite_tpu_torch bench --hnsw-recall --num-rows 1000
+
+``bench`` prints pandas' table where pandas can be imported, as the JAX
+CLI does, and a table of its own with the same numbers where it cannot.
 """
 
 from __future__ import annotations
@@ -158,12 +161,39 @@ def _mcp_install(config: RAGLiteConfig, args: argparse.Namespace) -> None:
 
 
 def _bench(config: RAGLiteConfig, args: argparse.Namespace) -> None:
-    """IR benchmark comparing retrieval variants (reference: _cli.py:121-206)."""
-    msg = (
-        "bench needs the IR benchmark (irbench.py) and its HNSW baseline, which are not "
-        "ported to raglite_tpu_torch yet: ROADMAP queue 1 item 7 (irbench)"
+    """IR benchmark comparing retrieval variants (reference: _cli.py:121-206),
+    including the first-party HNSW graph baseline ('hnsw' variant)."""
+    if args.hnsw_recall:
+        from raglite_tpu_torch.irbench import hnsw_recall_comparison
+        from raglite_tpu_torch.native import native_available
+
+        if not native_available():
+            msg = "--hnsw-recall needs the first-party C++ HNSW baseline; no C++ toolchain is available to build it"
+            raise CLIError(msg)
+        print(json.dumps(hnsw_recall_comparison(num_rows=args.num_rows, device=config.device)))
+        return
+    from raglite_tpu_torch.irbench import run_ir_benchmark
+
+    table = run_ir_benchmark(
+        dataset=args.dataset, measure=args.measure, num_queries=args.num_queries, config=config,
+        remote_vector_store=args.remote_vector_store or None,
     )
-    raise CLIError(msg)
+    print(_table_text(table, args.measure))
+
+
+def _table_text(table, measure: str) -> str:
+    """pandas' ``to_string()`` of the table, or, for the rows the benchmark
+    returns without pandas, a table of the same layout with each value at
+    full precision (``repr``)."""
+    if hasattr(table, "to_string"):
+        return table.to_string()
+    names = [row["variant"] for row in table]
+    values = [repr(row[measure]) for row in table]
+    left = max(len("variant"), *map(len, names))
+    right = max(len(measure), *map(len, values))
+    lines = [" " * left + " " + measure.rjust(right), "variant".ljust(left) + " " * (right + 1)]
+    lines += [name.ljust(left) + " " + value.rjust(right) for name, value in zip(names, values)]
+    return "\n".join(lines)
 
 
 def _delete(config: RAGLiteConfig, args: argparse.Namespace) -> None:
@@ -264,13 +294,23 @@ def build_parser() -> argparse.ArgumentParser:
     p = _command(mcp_commands, "install", _mcp_install)
     p.add_argument("--server-name", default="RAGLite-TPU", help="(default: RAGLite-TPU)")
 
-    p = _command(commands, "bench", _bench, "IR benchmark (not ported yet: ROADMAP queue 1 item 7, irbench).")
-    p.add_argument("--dataset", default="synthetic")
-    p.add_argument("--measure", default="AP@10")
-    p.add_argument("--num-queries", type=int, default=50)
-    p.add_argument("--hnsw-recall", action="store_true")
-    p.add_argument("--num-rows", type=int, default=100_000)
-    p.add_argument("--remote-vector-store", default="")
+    p = _command(commands, "bench", _bench)
+    p.add_argument(
+        "--dataset", default="synthetic",
+        help="IR dataset: 'synthetic', a BEIR-style directory, or an ir_datasets id (default: synthetic).",
+    )
+    p.add_argument("--measure", default="AP@10", help="(default: AP@10)")
+    p.add_argument("--num-queries", type=int, default=50, help="(default: 50)")
+    p.add_argument(
+        "--hnsw-recall", action="store_true",
+        help="instead of the IR table, print the measured recall@10 of the dense scan vs the HNSW graph at "
+        "ef_search=160 over the same vectors, with each index's memory.",
+    )
+    p.add_argument("--num-rows", type=int, default=100_000, help="corpus size for --hnsw-recall (default: 100000)")
+    p.add_argument(
+        "--remote-vector-store", default="",
+        help="base URL of an OpenAI-compatible vector-store API to include as a cross-system comparison row.",
+    )
     p = _command(commands, "delete", _delete)
     p.add_argument("document_ids", nargs="*")
     _command(commands, "update-adapter", _update_adapter)

@@ -6,15 +6,22 @@
   that gives the ``tokenizers`` package's ids and decoded text without that
   package (the card's machine has none).  It runs the file's pipeline:
   added tokens (``special``, ``normalized``, ``lstrip``, ``rstrip``,
-  ``single_word``), then the normalizer (``NFC``, ``NFKC``, ``Prepend``,
-  ``Replace``, ``Sequence``), the pre-tokenizer
-  (``ByteLevel``, ``Split``, ``Metaspace``, ``Sequence``) and the model
-  (``BPE`` with ``byte_fallback``, ``ignore_merges``, ``fuse_unk``;
-  ``Unigram`` by Viterbi over the piece scores, with ``byte_fallback``);
-  ``decode`` runs the decoder (``ByteLevel``, ``Metaspace``,
-  ``ByteFallback``, ``Fuse``, ``Strip``, ``Replace``, ``Sequence``; with none,
-  tokens joined by spaces, as ``tokenizers`` does) and skips special added
-  tokens.  Any other component raises ``NotImplementedError`` naming it.
+  ``single_word``), then the normalizer (``NFC``, ``NFD``, ``NFKC``,
+  ``NFKD``, ``Lowercase``, ``StripAccents``, ``BertNormalizer``,
+  ``Precompiled``, ``Prepend``, ``Replace``, ``Sequence``), the
+  pre-tokenizer (``ByteLevel``, ``Split``, ``Metaspace``,
+  ``BertPreTokenizer``, ``Whitespace``, ``Sequence``) and the model (``BPE``
+  with ``byte_fallback``, ``ignore_merges``, ``fuse_unk``; ``Unigram`` by
+  Viterbi over the piece scores, with ``byte_fallback``; ``WordPiece``,
+  greedy longest match first); ``decode`` runs the decoder (``ByteLevel``,
+  ``Metaspace``, ``WordPiece``, ``ByteFallback``, ``Fuse``, ``Strip``,
+  ``Replace``, ``Sequence``; with none, tokens joined by spaces, as
+  ``tokenizers`` does) and skips special added tokens.  Any other component
+  raises ``NotImplementedError`` naming it.  The Unicode properties the
+  components read are those of ``tokenizers``' own tables
+  (models/unicode_props.py), and ``Precompiled`` (XLM-R's SentencePiece
+  charsmap) looks extended grapheme clusters up whole, as ``tokenizers``
+  does.
   Split patterns in the Oniguruma syntax of ``tokenizers`` (``\\p{L}``,
   ``\\p{N}``, ``\\s``, ``(?i:...)``) are translated to Python ``re`` with
   the Unicode classes spelled out.  The special ids come from the sibling
@@ -26,15 +33,19 @@
 
 from __future__ import annotations
 
+import base64
 import heapq
 import json
 import os
 import re
+import struct
 import sys
 import unicodedata
 import warnings
 from functools import lru_cache
 from typing import Callable
+
+from raglite_tpu_torch.models import unicode_props as U
 
 __all__ = ["ByteTokenizer", "HFTokenizer", "load_tokenizer"]
 
@@ -162,12 +173,109 @@ def _gpt2_split() -> re.Pattern:
 # --- normalizers --------------------------------------------------------------
 
 
+class _Precompiled:
+    """SentencePiece's precompiled charsmap as ``tokenizers`` applies it:
+    each extended grapheme cluster of fewer than 6 UTF-8 bytes is looked up
+    whole, else (or where that finds nothing) each of its characters; a
+    lookup takes the shortest key that is a prefix of the chunk, and its
+    replacement stands for the whole chunk (so a cluster whose first
+    character is a key loses the marks after it, as in ``tokenizers``).
+
+    The charsmap (base64) holds the trie's byte size (u32, little-endian),
+    the trie as darts-clone double-array units over the keys' UTF-8 bytes,
+    and the NUL-terminated replacements."""
+
+    def __init__(self, charsmap: str) -> None:
+        blob = base64.b64decode(charsmap)
+        if len(blob) < 4:
+            msg = "Precompiled: the charsmap is shorter than its header"
+            raise ValueError(msg)
+        (size,) = struct.unpack_from("<I", blob)
+        count = size // 4
+        self._units = struct.unpack_from(f"<{count}I", blob, 4)
+        self._replacements = blob[4 + size :]
+        self._lookups: dict[str, str | None] = {}
+
+    def _lookup(self, chunk: str) -> str | None:
+        """The replacement of the shortest key that prefixes ``chunk``."""
+        hit = self._lookups.get(chunk, self)
+        if hit is not self:
+            return hit
+        units, out = self._units, None
+        unit = units[0]
+        pos = (unit >> 10) << ((unit & (1 << 9)) >> 6)
+        for byte in chunk.encode("utf-8"):
+            if byte == 0:
+                break
+            pos ^= byte
+            if pos >= len(units) or (units[pos] & ((1 << 31) | 0xFF)) != byte:
+                break
+            unit = units[pos]
+            pos ^= (unit >> 10) << ((unit & (1 << 9)) >> 6)
+            if (unit >> 8) & 1:
+                start = units[pos] & ((1 << 31) - 1)
+                end = self._replacements.find(b"\0", start)
+                out = self._replacements[start : end if end >= 0 else None].decode("utf-8")
+                break
+        if len(self._lookups) < 100_000:
+            self._lookups[chunk] = out
+        return out
+
+    def __call__(self, s: str) -> str:
+        out: list[str] = []
+        for cluster in U.graphemes(s):
+            if len(cluster.encode("utf-8")) < 6:
+                norm = self._lookup(cluster)
+                if norm is not None:
+                    out.append(norm)
+                    continue
+            for c in cluster:
+                norm = self._lookup(c)
+                out.append(c if norm is None else norm)
+        return "".join(out)
+
+
+def _bert_normalizer(spec: dict) -> Callable[[str], str]:
+    """``BertNormalizer``: drop NUL, U+FFFD and control characters (other
+    than tab, newline and carriage return) and turn white space into spaces,
+    pad CJK ideographs with spaces, strip accents (NFD, then Mn removed;
+    ``strip_accents`` null follows ``lowercase``), lowercase."""
+    clean, chinese = spec.get("clean_text", True), spec.get("handle_chinese_chars", True)
+    lowercase = spec.get("lowercase", True)
+    strip = lowercase if spec.get("strip_accents") is None else spec["strip_accents"]
+
+    def bert(s: str) -> str:
+        if clean:
+            s = "".join(
+                " " if c in U.WHITESPACE else c
+                for c in s
+                if not (c in "\0\ufffd" or (c not in "\t\n\r" and U.is_other(c)))
+            )
+        if chinese:
+            s = "".join(f" {c} " if U.is_chinese_char(c) else c for c in s)
+        if strip:
+            s = "".join(c for c in U.normalize("NFD", s) if not U.is_nonspacing_mark(c))
+        if lowercase:
+            s = "".join(map(U.lower, s))
+        return s
+
+    return bert
+
+
 def _normalizer(spec: dict | None) -> Callable[[str], str] | None:
     if spec is None:
         return None
     kind = spec["type"]
-    if kind in ("NFC", "NFKC"):
-        return lambda s: unicodedata.normalize(kind, s)
+    if kind in ("NFC", "NFD", "NFKC", "NFKD"):
+        return lambda s: U.normalize(kind, s)
+    if kind == "Lowercase":
+        return lambda s: "".join(map(U.lower, s))
+    if kind == "StripAccents":
+        return lambda s: "".join(c for c in s if not U.is_combining_mark(c))
+    if kind == "BertNormalizer":
+        return _bert_normalizer(spec)
+    if kind == "Precompiled":
+        return _Precompiled(spec["precompiled_charsmap"])
     if kind == "Prepend":
         prefix = spec["prepend"]
         return lambda s: prefix + s if s else s
@@ -234,6 +342,31 @@ def _split(text: str, first: bool, rx: re.Pattern, behavior: str, invert: bool =
     return [(text[a:b], first and a == 0) for a, b in kept if b > a]
 
 
+def _split_classes(text: str, first: bool, classify: Callable[[str], int]) -> list[Piece]:
+    """Runs of characters of one class, class 1 (white space) dropped and
+    class 3 (BERT's punctuation) one character a piece."""
+    out: list[Piece] = []
+    start, run = 0, None
+    for i, c in enumerate(text):
+        cls = classify(c)
+        if cls == run and cls != 3:
+            continue
+        if run is not None and run != 1:
+            out.append((text[start:i], first and start == 0))
+        start, run = i, cls
+    if run is not None and run != 1:
+        out.append((text[start:], first and start == 0))
+    return out
+
+
+def _bert_class(c: str) -> int:
+    """BertPreTokenizer's split: white space removed, each punctuation
+    character isolated."""
+    if c in U.WHITESPACE:
+        return 1
+    return 3 if U.is_punctuation(c) else 0
+
+
 def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]]:
     if spec is None:
         return lambda pieces: pieces
@@ -278,6 +411,9 @@ def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]]:
             return out
 
         return metaspace
+    if kind in ("BertPreTokenizer", "Whitespace"):
+        classify = _bert_class if kind == "BertPreTokenizer" else U.word_class
+        return lambda pieces: [p for text, first in pieces for p in _split_classes(text, first, classify)]
     msg = f"tokenizer.json pre_tokenizer {kind!r} is not supported"
     raise NotImplementedError(msg)
 
@@ -390,6 +526,7 @@ class _Unigram:
         self.min_score = min(self.scores)
         self.max_len = max(len(p) for p, _ in pieces)
         self.id_to_token = {i: p for i, (p, _) in enumerate(pieces)}
+        self.vocab = self.ids
 
     def _segments(self, s: str) -> list[str]:
         n = len(s)
@@ -449,17 +586,69 @@ class _Unigram:
         return ids
 
 
+class _WordPiece:
+    """``tokenizers``' WordPiece: the longest vocabulary piece from the
+    start of the word, then from where it ended (with the continuing-subword
+    prefix), and so on; a word with no such split, or of more than
+    ``max_input_chars_per_word`` characters, is the unk token."""
+
+    def __init__(self, spec: dict) -> None:
+        self.vocab: dict[str, int] = spec["vocab"]
+        self.unk = spec.get("unk_token", "[UNK]")
+        self.prefix = spec.get("continuing_subword_prefix", "##")
+        self.max_chars = int(spec.get("max_input_chars_per_word", 100))
+        self.id_to_token = {i: t for t, i in self.vocab.items()}
+
+    def _unk(self) -> list[int]:
+        tid = self.vocab.get(self.unk)
+        if tid is None:
+            msg = f"WordPiece: the unk token {self.unk!r} is not in the vocabulary"
+            raise ValueError(msg)
+        return [tid]
+
+    def tokenize(self, word: str) -> list[int]:
+        if len(word) > self.max_chars:
+            return self._unk()
+        ids: list[int] = []
+        start = 0
+        while start < len(word):
+            for end in range(len(word), start, -1):
+                tid = self.vocab.get(word[start:end] if start == 0 else self.prefix + word[start:end])
+                if tid is not None:
+                    break
+            else:
+                return self._unk()
+            ids.append(tid)
+            start = end
+        return ids
+
+
 def _model(spec: dict):
     kind = spec.get("type") or ("BPE" if "merges" in spec else "Unigram" if isinstance(spec.get("vocab"), list) else None)
     if kind == "BPE":
         return _BPE(spec)
     if kind == "Unigram":
         return _Unigram(spec)
+    if kind == "WordPiece":
+        return _WordPiece(spec)
     msg = f"tokenizer.json model {kind!r} is not supported"
     raise NotImplementedError(msg)
 
 
 # --- decoders -----------------------------------------------------------------
+
+
+#: The WordPiece decoder's ``cleanup`` replacements, in order.
+_CLEANUP = (
+    (" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"), (" n't", "n't"), (" 'm", "'m"),
+    (" do not", " don't"), (" 's", "'s"), (" 've", "'ve"), (" 're", "'re"),
+)
+
+
+def _cleanup(text: str) -> str:
+    for old, new in _CLEANUP:
+        text = text.replace(old, new)
+    return text
 
 
 def _decoder(spec: dict | None) -> Callable[[list[str]], list[str]] | None:
@@ -490,6 +679,18 @@ def _decoder(spec: dict | None) -> Callable[[list[str]], list[str]] | None:
             ]
 
         return metaspace
+    if kind == "WordPiece":
+        prefix, cleanup = spec.get("prefix", "##"), spec.get("cleanup", True)
+
+        def wordpiece(tokens: list[str]) -> list[str]:
+            out = []
+            for i, tok in enumerate(tokens):
+                if i:
+                    tok = tok[len(prefix) :] if tok.startswith(prefix) else " " + tok
+                out.append(_cleanup(tok) if cleanup else tok)
+            return out
+
+        return wordpiece
     if kind == "ByteFallback":
 
         def byte_fallback(tokens: list[str]) -> list[str]:
@@ -625,7 +826,7 @@ class HFTokenizer:
         norm = self._normalize or (lambda s: s)
         self._raw_added = _AddedTokens(plain, [t["content"] for t in plain])
         self._norm_added = _AddedTokens(normed, [norm(t["content"]) for t in normed])
-        self._vocab = {**self._model_vocab(), **self._added_ids}
+        self._vocab = {**self._model.vocab, **self._added_ids}
         self._id_to_token = {**self._model.id_to_token, **{i: t for t, i in self._added_ids.items()}}
         self.vocab_size = len(self._vocab)
         self._cache: dict[str, tuple[int, ...]] = {}
@@ -654,10 +855,6 @@ class HFTokenizer:
             self.EOS_IDS = tuple(i for i in eos_value if isinstance(i, int)) or (self.EOS,)
         else:
             self.EOS_IDS = (self.EOS,)
-
-    def _model_vocab(self) -> dict[str, int]:
-        m = self._model
-        return m.vocab if isinstance(m, _BPE) else m.ids
 
     def token_id(self, token: str) -> int | None:
         return self._vocab.get(token)

@@ -9,8 +9,11 @@ raglite_tpu/native/__init__.py, which the port never imports):
   chunklet DPs (sentences.py, chunklets.py), and the hash encoder's
   featurizer, CPU embedding and table draw (models/encoder.py,
   models/hash_table.py).
+- ``hnsw.cpp``: the first-party HNSW graph (:class:`HnswIndex`), the recall
+  baseline irbench.py measures the dense index against; a copy of the JAX
+  package's, so that the same vectors and seed give the same ids and scores.
 
-The library is built with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
+Both sources go into one library, built with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
 into ``raglite_tpu_torch/_build/``, beside the CUDA kernels, under a file
 lock (several processes may start at once) and moved into place whole.  If
 the build fails (no toolchain), callers take the pure-Python
@@ -32,27 +35,27 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-_SOURCE = Path(__file__).parent / "postings.cpp"
+_SOURCES = (Path(__file__).parent / "postings.cpp", Path(__file__).parent / "hnsw.cpp")
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-_LIB_PATH = _BUILD_DIR / "libraglite_postings.so"
+_LIB_PATH = _BUILD_DIR / "libraglite_native.so"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _LIB_FAILED = False
 
 
 def _compile() -> Path | None:
-    """Build the library unless a copy newer than the source exists."""
+    """Build the library unless a copy newer than every source exists."""
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(_BUILD_DIR / "postings.lock", "w") as lock:
+    with open(_BUILD_DIR / "native.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        if _LIB_PATH.exists() and _LIB_PATH.stat().st_mtime >= _SOURCE.stat().st_mtime:
+        if _LIB_PATH.exists() and all(_LIB_PATH.stat().st_mtime >= src.stat().st_mtime for src in _SOURCES):
             return _LIB_PATH
         tmp = _LIB_PATH.with_suffix(f".{os.getpid()}.tmp")
-        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", str(_SOURCE), "-o", str(tmp)]
+        cmd = ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread", *map(str, _SOURCES), "-o", str(tmp)]
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         except (subprocess.SubprocessError, FileNotFoundError) as exc:
-            logger.warning("native postings build failed (%s); using the Python fallback", exc)
+            logger.warning("native library build failed (%s); using the Python fallback", exc)
             tmp.unlink(missing_ok=True)
             return None
         os.replace(tmp, _LIB_PATH)
@@ -111,6 +114,18 @@ def load_native() -> ctypes.CDLL | None:
         lib.rlt_hash_embed.restype = c_i32
         lib.rlt_normal_table.argtypes = [c_i64, c_i64, c_i64, c_void]
         lib.rlt_normal_table.restype = None
+        lib.rlt_hnsw_new.argtypes = [c_i32, c_i32, c_i32, c_i32, ctypes.c_uint64]
+        lib.rlt_hnsw_new.restype = c_void
+        lib.rlt_hnsw_free.argtypes = [c_void]
+        lib.rlt_hnsw_free.restype = None
+        lib.rlt_hnsw_add.argtypes = [c_void, c_void, c_i64]
+        lib.rlt_hnsw_add.restype = None
+        lib.rlt_hnsw_size.argtypes = [c_void]
+        lib.rlt_hnsw_size.restype = c_i32
+        lib.rlt_hnsw_memory_bytes.argtypes = [c_void]
+        lib.rlt_hnsw_memory_bytes.restype = c_i64
+        lib.rlt_hnsw_search.argtypes = [c_void, c_void, c_i64, c_i32, c_i32, c_void, c_void]
+        lib.rlt_hnsw_search.restype = None
         _LIB = lib
         return _LIB
 
@@ -317,3 +332,61 @@ def normal_table(seed: int, rows: int, dim: int) -> np.ndarray | None:
     out = np.empty((rows, dim), np.float32)
     lib.rlt_normal_table(int(seed), int(rows), int(dim), out.ctypes.data)
     return out
+
+
+class HnswIndex:
+    """ctypes wrapper over the first-party C++ HNSW graph (hnsw.cpp): the
+    recall baseline of the claim "recall@10 >= HNSW at equal memory" (the
+    upstream RAGLite serves from DuckDB VSS HNSW with ef_search = 160 at its
+    defaults).  Host code; the same vectors, parameters and seed give the
+    JAX package's ``HnswIndex``'s ids and scores bit for bit."""
+
+    def __init__(
+        self,
+        dim: int,
+        *,
+        M: int = 32,
+        ef_construction: int = 200,
+        metric: str = "cosine",
+        seed: int = 42,
+    ) -> None:
+        lib = load_native()
+        if lib is None:
+            msg = "native library unavailable"
+            raise RuntimeError(msg)
+        self._lib = lib
+        self.dim = dim
+        self._handle = lib.rlt_hnsw_new(dim, M, ef_construction, 0 if metric in ("cosine", "dot") else 1, seed)
+
+    def __del__(self) -> None:
+        if getattr(self, "_handle", None):
+            self._lib.rlt_hnsw_free(self._handle)
+            self._handle = None
+
+    def add(self, vectors: np.ndarray) -> None:
+        v = np.ascontiguousarray(vectors, np.float32)
+        if v.ndim != 2 or v.shape[1] != self.dim:
+            msg = f"vectors of shape {v.shape}; expected [n, {self.dim}]"
+            raise ValueError(msg)
+        self._lib.rlt_hnsw_add(self._handle, v.ctypes.data, v.shape[0])
+
+    def __len__(self) -> int:
+        return int(self._lib.rlt_hnsw_size(self._handle))
+
+    @property
+    def memory_bytes(self) -> int:
+        """Bytes of the graph's links and its f32 vectors."""
+        return int(self._lib.rlt_hnsw_memory_bytes(self._handle))
+
+    def search(self, queries: np.ndarray, k: int, *, ef_search: int = 160) -> tuple[np.ndarray, np.ndarray]:
+        """(ids [B, k] int32, scores [B, k] f32): similarities, descending,
+        for cosine/dot, squared distances for l2; -1 and 0 past the graph's
+        reach."""
+        q = np.ascontiguousarray(queries, np.float32)
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            msg = f"queries of shape {q.shape}; expected [B, {self.dim}]"
+            raise ValueError(msg)
+        ids = np.empty((q.shape[0], k), np.int32)
+        scores = np.empty((q.shape[0], k), np.float32)
+        self._lib.rlt_hnsw_search(self._handle, q.ctypes.data, q.shape[0], k, ef_search, ids.ctypes.data, scores.ctypes.data)
+        return ids, scores

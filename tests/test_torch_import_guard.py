@@ -4,8 +4,9 @@ decoder LLM, speculation, the grammar automata, the hash table draw, the
 LLM factory, rag, the attention ops, extraction, evals, the query adapter
 and its NNLS op, the safetensors and checkpoint readers, the int8
 matmuls, the document converters, the boundary model, the tracer, the
-micro-batcher, the MCP server, the web chat, the CLI and the multi-GPU
-modules) loads neither JAX
+micro-batcher, the MCP server, the web chat, the CLI, the multi-GPU
+modules, the IR benchmark with its HNSW baseline and the tokenizer's
+Unicode tables) loads neither JAX
 nor the JAX package nor click (nor markdown-it,
 tokenizers, safetensors, transformers, orbax, tensorstore, msgpack or
 filelock on the in-memory path, a tokenizer.json read included, nor pandas,
@@ -50,7 +51,9 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.__main__
         import raglite_tpu_torch.parallel.mesh, raglite_tpu_torch.parallel.sharded
         import raglite_tpu_torch.parallel.tp_decoder
+        import raglite_tpu_torch.irbench, raglite_tpu_torch.models.unicode_props
         assert "pydantic" not in sys.modules
+        assert "pandas" not in sys.modules
         assert "click" not in sys.modules
         bad = [
             m for m in sys.modules

@@ -216,6 +216,34 @@ def test_encoder_loader_matches_jax_and_transformers(tmp_path, family: str, gold
     np.testing.assert_allclose(got, ref.numpy(), rtol=gold_tol, atol=gold_tol)
 
 
+def test_chip_smokes_bert_checkpoint_loads_in_both_packages(tmp_path) -> None:
+    """The bge-base-shaped checkpoint chip_smoke's phase 13 writes (its
+    WordPiece tokenizer.json and BERT layout; here at 2 layers, d 32, in
+    f32, which the JAX loader reads) loads in both packages: the same ids
+    from both tokenizers and the same states within TOL."""
+    chip_smoke = importlib.import_module("chip_smoke")
+    config = {**chip_smoke.BGE_BASE_CONFIG, "num_hidden_layers": 2, "hidden_size": 32, "num_attention_heads": 4,
+              "intermediate_size": 64}
+    root = tmp_path / "bge-base"
+    root.mkdir()
+    (root / "tokenizer.json").write_text(json.dumps(chip_smoke.wordpiece_tokenizer_json(chip_smoke._markdown_texts())))
+    chip_smoke.write_bge_m3_checkpoint(root, 13, config=config, device="cpu", dtype=torch.float32)
+    cfg, jparams, jtok = jt.load_safetensors_encoder(str(root), dtype=jnp.float32)
+    tcfg, model, ttok = tt.load_safetensors_encoder(str(root), dtype=torch.float32)
+    assert tcfg == cfg and cfg["vocab"] == 30_522 and cfg["max_len"] == 512
+    text = "How does the glacier interact with the volcano in specimen 12? Café, naïve — 日本語."
+    ids = ttok.encode(text)
+    assert ids == jtok.encode(text) and 100 not in ids[:12]
+    ids_np = np.asarray([ids])
+    mask = np.ones_like(ids_np, dtype=bool)
+    want = np.asarray(jt.EncoderModel(cfg).apply_tokens(jparams, jnp.asarray(ids_np, jnp.int32), jnp.asarray(mask)))
+    with torch.inference_mode():
+        got = model(torch.from_numpy(ids_np), torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    vecs = TransformerEncoder(str(root), device="cpu", dtype=torch.float32).embed_token_level(text)
+    assert vecs.shape == (len(ids), 32) and np.isfinite(vecs).all()
+
+
 def test_save_hf_encoder_round_trips_through_jax(tmp_path) -> None:
     """The port's writer -> the JAX package's reader is exact (f16 matrices,
     as its own writer stores them; the final LayerNorm kept), and the
