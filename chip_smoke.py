@@ -141,8 +141,18 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    (recall@10 by ids, and counting chunks tied with the exact 10th within
    TIE_ATOL as hits: >= RECALL_MIN asserted on the latter), rerank_chunks
    and search_and_rerank_chunk_spans p50, the int4 scan timed at d = 1,024;
-   (f) where tensorstore is installed, the ``small`` preset through
-   save_checkpoint and ``ckpt:``, logits equal.
+   (f) ``ckpt:`` with no tensorstore, orbax or zstandard (the port's OCDBT,
+   zarr and native zstd): (e)'s encoder saved and read back as
+   ``flax:ckpt:<dir>`` (query embeddings equal bit for bit, 8 vector_searches
+   over (e)'s store through it with the in-memory encoder's ids, int4
+   launches counted); phase 6's seeded `large` (8.068 GB) saved with the
+   port's writer and read back as ``jax:ckpt:<dir>`` (save and load s,
+   GB/s; every leaf and a 2,048-token forward's logits equal bit for bit),
+   its rag() answer to phase 6's message equal to phase 6's (prefill and
+   verify launches counted), ``@int8`` logits equal to the in-memory model
+   quantized alike; the JAX package's orbax fixture (compressed frames)
+   read on the card and the CPU (leaves equal, f32 logits within
+   FIXTURE_LOGIT_TOL) and the native decoder's MB/s on one host thread.
 11. From files to answers through the surfaces (after phase 10 and the
    stores of 8 (d) and 9 (f); a store of its own in a temporary directory):
    (a) a PDF (pages, Flate streams, a Type1 body font, a Type0 heading font
@@ -1169,7 +1179,7 @@ def serve_rag(cfg, question: str, card: str, *, spec: str = "jax:large", message
         f"(rag greedy); prefill {launches_rag['gqa_prefill_attention']} per prefill")
     return {
         "rag_s": rag_s, "rag_pos": prompt_tokens, "rag_t": ids.shape[1], "first_piece_ms": first_piece_ms,
-        "messages": [first_message], "prompt": prompt, "encode_ms": encode_ms, "ttft_ms": ttft_ms,
+        "messages": [first_message], "answer": answer, "prompt": prompt, "encode_ms": encode_ms, "ttft_ms": ttft_ms,
         "prefill_ms": prefill_ms, "step_ms": step_ms,
         "tokens_per_s": {
             "greedy_speculative": decode_tps,
@@ -2649,6 +2659,8 @@ def phase10_encoder(texts: list[str], queries: list[str], rows: int, seed: int, 
             f"{out['rerank_p50_ms']:.3f} ms (first calls, candidate states cached as they come); "
             f"search_and_rerank_chunk_spans (hybrid search) p50 {spans_p50:.3f} ms")
         out["timings"] = time_kernels(index, None, emb, card, dim=1024, batches=(1,))
+        # Phase 10 (f)'s encoder half, while this store and encoder live.
+        out.update(phase10_orbax_encoder(ecfg, queries, total, card))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -2682,37 +2694,242 @@ def _recall_diagnosis(index, query_emb, hits: int, query: str, card: str) -> Non
         f"rescored score, chunk) {extra}")
 
 
-def phase10_orbax(card: str, seed: int) -> None:
-    """Phase 10 (f): where tensorstore is installed, the ``small`` preset
-    written by the port's save_checkpoint and read back as ``ckpt:<dir>``,
-    its logits against the model in memory."""
-    import importlib.util
+#: The orbax checkpoint the JAX package wrote (scripts/orbax_fixture.py):
+#: compressed zstd frames in OCDBT, read on the card's machine without
+#: tensorstore or orbax.
+ORBAX_FIXTURE = ROOT / "tests" / "data" / "orbax_tiny"
+#: f32 logits of the fixture on the card (plain attention, TF32 off)
+#: against the CPU's: the decoder tests' summation-order tolerance.
+FIXTURE_LOGIT_TOL = 1e-4
+
+
+def _same_bits(a, b) -> bool:
+    """Equal dtypes, shapes and stored bits (bf16 and f32 as integers)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    as_int = {torch.bfloat16: torch.int16, torch.float16: torch.int16, torch.float32: torch.int32}.get(a.dtype)
+    return bool(torch.equal(a.view(as_int), b.view(as_int)) if as_int else torch.equal(a, b))
+
+
+def _tree_leaves(params) -> dict:
+    """{name: tensor} of a decoder parameter dict (int8 layers as their
+    blocks and scales)."""
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            for i, layer in enumerate(v):
+                out.update({f"layers.{i}.{n}": x for n, x in _tree_leaves(layer).items()})
+        elif hasattr(v, "q8"):
+            out[f"{k}.q8"], out[f"{k}.s8"] = v.q8, v.s8
+        else:
+            out[k] = v
+    return out
+
+
+def _logits_of(model, params, ids, cache_dtype=None):
+    """The whole model's logits [T, V] of one prompt (a prefill forward;
+    bf16 caches unless ``cache_dtype``)."""
+    import torch
+
+    cache = model.init_cache(1, ids.shape[1], dtype=cache_dtype or torch.bfloat16, device=ids.device)
+    with torch.inference_mode():
+        logits, _ = model.forward(params, ids, cache, 0)
+    return logits[0]
+
+
+def phase10_orbax_encoder(ecfg, queries: list[str], total: dict[str, int], card: str) -> dict:
+    """Phase 10 (f), the encoder: phase 10 (e)'s bge-m3-shaped encoder
+    through save_checkpoint and ``flax:ckpt:<dir>``.  The format holds the
+    weights only and such a checkpoint reads with the byte tokenizer (as in
+    the JAX package), so the in-memory model is held to it with that
+    tokenizer: every weight and the query embeddings equal bit for bit, and
+    vector_search over phase 10 (e)'s store through each returns the same
+    ids (int4 route, launches counted)."""
+    import dataclasses
+    import shutil
+
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.models import encoder as enc
+    from raglite_tpu_torch.models.tokenizer import ByteTokenizer
+    from raglite_tpu_torch.search import vector_search
+
+    encoder = enc.encoder_from_config(ecfg)
+    root = scratch_dir(1_300_000_000, "ckpt_enc_")
+    make = enc._make_encoder
+    try:
+        t0 = time.perf_counter()
+        encoder.save_checkpoint(str(root / "enc"))
+        save_s = time.perf_counter() - t0
+        ccfg = dataclasses.replace(ecfg, embedder=f"flax:ckpt:{root / 'enc'}")
+        t0 = time.perf_counter()
+        back = enc.encoder_from_config(ccfg)
+        load_s = time.perf_counter() - t0
+        want_state, got_state = encoder._model.state_dict(), back._model.state_dict()
+        assert sorted(want_state) == sorted(got_state)
+        assert all(_same_bits(want_state[k], got_state[k]) for k in want_state)
+        # The in-memory model with the byte tokenizer, served under a name of
+        # its own for the comparison.
+        reference = enc.TransformerEncoder.from_model(encoder._model, ByteTokenizer(vocab_size=encoder._cfg["vocab"]))
+        enc._make_encoder = lambda embedder, device: reference if embedder == "flax:in-memory" else make(embedder, device)
+        rcfg = dataclasses.replace(ecfg, embedder="flax:in-memory")
+        want, got = reference.embed(queries), back.embed(queries)
+        assert want.dtype == got.dtype and want.shape == got.shape and (want.view("u1") == got.view("u1")).all()
+        assert (embed_queries(queries, config=rcfg).view("u1") == embed_queries(queries, config=ccfg).view("u1")).all()
+        ids_want = [vector_search(q, num_results=10, config=rcfg)[0] for q in queries]
+        launches: dict[str, int] = {}
+        ids_got = _counted(launches, lambda: [vector_search(q, num_results=10, config=ccfg)[0] for q in queries])
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        assert ids_got == ids_want, (ids_got, ids_want)
+        assert launches["int4_bucket_scan"] == len(queries), launches
+        nbytes = sum(f.stat().st_size for f in (root / "enc").rglob("*") if f.is_file())
+        log(f"phase 10 (f) flax:ckpt: the bge-m3-shaped encoder saved in {save_s:.2f} s and read back in {load_s:.2f} s "
+            f"({nbytes / 1e9:.3f} GB on disk) on {card}: {len(want_state)} weights and {len(queries)} query embeddings "
+            f"equal bit for bit to the in-memory model's (byte tokenizer, as the format reads), {len(queries)} "
+            f"vector_searches over phase 10 (e)'s {dense_index_from_config(ecfg).num_rows} rows through it with the same ids (launches {launches})")
+        return {"encoder_save_s": save_s, "encoder_load_s": load_s, "encoder_bytes": nbytes}
+    finally:
+        enc._make_encoder = make
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase10_fixture(card: str) -> dict:
+    """Phase 10 (f), the fixture: the JAX package's orbax checkpoint
+    (compressed zstd frames) read on the card and on the CPU, leaves equal
+    bit for bit and f32 logits within FIXTURE_LOGIT_TOL; then the decoder's
+    MB/s over the fixture's chunks on one host thread."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch import native
+    from raglite_tpu_torch.models.checkpoint import load_checkpoint
+    from raglite_tpu_torch.models.decoder import DecoderModel, params_from_jax
+    from raglite_tpu_torch.models.ocdbt import OcdbtReader
+    from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+
+    on_card, cfg = load_checkpoint(ORBAX_FIXTURE, device="cuda")
+    on_cpu, _ = load_checkpoint(ORBAX_FIXTURE, device="cpu")
+    leaves_card, leaves_cpu = _tree_leaves(on_card), _tree_leaves(on_cpu)
+    assert sorted(leaves_card) == sorted(leaves_cpu)
+    assert all(_same_bits(leaves_card[k].cpu(), leaves_cpu[k]) for k in leaves_cpu)
+    model = DecoderModel(cfg)
+    ids = torch.randint(3, 259, (1, 96), generator=torch.Generator().manual_seed(5))
+    with full_f32_matmul(), _plain_attention():
+        card_params = params_from_jax(on_card, dtype=torch.float32, device="cuda")
+        card_logits = _logits_of(model, card_params, ids.cuda(), torch.float32)
+    cpu_logits = _logits_of(model, params_from_jax(on_cpu, dtype=torch.float32), ids, torch.float32)
+    err = float((card_logits.cpu() - cpu_logits).abs().max())
+    assert err <= FIXTURE_LOGIT_TOL, err
+    with OcdbtReader(ORBAX_FIXTURE / "params") as store:
+        frames = []
+        for key in store.keys():
+            if key.endswith("/.zarray"):
+                meta = json.loads(store.get(key))
+                size = int(np.prod(meta["chunks"])) * (2 if meta["dtype"] == "bfloat16" else np.dtype(meta["dtype"]).itemsize)
+                frames.append((store.get(key.replace(".zarray", ".".join("0" for _ in meta["shape"]) or "0")), size))
+    out = np.empty(max(size for _, size in frames), np.uint8)
+    compressed = sum(len(f) for f, _ in frames)
+    decoded, passes, t0 = 0, 0, time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        for frame, size in frames:
+            native.zstd_decompress(frame, out[:size])
+            decoded += size
+        passes += 1
+    seconds = time.perf_counter() - t0
+    mb_s = decoded / seconds / 1e6
+    log(f"phase 10 (f) the JAX package's orbax fixture ({len(frames)} leaves, {compressed} compressed bytes, "
+        f"{decoded // passes} decoded) read on the card and the CPU: leaves equal bit for bit, f32 logits within "
+        f"{err:.3g} (<= {FIXTURE_LOGIT_TOL}); the native zstd decoder {mb_s:.1f} MB/s decoded on one host thread "
+        f"({passes} passes in {seconds:.3f} s), on {card}")
+    return {"fixture_logit_err": err, "zstd_decode_mb_s": mb_s}
+
+
+def phase10_orbax(cfg, messages, answer: str | None, card: str, total: dict[str, int]) -> dict:
+    """Phase 10 (f): ``ckpt:`` on the card with no tensorstore, orbax or
+    zstandard.  Phase 6's seeded ``large`` (8.068 GB bf16) written by the
+    port's save_checkpoint and read back as ``jax:ckpt:<dir>``: every leaf
+    and a 2,048-token forward's logits equal bit for bit; the read-back
+    model's rag() answer to phase 6's message equal to phase 6's (``answer``;
+    computed here from the in-memory model when phase 6 did not run),
+    through the prefill and verify kernels; ``ckpt:<dir>@int8``'s logits
+    equal to the in-memory model's quantized alike; then the JAX package's
+    fixture (phase10_fixture)."""
+    import dataclasses
     import shutil
 
     import torch
 
-    from raglite_tpu_torch.models.decoder import TorchChatLLM
+    from raglite_tpu_torch import rag
+    from raglite_tpu_torch.models.decoder import TorchChatLLM, quantize_decoder_params
+    from raglite_tpu_torch.models.llm import llm_from_config
 
-    if importlib.util.find_spec("tensorstore") is None:
-        log("phase 10 (f) tensorstore is not installed on this machine: no ckpt: checkpoint read on the card "
-            "(the CPU tests cover the reader)")
-        return
-    root = scratch_dir(200_000_000, "ckpt_small_")
+    _release_llms()
+    out: dict = {}
+    root = scratch_dir(8_200_000_000, "ckpt_large_")
     try:
-        llm = TorchChatLLM("small", seed=seed, device="cuda")
+        llm = llm_from_config(dataclasses.replace(cfg, llm="jax:large"))  # phase 6's seeded weights
+        layers = llm.cfg["layers"]
+        if answer is None:
+            answer = "".join(rag([dict(m) for m in messages], config=dataclasses.replace(cfg, llm="jax:large")))
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        llm.save_checkpoint(str(root / "small"))
+        llm.save_checkpoint(str(root / "large"))
         save_s = time.perf_counter() - t0
+        nbytes = sum(f.stat().st_size for f in (root / "large").rglob("*") if f.is_file())
+        ccfg = dataclasses.replace(cfg, llm=f"jax:ckpt:{root / 'large'}")
         t0 = time.perf_counter()
-        back = TorchChatLLM(f"ckpt:{root / 'small'}", device="cuda")
+        back = llm_from_config(ccfg)
+        torch.cuda.synchronize()
         load_s = time.perf_counter() - t0
-        ids = torch.randint(3, 259, (1, 64), generator=torch.Generator(device="cuda").manual_seed(seed), device="cuda")
-        diff = float((_forward_logits(llm, ids) - _forward_logits(back, ids)).abs().max())
-        assert diff == 0.0, diff
-        log(f"phase 10 (f) ckpt: the small preset saved (orbax layout, tensorstore) in {save_s:.2f} s and read back "
-            f"in {load_s:.2f} s on {card}: logits equal to the model in memory (max |difference| {diff})")
+        want, got = _tree_leaves(llm.params), _tree_leaves(back.params)
+        assert sorted(want) == sorted(got) and all(_same_bits(want[k], got[k]) for k in want)
+        weight_bytes = _weight_bytes(back.params)
+        ids = torch.randint(3, 259, (1, 2048), generator=torch.Generator(device="cuda").manual_seed(1), device="cuda")
+        assert torch.equal(_logits_of(llm.model, llm.params, ids), _logits_of(back.model, back.params, ids))
+        log(f"phase 10 (f) ckpt: the large preset ({weight_bytes / 1e9:.3f} GB of bf16 weights, {len(want)} leaves) "
+            f"saved with the port's writer in {save_s:.2f} s ({nbytes / 1e9:.3f} GB on disk, "
+            f"{nbytes / save_s / 1e9:.2f} GB/s) and read back as jax:ckpt:<dir> onto the card in {load_s:.2f} s "
+            f"({nbytes / load_s / 1e9:.2f} GB/s), no tensorstore, orbax or zstandard: every leaf and a 2,048-token "
+            f"forward's logits equal bit for bit, on {card}")
+
+        def answered():
+            return "".join(rag([dict(m) for m in messages], config=ccfg))
+
+        launches: dict[str, int] = {}
+        t0 = time.perf_counter()
+        text = _counted(launches, answered)
+        rag_ms = (time.perf_counter() - t0) * 1e3
+        stats = dict(back.spec_stats)
+        for name, count in launches.items():
+            total[name] = total.get(name, 0) + count
+        assert text == answer, (text[:200], answer[:200])
+        assert launches["gqa_prefill_attention"] == layers, launches
+        assert launches["gqa_verify_attention"] == layers * stats["verify_iters"], (launches, stats)
+        log(f"phase 10 (f) rag() through jax:ckpt:<dir>: {stats['tokens']} tokens in {rag_ms:.1f} ms, the greedy text "
+            f"equal to phase 6's answer from the same seed ({len(text)} characters), launches {launches}")
+
+        t0 = time.perf_counter()
+        q_back = TorchChatLLM(f"ckpt:{root / 'large'}@int8", device="cuda")
+        load8_s = time.perf_counter() - t0
+        q_want = quantize_decoder_params(llm.params)
+        want8, got8 = _tree_leaves(q_want), _tree_leaves(q_back.params)
+        assert sorted(want8) == sorted(got8) and all(_same_bits(want8[k], got8[k]) for k in want8)
+        assert torch.equal(_logits_of(llm.model, q_want, ids), _logits_of(q_back.model, q_back.params, ids))
+        log(f"phase 10 (f) ckpt:<dir>@int8 loaded and quantized in {load8_s:.2f} s: int8 blocks, scales and the "
+            f"2,048-token logits equal to the in-memory model quantized alike, on {card}")
+        out.update({
+            "ckpt_save_s": save_s, "ckpt_load_s": load_s, "ckpt_bytes": nbytes, "ckpt_save_gb_s": nbytes / save_s / 1e9,
+            "ckpt_load_gb_s": nbytes / load_s / 1e9, "ckpt_int8_load_s": load8_s, "ckpt_rag_ms": rag_ms,
+        })
+        del llm, back, q_back, q_want, want, got, want8, got8
     finally:
+        _release_llms()
         shutil.rmtree(root, ignore_errors=True)
+    out.update(phase10_fixture(card))
+    return out
 
 
 def pick_queries(texts: list[str], count: int, seed: int) -> list[str]:
@@ -4698,7 +4915,8 @@ def main() -> int:
         launches10: dict[str, int] = {}
         phase10_decoder(cfg, vs_q[0], messages, args.seed, card, launches10)
         phase10_encoder(texts, vs_q, args.rows, args.seed, card, launches10)
-        phase10_orbax(card, args.seed)
+        orbax10 = phase10_orbax(cfg, messages, None, card, launches10)
+        log(f"phase 10 (f) summary on {card}: {json.dumps(orbax10)}")
         log(f"phase 10 launches {launches10}; partial run (--only phase10): no result line")
         return 0
 
@@ -4824,8 +5042,8 @@ def main() -> int:
 
     # 10. Real checkpoints: a Qwen3-4B-shaped hf: checkpoint (bf16 and
     # @int8) answering over the phase-3 store, a bge-m3-shaped encoder at
-    # d = 1,024 in a fresh store (phase-3's replaced), ckpt: where
-    # tensorstore is installed.  Phase 6's `large` goes first.
+    # d = 1,024 in a fresh store (phase-3's replaced), ckpt: (orbax) of
+    # that encoder and of phase 6's `large`.  Phase 6's `large` goes first.
     peak_before = torch.cuda.max_memory_allocated()
     _release_llms()
     log(f"phase 10: phase 6's large preset released ({torch.cuda.memory_allocated() / 1e9:.3f} GB still allocated; "
@@ -4833,10 +5051,11 @@ def main() -> int:
     phase10_launches: dict[str, int] = {}
     decoder10 = phase10_decoder(cfg, vs_q[0], answer["messages"], args.seed, card, phase10_launches)
     encoder10 = phase10_encoder(texts, vs_q, PHASE10_ROWS, args.seed, card, phase10_launches)
-    phase10_orbax(card, args.seed)
+    orbax10 = phase10_orbax(cfg, answer["messages"], answer["answer"], card, phase10_launches)
     summary10 = {k: v for k, v in decoder10.items() if k != "timings"}
     summary10["int8"] = {k: v for k, v in decoder10["int8"].items() if k != "matmuls"}
     summary10.update({k: v for k, v in encoder10.items() if k != "timings"})
+    summary10["orbax"] = orbax10
     log(f"phase 10 summary on {card}: {json.dumps({**summary10, 'launches': phase10_launches})}")
     for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase10_launches.get(name, 0) > 0, (name, phase10_launches)

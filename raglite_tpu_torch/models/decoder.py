@@ -262,8 +262,9 @@ _F32_LEAVES = frozenset({
 
 
 def _host_tensor(x) -> torch.Tensor:
-    """A torch tensor of any array numpy can read; bf16 arrays (ml_dtypes,
-    as JAX and tensorstore return them) through their 2-byte words."""
+    """A torch tensor of a tensor (as ``load_checkpoint`` returns them) or of
+    any array numpy can read; bf16 arrays (JAX's) through their 2-byte
+    words."""
     if isinstance(x, torch.Tensor):
         return x
     arr = np.asarray(x)
@@ -757,7 +758,7 @@ class TorchChatLLM:
         if spec.startswith("ckpt:"):
             from raglite_tpu_torch.models.checkpoint import load_checkpoint
 
-            tree, cfg = load_checkpoint(spec.removeprefix("ckpt:"))
+            tree, cfg = load_checkpoint(spec.removeprefix("ckpt:"), device=self.device)
             # The weights keep the dtype they were saved in, as in the JAX
             # package.
             params = params_from_jax(tree, dtype=_host_tensor(tree["tok_emb"]).dtype, device=self.device)

@@ -255,7 +255,7 @@ class TransformerEncoder:
         if spec.startswith("ckpt:"):
             from raglite_tpu_torch.models.checkpoint import load_checkpoint
 
-            params, cfg = load_checkpoint(spec.removeprefix("ckpt:"))
+            params, cfg = load_checkpoint(spec.removeprefix("ckpt:"), device=device)
             model = EncoderModel.from_params(cfg, params, dtype=dtype, device=device)
             tokenizer = ByteTokenizer(vocab_size=cfg["vocab"])
         elif os.path.isdir(spec) and os.path.exists(os.path.join(spec, "encoder.npz")):

@@ -171,11 +171,15 @@ class EncoderModel(nn.Module):
 def params_from_jax(params: dict[str, Any], *, dtype: torch.dtype = torch.bfloat16) -> dict[str, torch.Tensor]:
     """The JAX package's encoder parameter tree (``tok_emb``, ``pos_emb``,
     ``emb_ln_*``, ``layers[i].{wq, bq, ...}``, optional ``final_ln_*``; any
-    array type numpy can read) -> this module's state dict.  Matrices take
-    ``dtype`` (rounded to nearest even, as ``jnp.asarray`` does), vectors
-    stay f32, and linear weights are transposed to ``[d_out, d_in]``."""
+    array type numpy can read, or torch tensors) -> this module's state
+    dict.  Matrices take ``dtype`` (rounded to nearest even, as
+    ``jnp.asarray`` does), vectors stay f32, and linear weights are
+    transposed to ``[d_out, d_in]``."""
 
     def tensor(value: Any, *, transpose: bool = False) -> torch.Tensor:
+        if isinstance(value, torch.Tensor):  # a ckpt: leaf, already on its device
+            t = value.T if transpose else value
+            return t.to(dtype if t.ndim >= 2 else torch.float32).contiguous()
         arr = np.asarray(value, dtype=np.float32)
         t = torch.from_numpy(np.array(arr.T if transpose else arr, order="C"))
         return t.to(dtype) if arr.ndim >= 2 else t

@@ -12,8 +12,12 @@ raglite_tpu/native/__init__.py, which the port never imports):
 - ``hnsw.cpp``: the first-party HNSW graph (:class:`HnswIndex`), the recall
   baseline irbench.py measures the dense index against; a copy of the JAX
   package's, so that the same vectors and seed give the same ids and scores.
+- ``zstd.cpp``: a zstd frame decoder (RFC 8878), a raw-block frame writer
+  and CRC32C, the codecs of orbax's OCDBT/zarr checkpoints
+  (models/ocdbt.py, models/checkpoint.py).  These have no Python fallback:
+  :func:`require_native` raises with the build's error.
 
-Both sources go into one library, built with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
+The sources go into one library, built with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
 into ``raglite_tpu_torch/_build/``, beside the CUDA kernels, under a file
 lock (several processes may start at once) and moved into place whole.  If
 the build fails (no toolchain), callers take the pure-Python
@@ -35,16 +39,18 @@ import numpy as np
 
 logger = logging.getLogger(__name__)
 
-_SOURCES = (Path(__file__).parent / "postings.cpp", Path(__file__).parent / "hnsw.cpp")
+_SOURCES = tuple(Path(__file__).parent / name for name in ("postings.cpp", "hnsw.cpp", "zstd.cpp"))
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _LIB_PATH = _BUILD_DIR / "libraglite_native.so"
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
 _LIB_FAILED = False
+_BUILD_ERROR = ""
 
 
 def _compile() -> Path | None:
     """Build the library unless a copy newer than every source exists."""
+    global _BUILD_ERROR
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(_BUILD_DIR / "native.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -55,6 +61,8 @@ def _compile() -> Path | None:
         try:
             subprocess.run(cmd, check=True, capture_output=True, timeout=300)
         except (subprocess.SubprocessError, FileNotFoundError) as exc:
+            stderr = getattr(exc, "stderr", None) or b""
+            _BUILD_ERROR = f"{exc}\n{stderr.decode(errors='replace')[-4000:]}".strip()
             logger.warning("native library build failed (%s); using the Python fallback", exc)
             tmp.unlink(missing_ok=True)
             return None
@@ -126,12 +134,78 @@ def load_native() -> ctypes.CDLL | None:
         lib.rlt_hnsw_memory_bytes.restype = c_i64
         lib.rlt_hnsw_search.argtypes = [c_void, c_void, c_i64, c_i32, c_i32, c_void, c_void]
         lib.rlt_hnsw_search.restype = None
+        lib.rlt_zstd_error.argtypes = []
+        lib.rlt_zstd_error.restype = c_char_p
+        lib.rlt_zstd_decompress.argtypes = [c_void, c_i64, c_void, c_i64, c_i32]
+        lib.rlt_zstd_decompress.restype = c_i64
+        lib.rlt_zstd_raw_frame_size.argtypes = [c_i64]
+        lib.rlt_zstd_raw_frame_size.restype = c_i64
+        lib.rlt_zstd_raw_frame.argtypes = [c_void, c_i64, c_void]
+        lib.rlt_zstd_raw_frame.restype = c_i64
+        lib.rlt_crc32c.argtypes = [c_void, c_i64, c_u32]
+        lib.rlt_crc32c.restype = c_u32
         _LIB = lib
         return _LIB
 
 
 def native_available() -> bool:
     return load_native() is not None
+
+
+def require_native() -> ctypes.CDLL:
+    """The native library, or a RuntimeError naming why it did not build
+    (for the callers that have no Python fallback)."""
+    lib = load_native()
+    if lib is None:
+        msg = f"the native library (raglite_tpu_torch/native/*.cpp, built with g++) is unavailable: {_BUILD_ERROR or 'not built'}"
+        raise RuntimeError(msg)
+    return lib
+
+
+def _address(buf, *, writable: bool = False) -> tuple[int, int]:
+    """(address, bytes) of a C-contiguous host buffer: a CPU torch tensor, a
+    numpy array or (read-only) any bytes-like object."""
+    if hasattr(buf, "data_ptr"):  # torch.Tensor
+        if buf.device.type != "cpu" or not buf.is_contiguous():
+            msg = "expected a contiguous CPU tensor"
+            raise ValueError(msg)
+        return buf.data_ptr(), buf.numel() * buf.element_size()
+    arr = buf if isinstance(buf, np.ndarray) else np.frombuffer(buf, np.uint8)
+    if not arr.flags.c_contiguous or (writable and not arr.flags.writeable):
+        msg = "expected a C-contiguous" + (" writable" if writable else "") + " buffer"
+        raise ValueError(msg)
+    return arr.ctypes.data, arr.nbytes
+
+
+def zstd_decompress(src, out, *, exact: bool = True) -> int:
+    """Decode the zstd frames of ``src`` into ``out`` (a writable CPU tensor
+    or numpy array), which they must fill when ``exact``; returns the bytes
+    written.  Raises ValueError on a truncated or corrupt input, a bad
+    content checksum or an output of another size than expected."""
+    lib = require_native()
+    src_ptr, src_len = _address(src)
+    dst_ptr, dst_len = _address(out, writable=True)
+    n = lib.rlt_zstd_decompress(src_ptr, src_len, dst_ptr, dst_len, int(exact))
+    if n < 0:
+        raise ValueError(lib.rlt_zstd_error().decode())
+    return int(n)
+
+
+def zstd_raw_frame(data) -> np.ndarray:
+    """One zstd frame of raw (stored) blocks holding ``data``: valid zstd
+    that any decoder reads, written at memcpy speed."""
+    lib = require_native()
+    ptr, n = _address(data)
+    out = np.empty(lib.rlt_zstd_raw_frame_size(n), np.uint8)
+    written = lib.rlt_zstd_raw_frame(ptr, n, out.ctypes.data)
+    return out[:written]
+
+
+def crc32c(data) -> int:
+    """CRC32C (Castagnoli) of ``data``, as OCDBT's manifests and nodes end."""
+    lib = require_native()
+    ptr, n = _address(data)
+    return int(lib.rlt_crc32c(ptr, n, 0))
 
 
 class NativePostingsBuilder:

@@ -2,7 +2,8 @@
 keyword index with its native loader, BM25 and RRF ops, deletes, the
 decoder LLM, speculation, the grammar automata, the hash table draw, the
 LLM factory, rag, the attention ops, extraction, evals, the query adapter
-and its NNLS op, the safetensors and checkpoint readers, the int8
+and its NNLS op, the safetensors and checkpoint readers (OCDBT and zstd
+included), the int8
 matmuls, the document converters, the boundary model, the tracer, the
 micro-batcher, the MCP server, the web chat, the CLI, the multi-GPU
 modules, the IR benchmark with its HNSW baseline and the tokenizer's
@@ -43,6 +44,7 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.extract, raglite_tpu_torch.evals, raglite_tpu_torch.query_adapter
         import raglite_tpu_torch.ops.nnls
         import raglite_tpu_torch.models.safetensors_io, raglite_tpu_torch.models.checkpoint
+        import raglite_tpu_torch.models.ocdbt
         import raglite_tpu_torch.ops.quant_matmul, raglite_tpu_torch.models.transformer
         import raglite_tpu_torch.markdown, raglite_tpu_torch.utils.pdf, raglite_tpu_torch.utils.office
         import raglite_tpu_torch.models.boundary, raglite_tpu_torch.models.boundary_data
@@ -85,6 +87,29 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_ckpt_load_leaves_storage_packages_unloaded(tmp_path) -> None:
+    """A ``ckpt:`` load of the committed orbax fixture (compressed zstd
+    frames in OCDBT) and a save and load of the port's own leave
+    tensorstore, ml_dtypes, zstandard, orbax and JAX unloaded: the card's
+    machine has none of them."""
+    code = textwrap.dedent(
+        f"""
+        import sys
+        from raglite_tpu_torch.models.decoder import TorchChatLLM
+        llm = TorchChatLLM("ckpt:tests/data/orbax_tiny", device="cpu")
+        llm.save_checkpoint({str(tmp_path / "ck")!r})
+        back = TorchChatLLM("ckpt:{tmp_path / "ck"}@int8", device="cpu")
+        assert back.cfg == llm.cfg
+        loaded = {{m.split(".")[0] for m in sys.modules}}
+        bad = loaded & {{"tensorstore", "ml_dtypes", "zstandard", "orbax", "jax", "raglite_tpu"}}
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyPatch) -> None:
     from raglite_tpu_torch import RAGLiteConfig
     from raglite_tpu_torch.search import vector_search
@@ -119,7 +144,7 @@ def test_boundary_model_on_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyP
     assert default_model("cpu") is not None
 
 
-def test_multi_gpu_is_not_ported_yet() -> None:
+def test_multi_gpu_is_ported() -> None:
     """Multi-GPU indexes are ported: ``num_devices`` no longer raises, and
     asking for the card's shards where there is no card still does."""
     from raglite_tpu_torch import RAGLiteConfig
