@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
-query-adapter, checkpoint, ingestion-to-surface, multi-GPU and IR-benchmark
-paths once on one NVIDIA GPU.
+query-adapter, checkpoint, ingestion-to-surface, multi-GPU, IR-benchmark and
+CUDA-graph decode paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -226,12 +226,34 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    ``bench --num-queries 16`` and ``bench --hnsw-recall --num-rows 1000``
    through the CLI in fresh processes, started as (c) starts and run
    beside it.
+14. The decode programs as CUDA graphs (after phase 8, on phase 6's `large`
+   object and RAG prompt; ``RAGLITE_TPU_SPECULATE`` set per run): (a) the
+   decode step (B = 1, greedy), (b) the verify iteration (T = 8, one a
+   chunk), (c) the one-token forward and (d) the batch step (B = 8, T =
+   4,096), each first called (its eager warm-up and its capture) under
+   ``torch.cuda.set_sync_debug_mode("error")``, then held to the module's
+   eager function (``_decode_chunk_device``, ``speculate_chunk_device``,
+   ``_forward_one``, ``_forward_step_batch``) step by step on a copy of the
+   cache: tokens equal, logits bit for bit or within PHASE14_LOGIT_RTOL of
+   the largest |logit|; capture ms, device ops a replay, launches counted
+   through replays (as many as the eager steps'), the idle share of a decode
+   chunk from the graph and eager, the sampled forms captured too, the
+   kernels' ticket counters zero after; (e) through ``_generate_tokens``:
+   plain greedy, greedy speculative and sampled streams of PHASE14_TOKENS
+   from the graphs against the eager reference on the same prompt (greedy
+   tokens equal; the sampled stream repeats under one seed and equals the
+   eager one unless the step logits differed), tokens/s, time to first
+   token, peak and held memory; (f) a schema-constrained answer (ms a
+   token); (g) complete_batch of 8 at T = 4,096, greedy and under the
+   metadata schema; (h) two threads answering at once, equal to the same
+   calls one after the other.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
 at ``--rows``; ``--only phase12`` runs phase 3's store at ``--rows`` and
-phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``
-(none of them prints a result line).
+phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``;
+``--only phase14`` runs phase 3's store at ``--rows``, loads `large` and
+runs phase 14 on phase 6's RAG prompt (none of them prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -972,11 +994,11 @@ def _timed_tokens(tokens) -> tuple[list[int], float, float]:
     return out, first or 0.0, (time.perf_counter() - t0) * 1e3
 
 
-def _profile_window(fn, what: str, card: str) -> int:
+def _profile_window(fn, what: str, card: str) -> tuple[int, float]:
     """One torch.profiler window over ``fn`` (warm): the device's busy time
     by kernel and its idle share of the window (the profiler's own host
     overhead is inside the window, so the idle share is an upper bound).
-    Returns the number of device operations in the window."""
+    Returns (device operations in the window, idle share)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -999,7 +1021,7 @@ def _profile_window(fn, what: str, card: str) -> int:
     )
     for name, us, count in kernels[:12]:
         log(f"  profile: {us / 1e3:9.3f} ms  {count:5d}x  {name[:110]}")
-    return sum(k[2] for k in kernels)
+    return sum(k[2] for k in kernels), 1 - busy_us / wall_us
 
 
 def profile_decode(llm, ids, lens, rag_s: int, card: str) -> None:
@@ -1243,6 +1265,22 @@ def _within_budget(schema, tokens: list[int], budget: int) -> bool:
     return fed == budget and bytes(data[fed:]) == automaton.completion_bytes()
 
 
+#: The response format expand_document_metadata sends for METADATA_SCHEMA.
+METADATA_FORMAT = {"type": "json_schema", "json_schema": {
+    "name": "DocumentMetadata", "description": "", "schema": METADATA_SCHEMA, "strict": False,
+}}
+
+
+def _batch_convs() -> list[list[dict]]:
+    """Phase 8 (c)'s batch: expand_document_metadata's system prompt over
+    BATCH_DOCS clipped to BATCH_CLIPS bytes (ragged, T = 4,096)."""
+    docs = [(ROOT / f).read_text(encoding="utf-8") for f in BATCH_DOCS]
+    return [
+        [{"role": "system", "content": METADATA_SYSTEM_PROMPT}, {"role": "user", "content": d.encode("utf-8")[:n].decode("utf-8", "ignore")}]
+        for d, n in zip(docs, BATCH_CLIPS)
+    ]
+
+
 def structured_generation(cfg, sentences: list[str], seed: int, card: str) -> dict:
     """Phase 8 (a)-(c): schema-constrained, forced-tool and batched
     generation on the `large` preset that phase 6 loaded (the same object).
@@ -1310,14 +1348,7 @@ def structured_generation(cfg, sentences: list[str], seed: int, card: str) -> di
 
     # (c) complete_batch of 8 ragged conversations, unconstrained then under
     # expand_document_metadata's schema.
-    docs = [(ROOT / f).read_text(encoding="utf-8") for f in BATCH_DOCS]
-    convs = [
-        [{"role": "system", "content": METADATA_SYSTEM_PROMPT}, {"role": "user", "content": d.encode("utf-8")[:n].decode("utf-8", "ignore")}]
-        for d, n in zip(docs, BATCH_CLIPS)
-    ]
-    metadata_format = {"type": "json_schema", "json_schema": {
-        "name": "DocumentMetadata", "description": "", "schema": METADATA_SCHEMA, "strict": False,
-    }}
+    convs = _batch_convs()
     budget = 64
     recorded: list = []
     generate = llm._generate_batch
@@ -1329,7 +1360,7 @@ def structured_generation(cfg, sentences: list[str], seed: int, card: str) -> di
     llm._generate_batch = recording
     runs = {}
     try:
-        for kind, rf in (("greedy", None), ("schema", metadata_format)):
+        for kind, rf in (("greedy", None), ("schema", METADATA_FORMAT)):
             _reset_attention_launches()
             t0 = time.perf_counter()
             responses = llm.complete_batch(convs, response_format=rf, max_tokens=budget)
@@ -3267,7 +3298,7 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
             + (f", {p['postings']} postings read, lcap {p['lcap']}" if "postings" in p else ""))
     out["programs"] = programs
     if profile:
-        ops = _profile_window(
+        ops, _ = _profile_window(
             lambda: [hybrid_search(q, num_results=10, config=cfg) for q in queries], f"{len(queries)} hybrid_search calls", card
         )
         log(f"device operations per hybrid_search call: {ops / len(queries):.1f} on {card}")
@@ -4838,6 +4869,509 @@ def phase13(rows: int, seed: int, card: str, total: dict[str, int]) -> dict:
     return out
 
 
+#: Phase 14: new tokens each path generates for the graph-against-eager
+#: comparison (4 decode chunks).
+PHASE14_TOKENS = 128
+#: Phase 14: how far a graph step's logits may lie from the eager step's on
+#: the same inputs, as a share of the largest |logit|.  Expected: 0, bit for
+#: bit (the same kernels and cuBLAS calls in the same order).  The bound is
+#: room for cuBLAS choosing another algorithm, another bf16 summation order,
+#: under capture: phase 12 measured two summation orders of `large`'s forward
+#: 0.0203 of the largest |logit| apart.
+PHASE14_LOGIT_RTOL = 0.02
+#: Phase 14 (e): the question answered beside phase 6's RAG prompt.
+PHASE14_QUESTION = "Name three things a retrieval-augmented answer depends on."
+
+
+def _prefilled(llm, prompts: list[str], max_new: int):
+    """``TorchChatLLM``'s prefill of ``prompts`` on the current stream (B = 1
+    as ``_generate_tokens`` pads it; more as ``_generate_batch``: rows to a
+    multiple of 8): (prompt ids per row, cache, lens [B], last logits [B, V],
+    max_total)."""
+    import torch
+
+    from raglite_tpu_torch.models.decoder import DECODE_CHUNK, _bucket, _prefill_last
+    from raglite_tpu_torch.utils.padding import round_up
+
+    tok = llm.tokenizer
+    budget = max(llm.context_size - max_new - 1, 16)
+    encoded = [([tok.BOS] if llm._byte_level else []) + tok.encode(p)[-budget:] for p in prompts]
+    rows = 1 if len(prompts) == 1 else round_up(len(prompts), 8)
+    pad = _bucket(max(len(ids) for ids in encoded))
+    ids = torch.full((rows, pad), tok.PAD, dtype=torch.int64)
+    lens = torch.ones((rows,), dtype=torch.int64)
+    for i, row in enumerate(encoded):
+        ids[i, : len(row)] = torch.tensor(row)
+        lens[i] = len(row)
+    max_total = pad + _bucket(max_new) + DECODE_CHUNK
+    cache = llm.model.init_cache(rows, max_total, device=llm.device)
+    lens = lens.to(llm.device)
+    last, cache = _prefill_last(llm.model, llm.params, ids.to(llm.device), cache, lens)
+    return encoded, cache, lens, last, max_total
+
+
+def _eager_tokens(llm, prompt: str, *, max_new: int, speculate: bool, seed: int = 0, **sampling):
+    """The eager reference of ``TorchChatLLM._generate_tokens`` (no
+    automaton), as a token iterator: the same prefill, then the module's
+    eager chunk functions (``_decode_chunk_device`` or
+    ``speculate_chunk_device``), one fetch a chunk, on the current stream,
+    with no CUDA graph."""
+    import torch
+
+    from raglite_tpu_torch.models.decoder import DECODE_CHUNK, SPEC_DRAFT_LEN, _decode_chunk_device
+    from raglite_tpu_torch.models.speculative import _NO_TOKEN, speculate_chunk_device
+
+    sampling = {"temperature": 0.0, "top_p": 1.0, "top_k": 0, "min_p": 0.0, **sampling}
+    (ids,), cache, lens, last, max_total = _prefilled(llm, [prompt], max_new)
+    mask = torch.from_numpy(llm._base_mask()).to(llm.device)
+    stops = llm._stop_ids_device()
+    gen = torch.Generator(device=llm.device).manual_seed(seed)
+    done = torch.zeros((1,), dtype=torch.bool, device=llm.device)
+    emitted = 0
+    if speculate:
+        hist = torch.full((1, max_total), llm.tokenizer.PAD, dtype=torch.int64, device=llm.device)
+        hist[0, : len(ids)] = torch.tensor(ids)
+        hl = torch.tensor([len(ids)], device=llm.device)
+        reject = torch.full((1,), -1, dtype=torch.int64, device=llm.device)
+        while emitted < max_new:
+            out, cache, lens, last, reject, done, hist, hl, _ = speculate_chunk_device(
+                llm.model, cache, llm.params, lens, last, reject, mask, done, stops, gen, hist, hl,
+                num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(llm.tokenizer.PAD), **sampling,
+            )
+            chunk = [t for t in out[0].tolist() if t != _NO_TOKEN][: max_new - emitted]
+            yield from chunk
+            emitted += len(chunk)
+            if bool(done[0]) or not chunk:
+                return
+        return
+    while emitted < max_new:
+        out, cache, lens, last, done = _decode_chunk_device(
+            llm.model, cache, llm.params, lens, last, mask, done, stops, gen, num_steps=DECODE_CHUNK, **sampling,
+        )
+        for t in out[0].tolist():
+            if t == _NO_TOKEN or emitted >= max_new:
+                return
+            yield t
+            emitted += 1
+
+
+@contextlib.contextmanager
+def _sync_errors():
+    """``torch.cuda.set_sync_debug_mode("error")`` for the block: any
+    synchronizing call (a host read) raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _first_call_checked(step) -> None:
+    """A StepGraph's first call (the eager warm-up, then the capture) with
+    every synchronizing call an error."""
+    assert step.graph is None and step.capture
+    with _sync_errors():
+        step()
+    assert step.graph is not None
+
+
+def _launches_since(before: dict[str, int]) -> dict[str, int]:
+    """The attention kernels' launches since ``before`` (an
+    ``_attention_launches()``), the counts themselves left running."""
+    return {name: n - before[name] for name, n in _attention_launches().items()}
+
+
+def _counters_zero() -> bool:
+    """Every ticket counter the decode/verify kernel keeps, on every
+    stream, is zero (as the kernel leaves them after each launch)."""
+    import torch
+
+    from raglite_tpu_torch.ops import decode_attention as da
+
+    torch.cuda.synchronize()
+    return all(int(torch.count_nonzero(counters)) == 0 for pairs in da._scratch.values() for _, counters in pairs)
+
+
+def _held_to_eager(name: str, pairs, tokens_graph: list[int], tokens_eager: list[int], card: str) -> dict:
+    """Step by step: the graph's logits against the eager function's (pairs
+    of [.., V] tensors), bit-equal steps and the largest difference (held to
+    PHASE14_LOGIT_RTOL of the largest |logit|), and the tokens (equal)."""
+    import torch
+
+    bit_equal = sum(torch.equal(a, b) for a, b in pairs)
+    diff = float(torch.stack([(a - b).abs().max() for a, b in pairs]).max())
+    scale = float(torch.stack([b.abs().max() for _, b in pairs]).max())
+    log(f"phase 14 {name}: {len(pairs)} steps, logits bit-equal in {bit_equal}, largest |difference| {diff:.6g} "
+        f"({diff / scale:.3g} of the largest |logit| {scale:.4g}; bound {PHASE14_LOGIT_RTOL}), tokens equal "
+        f"{tokens_graph == tokens_eager} ({len(tokens_graph)}), on {card}")
+    assert tokens_graph == tokens_eager, (name, tokens_graph, tokens_eager)
+    assert diff <= PHASE14_LOGIT_RTOL * scale, (name, diff, scale)
+    return {"steps": len(pairs), "bit_equal": bit_equal, "max_abs_diff": diff, "max_abs_logit": scale}
+
+
+def phase14_steps(llm, prompt: str, batch_prompts: list[str], card: str) -> dict:
+    """Phase 14 (a)-(d): each step form at the prompts' shapes, its first
+    call (warm-up and capture) with every synchronizing call an error, then
+    held to the module's eager function step by step on a copy of the cache:
+    (a) the decode step (B = 1, PHASE14_TOKENS steps), (b) the verify
+    iteration (one a chunk of K + 1 tokens), (c) the one-token forward, (d)
+    the batch step (B = 8, T = 4,096).  Capture ms, device ops of one
+    replay, launches counted through replays, the idle share of a decode
+    chunk from the graph and eager, and the ticket counters after."""
+    import torch
+
+    from raglite_tpu_torch.models import decoder as dec
+    from raglite_tpu_torch.models import speculative as spec
+    from raglite_tpu_torch.utils import graphs
+
+    layers, device, model, params = llm.cfg["layers"], llm.device, llm.model, llm.params
+    greedy = {"temperature": 0.0, "top_p": 1.0, "top_k": 0, "min_p": 0.0}
+    mask = torch.from_numpy(llm._base_mask()).to(device)
+    stops = llm._stop_ids_device()
+    out: dict = {}
+
+    def copied(cache):
+        return {k: [t.clone() for t in v] for k, v in cache.items()}
+
+    # (a) The decode step against _decode_chunk_device(num_steps=1).
+    with graphs.generation_stream(llm._graph_device()) as stream, graphs.on_stream(stream):
+        _, cache, lens, last, _ = _prefilled(llm, [prompt], PHASE14_TOKENS)
+        cache_e = copied(cache)
+        done = torch.zeros((1,), dtype=torch.bool, device=device)
+        gen_g, gen_e = (torch.Generator(device=device).manual_seed(0) for _ in range(2))
+        loop = dec._DecodeLoop(model, cache, params, lens, last, mask, done, stops, gen_g, num_steps=dec.DECODE_CHUNK, **greedy)
+        carry = (lens, last, done)
+        pairs, tok_g, tok_e = [], [], []
+        before = _attention_launches()
+        for i in range(PHASE14_TOKENS):
+            if i == 0:
+                _first_call_checked(loop.graph)
+            else:
+                loop.graph()
+            e_out, cache_e, *carry = dec._decode_chunk_device(
+                model, cache_e, params, *carry[:2], mask, carry[2], stops, gen_e, num_steps=1, **greedy,
+            )
+            pairs.append((loop.last.clone(), carry[1]))
+            tok_g.append(loop.out[0, i % dec.DECODE_CHUNK].clone())
+            tok_e.append(e_out[0, 0])
+        launches = _launches_since(before)
+        decode = _held_to_eager("decode step (B = 1, greedy)", pairs, torch.stack(tok_g).tolist(), torch.stack(tok_e).tolist(), card)
+        # The warm-up's launches, one replay's a step after it, and the eager
+        # reference's: as many from the graph as from eager calls.
+        assert launches["gqa_decode_attention"] == 2 * layers * PHASE14_TOKENS, launches
+        decode.update(capture_ms=loop.graph.capture_ms, recorded={name: n for _, name, n in loop.graph.recorded})
+        decode["device_ops_replay"], _ = _profile_window(loop.graph, "one decode step replayed from its graph", card)
+
+        def eager_chunk():
+            dec._decode_chunk_device(
+                model, cache_e, params, carry[0].clone(), carry[1], mask, carry[2], stops, gen_e,
+                num_steps=dec.DECODE_CHUNK, **greedy,
+            )
+
+        _, decode["idle_share_graph"] = _profile_window(loop.chunk, f"one decode chunk ({dec.DECODE_CHUNK} steps) from the graph", card)
+        decode["device_ops_eager"], decode["idle_share_eager"] = _profile_window(
+            eager_chunk, f"one eager decode chunk ({dec.DECODE_CHUNK} steps)", card,
+        )
+        decode["device_ops_eager"] //= dec.DECODE_CHUNK
+        out["decode"] = decode
+        del loop, cache, cache_e
+    assert _counters_zero()
+
+    # (b) The verify iteration: SpeculativeLoop and speculate_chunk_device
+    # with num_tokens = K + 1, one iteration a call.
+    k = dec.SPEC_DRAFT_LEN
+    with graphs.generation_stream(llm._graph_device()) as stream, graphs.on_stream(stream):
+        (ids,), cache, lens, last, max_total = _prefilled(llm, [prompt], PHASE14_TOKENS)
+        cache_e = copied(cache)
+        hist = torch.full((1, max_total), llm.tokenizer.PAD, dtype=torch.int64, device=device)
+        hist[0, : len(ids)] = torch.tensor(ids)
+        state = (lens, last, torch.full((1,), -1, dtype=torch.int64, device=device),
+                 torch.zeros((1,), dtype=torch.bool, device=device), hist, torch.tensor([len(ids)], device=device))
+        gen = torch.Generator(device=device).manual_seed(0)
+        kw = dict(num_tokens=k + 1, draft_len=k, pad_id=int(llm.tokenizer.PAD), **greedy)
+        loop = spec.SpeculativeLoop(model, cache, params, *state[:3], mask, state[3], stops, gen, *state[4:], **kw)
+        pairs, tok_g, tok_e = [], [], []
+        before = _attention_launches()
+        while len(tok_g) < PHASE14_TOKENS and not bool(loop.done[0]):
+            if loop.graph.graph is None:  # the chunk's first iteration, by hand
+                loop.out.fill_(spec._NO_TOKEN)
+                loop.out_len.zero_()
+                loop._set_active()
+                _first_call_checked(loop.graph)
+                got = loop.out[:, : k + 1]
+            else:
+                got, iters = loop.chunk()
+                assert iters == 1, iters
+            e_out, cache_e, *carry, _ = spec.speculate_chunk_device(
+                model, cache_e, params, state[0], state[1], state[2], mask, state[3], stops, gen, state[4], state[5], **kw,
+            )
+            state = tuple(carry)
+            pairs.append((loop.logits.clone(), state[1]))
+            tok_g += [t for t in got[0].tolist() if t != spec._NO_TOKEN]
+            tok_e += [t for t in e_out[0].tolist() if t != spec._NO_TOKEN]
+        launches = _launches_since(before)
+        verify = _held_to_eager(f"verify iteration (B = 1, T = {k + 1}, greedy)", pairs, tok_g, tok_e, card)
+        assert launches["gqa_verify_attention"] == 2 * layers * len(pairs), launches
+        verify.update(capture_ms=loop.graph.capture_ms, recorded={name: n for _, name, n in loop.graph.recorded},
+                      tokens_per_iteration=len(tok_g) / len(pairs))
+        verify["device_ops_replay"], _ = _profile_window(loop.graph, f"one verify iteration (T = {k + 1}) from its graph", card)
+        # The sampled forms (the generator registered with the graph) are
+        # captured with every synchronizing call an error too, then replayed
+        # for a chunk, on the reference's cache.
+        sampled = {**greedy, **llm.RECOMMENDED_SAMPLING}
+        verify["sampled_capture_ms"] = []
+        for sampled_loop in (
+            dec._DecodeLoop(model, cache_e, params, state[0], state[1], mask, state[3], stops, gen,
+                            num_steps=dec.DECODE_CHUNK, **sampled),
+            spec.SpeculativeLoop(model, cache_e, params, *state[:3], mask, state[3], stops, gen, *state[4:],
+                                 **{**kw, "num_tokens": dec.DECODE_CHUNK, **sampled}),
+        ):
+            if isinstance(sampled_loop, spec.SpeculativeLoop):
+                sampled_loop._set_active()
+            _first_call_checked(sampled_loop.graph)
+            sampled_loop.chunk()
+            verify["sampled_capture_ms"].append(sampled_loop.graph.capture_ms)
+        out["verify"] = verify
+        del loop, sampled_loop, cache, cache_e
+    assert _counters_zero()
+
+    # (c) The one-token forward against _forward_one; (d) the batch step
+    # against _forward_step_batch, on seeded tokens.
+    rng = torch.Generator().manual_seed(14)
+    with graphs.generation_stream(llm._graph_device()) as stream, graphs.on_stream(stream):
+        (ids,), cache, _, _, _ = _prefilled(llm, [prompt], PHASE14_TOKENS)
+        cache_e = copied(cache)
+        one = dec._ForwardOne(model, params, cache, len(ids), device)
+        tokens = torch.randint(3, 259, (32,), generator=rng).tolist()
+        pairs = []
+        for i, token in enumerate(tokens):
+            if i == 0:
+                one.tok.fill_(token)
+                _first_call_checked(one.graph)
+                got = one.logits
+            else:
+                got = one(token)
+            pairs.append((got.clone(), dec._forward_one(model, params, token, cache_e, len(ids) + i)))
+        forward_one = _held_to_eager("one-token forward (B = 1)", pairs, [], [], card)
+        forward_one["capture_ms"] = one.graph.capture_ms
+        forward_one["ms_graph"] = median_ms(lambda: one(tokens[0]).cpu(), reps=5, inner=4, warmup=1)
+        forward_one["ms_eager"] = median_ms(
+            lambda: dec._forward_one(model, params, tokens[0], cache_e, len(ids)).cpu(), reps=5, inner=4, warmup=1,
+        )
+        out["forward_one"] = forward_one
+        del one, cache, cache_e
+
+        encoded, cache, lens, _, _ = _prefilled(llm, batch_prompts, 64)
+        cache_e = copied(cache)
+        batch = dec._ForwardBatch(model, params, cache, lens)
+        pairs, e_lens = [], lens
+        for i in range(16):
+            step_tokens = torch.randint(3, 259, (lens.shape[0],), generator=rng)
+            if i == 0:
+                batch.tokens.copy_(step_tokens.to(device))
+                _first_call_checked(batch.graph)
+                got = batch.logits
+            else:
+                got = batch(step_tokens)
+            pairs.append((got.clone(), dec._forward_step_batch(model, params, step_tokens.to(device), cache_e, e_lens)))
+            e_lens = e_lens + 1
+        forward_batch = _held_to_eager(f"batch step (B = {lens.shape[0]}, T = 1)", pairs, [], [], card)
+        forward_batch["capture_ms"] = batch.graph.capture_ms
+        forward_batch["ms_graph"] = median_ms(lambda: batch(step_tokens).cpu(), reps=5, inner=4, warmup=1)
+        forward_batch["ms_eager"] = median_ms(
+            lambda: dec._forward_step_batch(model, params, step_tokens.to(device), cache_e, e_lens).cpu(), reps=5, inner=4, warmup=1,
+        )
+        out["forward_batch"] = forward_batch
+        del batch, cache, cache_e
+    assert _counters_zero()
+    for name in ("decode", "verify", "forward_one", "forward_batch"):
+        x = out[name]
+        log(f"phase 14 {name}: capture {x['capture_ms']:.1f} ms"
+            + (f", {x['device_ops_replay']} device ops a replay" if "device_ops_replay" in x else "")
+            + (f", one call {x['ms_graph']:.3f} ms from the graph against {x['ms_eager']:.3f} ms eager (logits fetched)" if "ms_graph" in x else "")
+            + f", on {card}")
+    return out
+
+
+def _measured(tokens) -> dict:
+    """Drain a token iterator (``_timed_tokens``) with the card's memory
+    measured: peak allocated above the start, and what stays allocated
+    once the generation is over."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, first_ms, ms = _timed_tokens(tokens)
+    peak = torch.cuda.max_memory_allocated() - base
+    gc.collect()
+    return {"tokens": out, "first_ms": first_ms, "ms": ms, "peak_bytes": peak, "held_bytes": torch.cuda.memory_allocated() - base}
+
+
+def phase14_paths(llm, prompt: str, convs: list, decode_bit_equal: bool, card: str) -> dict:
+    """Phase 14 (e)-(h), through TorchChatLLM's entry points: (e) plain
+    greedy, greedy speculative and sampled streams of PHASE14_TOKENS from
+    the graphs against the eager reference (``_eager_tokens``) on the same
+    prompt, each with its tokens/s, time to first token, peak and held
+    memory and launches, the sampled one twice with one seed; (f) a
+    schema-constrained answer (ms a token); (g) complete_batch of 8 at
+    T = 4,096, greedy and under the metadata schema; (h) two threads
+    answering at once, against the same calls one after the other."""
+    import os
+    import threading
+
+    import torch
+
+    from raglite_tpu_torch.models.decoder import DECODE_CHUNK
+    from raglite_tpu_torch.models.schema_automaton import SchemaAutomaton
+    from raglite_tpu_torch.utils import graphs
+
+    layers = llm.cfg["layers"]
+    out: dict = {}
+    prefill_ms = median_ms(lambda: _prefilled(llm, [prompt], PHASE14_TOKENS), reps=3, inner=1, warmup=1)
+    sampled = dict(llm.RECOMMENDED_SAMPLING)
+    for kind, speculate, sampling in (("plain", False, {}), ("speculative", True, {}), ("sampled", False, sampled)):
+        os.environ["RAGLITE_TPU_SPECULATE"] = "always" if speculate else "0"
+        try:
+            before = _attention_launches()
+            llm.spec_stats = None
+            graph = _measured(llm._generate_tokens(prompt, max_new_tokens=PHASE14_TOKENS, seed=7, **sampling))
+            launches = _launches_since(before)
+            stats = llm.spec_stats
+            eager = _measured(_eager_tokens(llm, prompt, max_new=PHASE14_TOKENS, speculate=speculate, seed=7, **sampling))
+            again = list(llm._generate_tokens(prompt, max_new_tokens=PHASE14_TOKENS, seed=7, **sampling)) if sampling else None
+        finally:
+            del os.environ["RAGLITE_TPU_SPECULATE"]
+        assert launches["gqa_prefill_attention"] == layers, launches
+        if speculate:
+            assert launches["gqa_verify_attention"] == layers * stats["verify_iters"] and launches["gqa_decode_attention"] == 0, (launches, stats)
+        else:
+            forwards = launches["gqa_decode_attention"] // layers
+            assert launches["gqa_decode_attention"] % (layers * DECODE_CHUNK) == 0 and forwards > 0, launches
+        same = graph["tokens"] == eager["tokens"]
+        row = {"tokens": len(graph["tokens"]), "equal_to_eager": same, "launches": launches}
+        for path, m in (("graph", graph), ("eager", eager)):
+            row[path] = {
+                "tokens_per_s": len(m["tokens"]) / max((m["ms"] - prefill_ms) / 1e3, 1e-9), "ms": m["ms"],
+                "first_token_ms": m["first_ms"], "peak_gb": m["peak_bytes"] / 1e9, "held_gb": m["held_bytes"] / 1e9,
+            }
+        log(f"phase 14 (e) {kind}: {len(graph['tokens'])} tokens, graph {row['graph']['tokens_per_s']:.2f} tokens/s "
+            f"(first token {graph['first_ms']:.1f} ms, {graph['ms']:.1f} ms in all, peak {row['graph']['peak_gb']:.3f} GB, "
+            f"held after {row['graph']['held_gb']:.4f} GB) against eager {row['eager']['tokens_per_s']:.2f} tokens/s "
+            f"(first token {eager['first_ms']:.1f} ms, {eager['ms']:.1f} ms, peak {row['eager']['peak_gb']:.3f} GB); "
+            f"prefill {prefill_ms:.1f} ms; tokens equal to eager: {same}; launches {launches}"
+            + (f"; {stats['tokens'] / stats['verify_iters']:.3f} tokens a verify forward" if speculate else "") + f", on {card}")
+        if sampling:
+            assert again == graph["tokens"], "a seeded sampled stream from the graphs did not repeat itself"
+            row["repeats"] = True
+            if not same:
+                # The graphs' and the eager draws come from one Philox stream
+                # at the same offsets; only different logits could part them.
+                first = next(i for i, (a, b) in enumerate(zip(graph["tokens"], eager["tokens"])) if a != b)
+                log(f"phase 14 (e) sampled: the graph's stream leaves the eager one at token {first}; the decode "
+                    f"step's logits were {'bit-equal' if decode_bit_equal else 'not bit-equal'} to the eager step's")
+                assert not decode_bit_equal, "bit-equal logits and one Philox stream, yet other sampled tokens"
+        else:
+            assert same, (kind, graph["tokens"], eager["tokens"])
+        out[kind] = row
+
+    # (f) A schema-constrained answer: the host loop, one replayed
+    # one-token forward and one logits fetch a token.
+    cprompt = llm._format_messages([{"role": "user", "content": f"Describe this sentence as JSON: {PHASE14_QUESTION}"}], None)
+    cprompt += "Respond with a JSON object.\n"
+    before = _attention_launches()
+    constrained = _measured(llm._generate_tokens(
+        cprompt, max_new_tokens=96, json_constrained=True, automaton=SchemaAutomaton(PHASE8_SCHEMA),
+    ))
+    launches = _launches_since(before)
+    n = len(constrained["tokens"])
+    assert _within_budget(PHASE8_SCHEMA, constrained["tokens"], 96), constrained["tokens"]
+    assert launches["gqa_decode_attention"] > 0 and launches["gqa_decode_attention"] % layers == 0, launches
+    ms_token = (constrained["ms"] - constrained["first_ms"]) / max(n - 1, 1)
+    out["constrained"] = {"tokens": n, "ms": constrained["ms"], "ms_a_token": ms_token, "launches": launches}
+    log(f"phase 14 (f) schema-constrained answer from the one-token graph: {n} tokens in {constrained['ms']:.1f} ms, "
+        f"{ms_token:.2f} ms a token after the first, launches {launches}, on {card}")
+
+    # (g) complete_batch of 8 at T = 4,096: the batched verify graph
+    # (greedy) and the batch step's graph (under the metadata schema).
+    out["batch"] = {}
+    for kind, rf in (("greedy", None), ("schema", METADATA_FORMAT)):
+        before = _attention_launches()
+        t0 = time.perf_counter()
+        responses = llm.complete_batch(convs, response_format=rf, max_tokens=64)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = _launches_since(before)
+        contents = [r.content or "" for r in responses]
+        if rf is not None:
+            for content in contents:
+                assert set(json.loads(content)) == {"topic", "audience"} and _conforms(METADATA_SCHEMA, content), content
+            assert launches["gqa_decode_attention"] > 0 and launches["gqa_verify_attention"] == 0, launches
+        else:
+            assert launches["gqa_verify_attention"] > 0 and launches["gqa_verify_attention"] % layers == 0, launches
+        out["batch"][kind] = {"ms": ms, "bytes": sum(len(c.encode()) for c in contents), "launches": launches}
+        log(f"phase 14 (g) complete_batch B=8 {kind} from the graphs: {ms:.1f} ms, {out['batch'][kind]['bytes']} "
+            f"bytes of content, launches {launches}, on {card}")
+
+    # (h) Two threads answering at once (each generation its own stream,
+    # cache and graphs) against the same calls one after the other.
+    short = llm._format_messages([{"role": "user", "content": PHASE14_QUESTION}], None)
+    calls = [
+        lambda: list(llm._generate_tokens(prompt, max_new_tokens=PHASE14_TOKENS)),
+        lambda: list(llm._generate_tokens(short, max_new_tokens=PHASE14_TOKENS, seed=3, **sampled)),
+    ]
+    t0 = time.perf_counter()
+    want = [call() for call in calls]
+    sequential_ms = (time.perf_counter() - t0) * 1e3
+    got: list = [None, None]
+    errors: list = []
+
+    def answer(i: int) -> None:
+        try:
+            got[i] = calls[i]()
+        except BaseException as exc:  # reported by the main thread
+            errors.append(exc)
+
+    threads = [threading.Thread(target=answer, args=(i,)) for i in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    concurrent_ms = (time.perf_counter() - t0) * 1e3
+    if errors:
+        raise errors[0]
+    assert got == want, "two concurrent answers differ from the same answers one after the other"
+    streams = len(graphs._streams[llm.device.index or 0])
+    out["threads"] = {"sequential_ms": sequential_ms, "concurrent_ms": concurrent_ms, "streams": streams}
+    log(f"phase 14 (h) two answers at once (greedy speculative over the RAG prompt, sampled over a short one) equal "
+        f"to the same answers one after the other: {concurrent_ms:.1f} ms at once, {sequential_ms:.1f} ms in turn; "
+        f"the stream pool holds {streams} streams, on {card}")
+    return out
+
+
+def phase14(llm, prompt: str, card: str, total: dict[str, int]) -> dict:
+    """Phase 14: the decode programs as CUDA graphs on `large` (phase 6's
+    object) over phase 6's RAG prompt: the step forms held to the eager
+    functions (:func:`phase14_steps`), then the entry points
+    (:func:`phase14_paths`); every kernel launch counted into ``total``."""
+    convs = _batch_convs()
+    steps = _counted(total, lambda: phase14_steps(llm, prompt, [llm._format_messages(c, None) for c in convs], card))
+    before = dict(total)
+    paths = _counted(total, lambda: phase14_paths(
+        llm, prompt, convs, steps["decode"]["bit_equal"] == steps["decode"]["steps"], card,
+    ))
+    assert _counters_zero()
+    log(f"phase 14 launches: {total} (the entry points alone: "
+        f"{ {k: total[k] - before.get(k, 0) for k in total} }), on {card}")
+    return {"steps": steps, "paths": paths}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4849,13 +5383,14 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13"],
+        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
         "with phase 6's message; 'phase11' builds every kernel and runs phase 11 alone at --rows rows; 'phase12' builds "
         "every kernel, serves phase 3's store at --rows rows and runs phase 12 over it; 'phase13' builds every kernel and "
-        "runs phase 13 alone at --rows rows",
+        "runs phase 13 alone at --rows rows; 'phase14' builds every kernel, serves phase 3's store at --rows rows, "
+        "loads the large preset and runs phase 14 on phase 6's RAG prompt",
     )
     # One rank of phase 12 (d), started by phase 12 itself.
     parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
@@ -4940,6 +5475,28 @@ def main() -> int:
         log("partial run (--only phase13): no result line")
         return 0
 
+    if args.only == "phase14":
+        import dataclasses
+
+        from raglite_tpu_torch import add_context
+        from raglite_tpu_torch.models.llm import llm_from_config
+        from raglite_tpu_torch.rag import _clip
+
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
+        cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
+        insert_documents([Document.from_text(t) for t in texts], config=cfg)
+        store = store_from_config(cfg)
+        add_background(store, args.rows - sum(m.shape[0] for m in store.embeddings.values()), args.seed)
+        vs_q = pick_queries(texts, 8 + 4 + 32, args.seed)[:8]  # phase 3's 8 sentences
+        rag_cfg = dataclasses.replace(cfg, llm="jax:large")
+        llm = llm_from_config(rag_cfg)
+        messages = [add_context(vs_q[0], rag_spans(vs_q[0], rag_cfg), rag_cfg)]
+        launches14: dict[str, int] = {}
+        summary14 = phase14(llm, llm._format_messages(_clip(messages, llm.context_size), None), card, launches14)
+        log(f"phase 14 summary on {card}: {json.dumps(summary14)}")
+        log("partial run (--only phase14): no result line")
+        return 0
+
     if args.only == "phase11":
         texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
         launches11: dict[str, int] = {}
@@ -5019,6 +5576,19 @@ def main() -> int:
 
     # 8. Structured and batched generation on the same decoder.
     structured = structured_generation(cfg, vs_q, args.seed, card)
+
+    # 14. The decode programs as CUDA graphs, on phase 6's decoder and RAG
+    # prompt: each step form against the module's eager function, the
+    # entry points from the graphs against the eager reference.
+    import dataclasses
+
+    from raglite_tpu_torch.models.llm import llm_from_config
+
+    phase14_launches: dict[str, int] = {}
+    summary14 = phase14(llm_from_config(dataclasses.replace(cfg, llm="jax:large")), answer["prompt"], card, phase14_launches)
+    log(f"phase 14 summary on {card}: {json.dumps(summary14)}")
+    for name in ("gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
+        assert phase14_launches.get(name, 0) > 0, (name, phase14_launches)
 
     # 9. Evals, the query adapter and async RAG over the phase-3 store and
     # the same decoder; each kernel's launches on this path counted apart.
@@ -5117,6 +5687,9 @@ def main() -> int:
             # And on phase 13's (the IR benchmark's evaluators over the
             # bge-base-shaped encoder's store).
             "launches_phase13": phase13_launches.get(name, 0),
+            # And on phase 14's (the step graphs against the eager steps,
+            # the entry points from the graphs and the eager reference).
+            "launches_phase14": phase14_launches.get(name, 0),
         })
         p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
         if p12 is not None:

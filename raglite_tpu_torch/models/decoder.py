@@ -19,7 +19,13 @@ raglite_tpu/models/decoder.py).
   prompt-lookup speculation for greedy decode (models/speculative.py), the
   tool-tag filter, and batched generation (``complete_batch``: one ragged
   [B, T] prefill, then the device chunk loop or batched speculation, or the
-  constrained host loop over [B, 1] forwards).  Byte-tokenizer models
+  constrained host loop over [B, 1] forwards).  Each loop runs one step
+  (a decode step, a verify iteration, a one-token or a batch forward) on a
+  state of tensors updated in place; on the card that step is captured
+  once per generation as a CUDA graph and replayed (utils/graphs.py), the
+  counterpart of the JAX package's ``jax.jit`` decode programs, and
+  ``_decode_chunk_device``, ``_forward_one`` and ``_forward_step_batch``
+  stay as the eager forms they are held to.  Byte-tokenizer models
   constrain ``response_format`` and forced tool calls with the byte
   automata (models/json_automaton.py, models/schema_automaton.py: a host
   loop, one forward and one logits fetch a token); a checkpoint's BPE
@@ -43,9 +49,9 @@ import torch.nn.functional as F
 
 from raglite_tpu_torch.models.speculative import (
     _NO_TOKEN,
+    SpeculativeLoop,
     _categorical,
     _filtered_probs,
-    speculate_chunk_device,
 )
 from raglite_tpu_torch.models.json_automaton import JsonAutomaton
 from raglite_tpu_torch.models.schema_automaton import SchemaAutomaton
@@ -58,6 +64,8 @@ from raglite_tpu_torch.ops.quant_matmul import (
     quant_linear_apply,
     quant_linear_apply_fused,
 )
+from raglite_tpu_torch.utils import graphs
+from raglite_tpu_torch.utils.graphs import StepGraph
 from raglite_tpu_torch.utils.padding import bucket as _bucket_any
 from raglite_tpu_torch.utils.padding import round_up
 
@@ -446,6 +454,10 @@ class DecoderModel:
     ``rope_local_base``; layer params optionally carry q/k/v biases, q/k
     norms and sandwich norms."""
 
+    #: Whether a decode step over this model may be captured as a CUDA graph
+    #: (a forward on one device; parallel/tp_decoder.py's spans devices).
+    captures = True
+
     def __init__(self, cfg: dict) -> None:
         self.cfg = cfg
         self.head_dim = cfg.get("head_dim") or cfg["d_model"] // cfg["heads"]
@@ -660,7 +672,8 @@ def _decode_chunk_device(  # noqa: PLR0913
     every row is done; this host loop runs a FIXED trip count instead and
     lets done rows idle (feed 0, no cache advance, ``_NO_TOKEN`` out), so
     the chunk needs no host read until its one fetch of the tokens.  Returns
-    (tokens [B, num_steps], cache, cache_lens, last_logits, done)."""
+    (tokens [B, num_steps], cache, cache_lens, last_logits, done).  The
+    eager form of :class:`_DecodeLoop`, which generation runs."""
     b = last_logits.shape[0]
     out = torch.full((b, num_steps), _NO_TOKEN, dtype=torch.int64, device=last_logits.device)
     logits = last_logits
@@ -682,7 +695,8 @@ def _decode_chunk_device(  # noqa: PLR0913
 
 
 def _forward_one(model: DecoderModel, params, token: int, cache, cache_len: int) -> torch.Tensor:
-    """One-token decode forward at ``cache_len``; returns the logits [V]."""
+    """One-token decode forward at ``cache_len``; returns the logits [V]
+    (the eager form of :class:`_ForwardOne`)."""
     device = params["tok_emb"].device
     ids = torch.tensor([[token]], dtype=torch.int64, device=device)
     logits, _ = model.forward(params, ids, cache, cache_len)
@@ -691,9 +705,108 @@ def _forward_one(model: DecoderModel, params, token: int, cache, cache_len: int)
 
 def _forward_step_batch(model: DecoderModel, params, tokens: torch.Tensor, cache, cache_lens: torch.Tensor) -> torch.Tensor:
     """One decode step for a batch at per-row offsets; returns the logits
-    [B, V]."""
+    [B, V] (the eager form of :class:`_ForwardBatch`)."""
     logits, _ = model.forward(params, tokens[:, None], cache, cache_lens)
     return logits[:, -1]
+
+
+class _DecodeLoop:
+    """:func:`_decode_chunk_device` as one decode step on a state of
+    tensors updated in place (``lens``, ``last``, ``done``, ``out`` and the
+    column ``col`` the step writes, all on the device), run ``num_steps``
+    times a chunk through a :class:`StepGraph`: on the card one captured
+    step replayed with no host read in between, on the CPU the same step
+    eagerly.  The state starts as copies of the arguments and carries from
+    chunk to chunk."""
+
+    def __init__(  # noqa: PLR0913
+        self, model: DecoderModel, cache, params, cache_lens: torch.Tensor, last_logits: torch.Tensor,
+        logits_mask: torch.Tensor, done: torch.Tensor, stop_ids: torch.Tensor, gen: torch.Generator, *,
+        num_steps: int, temperature: float, top_p: float, top_k: int, min_p: float,
+    ) -> None:
+        self.model, self.cache, self.params = model, cache, params
+        self.logits_mask, self.stop_ids, self.gen = logits_mask, stop_ids, gen
+        self.num_steps = num_steps
+        self.sampling = dict(temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p)
+        b, device = last_logits.shape[0], last_logits.device
+        self.lens, self.last, self.done = cache_lens.clone(), last_logits.clone(), done.clone()
+        self.out = torch.full((b, num_steps), _NO_TOKEN, dtype=torch.int64, device=device)
+        self.col = torch.zeros((b, 1), dtype=torch.int64, device=device)
+        self.graph = StepGraph(
+            self.step, capture=graphs.captures(model, device), generator=gen if temperature != 0.0 else None,
+        )
+
+    def step(self) -> None:
+        """Sample, stop check, ``out``'s column, the forward of the fed token
+        (0 for a done row, whose offset stays), the carry."""
+        masked = self.last + self.logits_mask[None, :]
+        if self.sampling["temperature"] == 0.0:
+            token = torch.argmax(masked, dim=-1)
+        else:
+            token = _categorical(_filtered_probs(masked, **self.sampling), self.gen)
+        self.done |= (token[:, None] == self.stop_ids[None, :]).any(dim=1)
+        self.out.scatter_(1, self.col, torch.where(self.done, _NO_TOKEN, token)[:, None])
+        logits, _ = self.model.forward(self.params, torch.where(self.done, 0, token)[:, None], self.cache, self.lens)
+        self.lens += (~self.done).to(self.lens.dtype)
+        self.last.copy_(logits[:, -1])
+        self.col.add_(1).remainder_(self.num_steps)
+
+    def chunk(self) -> torch.Tensor:
+        """``num_steps`` steps; returns ``out`` [B, num_steps]: the chunk's
+        tokens, ``_NO_TOKEN`` from a row's stop on."""
+        for _ in range(self.num_steps):
+            self.graph()
+        return self.out
+
+
+class _ForwardOne:
+    """:func:`_forward_one` as a step (the constrained loop's forward): the
+    host's token goes into a static [1, 1] tensor before each call, the
+    offset starts at ``cache_len`` and advances on the device."""
+
+    def __init__(self, model: DecoderModel, params, cache, cache_len: int, device: torch.device) -> None:
+        self.model, self.params, self.cache = model, params, cache
+        self.tok = torch.zeros((1, 1), dtype=torch.int64, device=device)
+        self.lens = torch.full((1,), cache_len, dtype=torch.int64, device=device)
+        self.logits = torch.empty((model.cfg["vocab"],), dtype=torch.float32, device=device)
+        self.graph = StepGraph(self.step, capture=graphs.captures(model, device))
+
+    def step(self) -> None:
+        logits, _ = self.model.forward(self.params, self.tok, self.cache, self.lens)
+        self.logits.copy_(logits[0, -1])
+        self.lens += 1
+
+    def __call__(self, token: int) -> torch.Tensor:
+        """The logits [V] after ``token`` (a static tensor, overwritten by
+        the next call)."""
+        self.tok.fill_(token)
+        self.graph()
+        return self.logits
+
+
+class _ForwardBatch:
+    """:func:`_forward_step_batch` as a step (the constrained batch loop's
+    forward): the host's tokens [B] go into a static tensor before each
+    call, every row's offset advances by one on the device."""
+
+    def __init__(self, model: DecoderModel, params, cache, cache_lens: torch.Tensor) -> None:
+        self.model, self.params, self.cache = model, params, cache
+        self.lens = cache_lens.clone()
+        self.tokens = torch.zeros_like(self.lens)
+        self.logits = torch.empty((self.lens.shape[0], model.cfg["vocab"]), dtype=torch.float32, device=self.lens.device)
+        self.graph = StepGraph(self.step, capture=graphs.captures(model, self.lens.device))
+
+    def step(self) -> None:
+        logits, _ = self.model.forward(self.params, self.tokens[:, None], self.cache, self.lens)
+        self.logits.copy_(logits[:, -1])
+        self.lens += 1
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The logits [B, V] after ``tokens`` (a static tensor, overwritten
+        by the next call)."""
+        self.tokens.copy_(tokens, non_blocking=True)  # from the host's buffer, staged as the call returns
+        self.graph()
+        return self.logits
 
 
 def _automaton_for(response_format: dict | None):
@@ -779,6 +892,10 @@ class TorchChatLLM:
         self.params = params
         self.tokenizer = tokenizer
         self.model = DecoderModel(cfg)
+        if self.device.type == "cuda":
+            # The RoPE tables, made here on the caller's stream: every
+            # generation's stream waits for it before its first step.
+            self.model._freqs(self.device)
         self.context_size = cfg["max_len"]
         # The byte automata (JSON response formats, forced tool calls) need
         # the byte tokenizer; a checkpoint's BPE puts the schema or the call
@@ -834,6 +951,13 @@ class TorchChatLLM:
             stops[i] = sid
         return stops.to(self.device)
 
+    def _graph_device(self) -> torch.device | None:
+        """The device whose generations replay CUDA graphs, each on a stream
+        of its own (utils/graphs.py), or None: on the CPU and for a
+        tensor-parallel model every step runs eagerly on the current
+        stream."""
+        return self.device if graphs.captures(self.model, self.device) else None
+
     def _device_token_stream(  # noqa: PLR0913
         self,
         cache,
@@ -851,27 +975,36 @@ class TorchChatLLM:
         hist: np.ndarray | None = None,
         hist_len: int = 0,
         speculate: bool = False,
+        stream: torch.cuda.Stream | None = None,
     ) -> Iterator[int]:
         """Stream tokens from the decode loop, one fetch per DECODE_CHUNK
         tokens; with ``speculate`` (and ``hist``, the prompt history) each
-        chunk runs prompt-lookup speculative decoding."""
-        stops = self._stop_ids_device()
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        last = first_logits
+        chunk runs prompt-lookup speculative decoding.  Device work runs on
+        ``stream`` (the generation's), never across a yield."""
+        sampling = dict(temperature=float(temperature), top_p=float(top_p), top_k=int(top_k), min_p=float(min_p))
+        with graphs.on_stream(stream):
+            stops = self._stop_ids_device()
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            if speculate and hist is not None:
+                loop = SpeculativeLoop(
+                    self.model, cache, self.params, cache_lens, first_logits,
+                    torch.full((1,), -1, dtype=torch.int64, device=self.device), logits_mask, done, stops, gen,
+                    torch.as_tensor(hist, dtype=torch.int64, device=self.device)[None, :],
+                    torch.tensor([hist_len], dtype=torch.int64, device=self.device),
+                    num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(self.tokenizer.PAD), **sampling,
+                )
+            else:
+                loop = _DecodeLoop(
+                    self.model, cache, self.params, cache_lens, first_logits, logits_mask, done, stops, gen,
+                    num_steps=DECODE_CHUNK, **sampling,
+                )
         emitted = 0
-        if speculate and hist is not None:
-            hist_dev = torch.as_tensor(hist, dtype=torch.int64, device=self.device)[None, :]
-            hl = torch.tensor([hist_len], dtype=torch.int64, device=self.device)
-            reject = torch.full((1,), -1, dtype=torch.int64, device=self.device)
+        if isinstance(loop, SpeculativeLoop):
             tot_iters = 0
             while emitted < max_new_tokens:
-                out, cache, cache_lens, last, reject, done, hist_dev, hl, n_iters = speculate_chunk_device(
-                    self.model, cache, self.params, cache_lens, last, reject, logits_mask, done,
-                    stops, gen, hist_dev, hl,
-                    num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(self.tokenizer.PAD),
-                    temperature=float(temperature), top_p=float(top_p), top_k=int(top_k), min_p=float(min_p),
-                )
-                fetched = torch.cat([out[0], done[:1].to(out.dtype)]).tolist()
+                with graphs.on_stream(stream):
+                    out, n_iters = loop.chunk()
+                    fetched = torch.cat([out[0], loop.done[:1].to(out.dtype)]).tolist()
                 tokens, row_done = fetched[:-1], bool(fetched[-1])
                 tot_iters += n_iters
                 for token in tokens:
@@ -887,12 +1020,9 @@ class TorchChatLLM:
                     return  # budget-capped chunk emitted nothing new
             return
         while emitted < max_new_tokens:
-            out, cache, cache_lens, last, done = _decode_chunk_device(
-                self.model, cache, self.params, cache_lens, last, logits_mask, done, stops, gen,
-                num_steps=DECODE_CHUNK, temperature=float(temperature), top_p=float(top_p),
-                top_k=int(top_k), min_p=float(min_p),
-            )
-            fetched = torch.cat([out[0], done[:1].to(out.dtype)]).tolist()
+            with graphs.on_stream(stream):
+                out = loop.chunk()
+                fetched = torch.cat([out[0], loop.done[:1].to(out.dtype)]).tolist()
             for token in fetched[:-1]:
                 if token == _NO_TOKEN or emitted >= max_new_tokens:
                     return
@@ -1003,45 +1133,50 @@ class TorchChatLLM:
         # DECODE_CHUNK headroom: a speculative chunk commits up to
         # DECODE_CHUNK tokens of KV before the host sees the budget spent.
         max_total = pad + _bucket(max_new_tokens) + DECODE_CHUNK
-        cache = self.model.init_cache(1, max_total, device=self.device)  # bf16, as the JAX package's
-        lens = torch.tensor([len(ids)], dtype=torch.int64, device=self.device)
-        last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, lens)
         if not self._byte_level:
             automaton = None  # the automata are byte-level
         elif automaton is None and json_constrained:
             automaton = JsonAutomaton()
-        if automaton is None:
-            speculate = self._speculate(temperature)
-            hist0 = None
-            if speculate:
-                hist0 = np.full((max_total,), tok.PAD, dtype=np.int64)
-                hist0[: len(ids)] = ids
-            yield from self._device_token_stream(
-                cache, lens, last, torch.zeros((1,), dtype=torch.bool, device=self.device),
-                max_new_tokens=max_new_tokens, logits_mask=torch.from_numpy(self._base_mask()).to(self.device),
-                temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
-                hist=hist0, hist_len=len(ids), speculate=speculate,
-            )
-            return
-        # Constrained: the first token from the prefill logits, then one
-        # forward and one fetch a token.
-        last_logits = last[0].cpu().numpy()
-        cache_len = len(ids)
-        rng = np.random.default_rng(seed)
-        for _ in range(max_new_tokens):
-            token = self._sample_host(
-                last_logits + self._byte_mask(automaton), temperature=temperature, top_p=top_p,
-                top_k=top_k, min_p=min_p, rng=rng,
-            )
-            if token in self._stop_ids:
-                break
-            yield token
-            if token >= ByteTokenizer._OFFSET:
-                automaton.feed(token - ByteTokenizer._OFFSET)
-                if automaton.done():
-                    return
-            last_logits = _forward_one(self.model, self.params, token, cache, cache_len).cpu().numpy()
-            cache_len += 1
+        with graphs.generation_stream(self._graph_device()) as stream:
+            with graphs.on_stream(stream):
+                cache = self.model.init_cache(1, max_total, device=self.device)  # bf16, as the JAX package's
+                lens = torch.tensor([len(ids)], dtype=torch.int64, device=self.device)
+                last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, lens)
+            if automaton is None:
+                speculate = self._speculate(temperature)
+                hist0 = None
+                if speculate:
+                    hist0 = np.full((max_total,), tok.PAD, dtype=np.int64)
+                    hist0[: len(ids)] = ids
+                with graphs.on_stream(stream):
+                    done = torch.zeros((1,), dtype=torch.bool, device=self.device)
+                    logits_mask = torch.from_numpy(self._base_mask()).to(self.device)
+                yield from self._device_token_stream(
+                    cache, lens, last, done, max_new_tokens=max_new_tokens, logits_mask=logits_mask,
+                    temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+                    hist=hist0, hist_len=len(ids), speculate=speculate, stream=stream,
+                )
+                return
+            # Constrained: the first token from the prefill logits, then one
+            # forward and one fetch a token.
+            with graphs.on_stream(stream):
+                last_logits = last[0].cpu().numpy()
+                forward = _ForwardOne(self.model, self.params, cache, len(ids), self.device)
+            rng = np.random.default_rng(seed)
+            for _ in range(max_new_tokens):
+                token = self._sample_host(
+                    last_logits + self._byte_mask(automaton), temperature=temperature, top_p=top_p,
+                    top_k=top_k, min_p=min_p, rng=rng,
+                )
+                if token in self._stop_ids:
+                    break
+                yield token
+                if token >= ByteTokenizer._OFFSET:
+                    automaton.feed(token - ByteTokenizer._OFFSET)
+                    if automaton.done():
+                        return
+                with graphs.on_stream(stream):
+                    last_logits = forward(token).cpu().numpy()
         # Budget exhausted (or EOS) mid-document: the closing suffix keeps
         # constrained output valid JSON.
         if not automaton.done():
@@ -1088,55 +1223,57 @@ class TorchChatLLM:
         # DECODE_CHUNK headroom for speculative over-commit, as in the
         # single-prompt path.
         max_total = pad + _bucket(max_new_tokens) + DECODE_CHUNK
-        cache = self.model.init_cache(bpad, max_total, device=self.device)
-        cache_lens = lens.to(self.device)
-        last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, cache_lens)
-        if automatons is None or not self._byte_level or all(a is None for a in automatons):
-            speculate = self._speculate(temperature)
-            hist0 = None
-            if speculate:
-                hist0 = torch.full((bpad, max_total), tok.PAD, dtype=torch.int64)
-                hist0[:, :pad] = batch_ids
-            return self._generate_batch_device(
-                cache, cache_lens, last, n, bpad, max_new_tokens=max_new_tokens,
-                logits_mask=torch.from_numpy(self._base_mask()).to(self.device),
-                temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
-                hist=hist0, hist_lens=lens if speculate else None, speculate=speculate,
-            )
-        base_mask = self._base_mask()
-        last_logits = last.cpu().numpy()
-        rng = np.random.default_rng(seed)
-        outputs: list[list[int]] = [[] for _ in range(n)]
-        done = np.zeros(bpad, dtype=bool)
-        done[n:] = True  # padding rows never generate
-        step_tokens = torch.full((bpad,), tok.PAD, dtype=torch.int64)
-        for _ in range(max_new_tokens):
-            for i in range(n):
-                if done[i]:
-                    continue
-                automaton = automatons[i]
-                mask = self._byte_mask(automaton) if automaton is not None else base_mask
-                token = self._sample_host(
-                    last_logits[i] + mask, temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, rng=rng,
+        # Every device step of the batch runs on the generation's stream
+        # (it returns lists: no yield leaves the stream current).
+        with graphs.generation_stream(self._graph_device()) as stream, graphs.on_stream(stream):
+            cache = self.model.init_cache(bpad, max_total, device=self.device)
+            cache_lens = lens.to(self.device)
+            last, cache = _prefill_last(self.model, self.params, batch_ids.to(self.device), cache, cache_lens)
+            if automatons is None or not self._byte_level or all(a is None for a in automatons):
+                speculate = self._speculate(temperature)
+                hist0 = None
+                if speculate:
+                    hist0 = torch.full((bpad, max_total), tok.PAD, dtype=torch.int64)
+                    hist0[:, :pad] = batch_ids
+                return self._generate_batch_device(
+                    cache, cache_lens, last, n, bpad, max_new_tokens=max_new_tokens,
+                    logits_mask=torch.from_numpy(self._base_mask()).to(self.device),
+                    temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, seed=seed,
+                    hist=hist0, hist_lens=lens if speculate else None, speculate=speculate,
                 )
-                if token in self._stop_ids:
-                    done[i] = True
-                    continue
-                outputs[i].append(token)
-                step_tokens[i] = token
-                if automaton is not None and token >= ByteTokenizer._OFFSET:
-                    automaton.feed(token - ByteTokenizer._OFFSET)
-                    if automaton.done():
+            base_mask = self._base_mask()
+            last_logits = last.cpu().numpy()
+            rng = np.random.default_rng(seed)
+            outputs: list[list[int]] = [[] for _ in range(n)]
+            done = np.zeros(bpad, dtype=bool)
+            done[n:] = True  # padding rows never generate
+            step_tokens = torch.full((bpad,), tok.PAD, dtype=torch.int64)
+            forward = _ForwardBatch(self.model, self.params, cache, cache_lens)
+            for _ in range(max_new_tokens):
+                for i in range(n):
+                    if done[i]:
+                        continue
+                    automaton = automatons[i]
+                    mask = self._byte_mask(automaton) if automaton is not None else base_mask
+                    token = self._sample_host(
+                        last_logits[i] + mask, temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p, rng=rng,
+                    )
+                    if token in self._stop_ids:
                         done[i] = True
-            if done.all():
-                break
-            logits = _forward_step_batch(self.model, self.params, step_tokens.to(self.device), cache, cache_lens)
-            last_logits = logits.cpu().numpy()
-            cache_lens = cache_lens + 1
-        for i, automaton in enumerate(automatons):
-            if automaton is not None and not automaton.done():
-                outputs[i].extend(byte + ByteTokenizer._OFFSET for byte in automaton.completion_bytes())
-        return outputs
+                        continue
+                    outputs[i].append(token)
+                    step_tokens[i] = token
+                    if automaton is not None and token >= ByteTokenizer._OFFSET:
+                        automaton.feed(token - ByteTokenizer._OFFSET)
+                        if automaton.done():
+                            done[i] = True
+                if done.all():
+                    break
+                last_logits = forward(step_tokens).cpu().numpy()
+            for i, automaton in enumerate(automatons):
+                if automaton is not None and not automaton.done():
+                    outputs[i].extend(byte + ByteTokenizer._OFFSET for byte in automaton.completion_bytes())
+            return outputs
 
     def _generate_batch_device(  # noqa: PLR0913
         self,
@@ -1168,24 +1305,22 @@ class TorchChatLLM:
         done = torch.arange(bpad, device=self.device) >= n
         outputs: list[list[int]] = [[] for _ in range(n)]
         finished = np.zeros(n, dtype=bool)
-        last = first_logits
+        sampling = dict(temperature=float(temperature), top_p=float(top_p), top_k=int(top_k), min_p=float(min_p))
 
         def fetch(out: torch.Tensor, done: torch.Tensor) -> tuple[list[list[int]], list[int]]:
             rows = torch.cat([out[:n], done[:n, None].to(out.dtype)], dim=1).tolist()  # the chunk's one fetch
             return [r[:-1] for r in rows], [r[-1] for r in rows]
 
         if speculate and hist is not None:
-            hist_dev = hist.to(self.device)
-            hl = hist_lens.to(self.device)
-            reject = torch.full((bpad,), -1, dtype=torch.int64, device=self.device)
+            loop = SpeculativeLoop(
+                self.model, cache, self.params, cache_lens, first_logits,
+                torch.full((bpad,), -1, dtype=torch.int64, device=self.device), logits_mask, done, stops, gen,
+                hist.to(self.device), hist_lens.to(self.device),
+                num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(self.tokenizer.PAD), **sampling,
+            )
             while not finished.all():
-                out, cache, cache_lens, last, reject, done, hist_dev, hl, _ = speculate_chunk_device(
-                    self.model, cache, self.params, cache_lens, last, reject, logits_mask, done,
-                    stops, gen, hist_dev, hl,
-                    num_tokens=DECODE_CHUNK, draft_len=SPEC_DRAFT_LEN, pad_id=int(self.tokenizer.PAD),
-                    temperature=float(temperature), top_p=float(top_p), top_k=int(top_k), min_p=float(min_p),
-                )
-                tokens, done_rows = fetch(out, done)
+                out, _ = loop.chunk()
+                tokens, done_rows = fetch(out, loop.done)
                 progressed = False
                 for i in range(n):
                     if finished[i]:
@@ -1201,16 +1336,15 @@ class TorchChatLLM:
                 if not progressed or finished.all():  # nothing new: every live row is stuck
                     break
                 # Rows at their budget stop verifying.
-                done = done | torch.from_numpy(np.concatenate([finished, np.ones(bpad - n, bool)])).to(self.device)
+                loop.done |= torch.from_numpy(np.concatenate([finished, np.ones(bpad - n, bool)])).to(self.device)
             return outputs
+        loop = _DecodeLoop(
+            self.model, cache, self.params, cache_lens, first_logits, logits_mask, done, stops, gen,
+            num_steps=DECODE_CHUNK, **sampling,
+        )
         emitted = 0
         while emitted < max_new_tokens and not finished.all():
-            out, cache, cache_lens, last, done = _decode_chunk_device(
-                self.model, cache, self.params, cache_lens, last, logits_mask, done, stops, gen,
-                num_steps=DECODE_CHUNK, temperature=float(temperature), top_p=float(top_p),
-                top_k=int(top_k), min_p=float(min_p),
-            )
-            tokens, done_rows = fetch(out, done)
+            tokens, done_rows = fetch(loop.chunk(), loop.done)
             room = max_new_tokens - emitted
             for i in range(n):
                 if finished[i]:

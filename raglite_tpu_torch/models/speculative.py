@@ -22,12 +22,18 @@ The JAX loop is one ``lax.while_loop`` per chunk.  Here it is a host loop
 whose condition (some row still active) is read from the card once per
 verify iteration: a fixed trip count would run up to ``num_tokens`` verify
 forwards where a copy-heavy chunk needs a few.  The tokens come back in one
-fetch per chunk, as in the JAX design.
+fetch per chunk, as in the JAX design.  :class:`SpeculativeLoop` runs the
+iteration as one step on a state of tensors updated in place, on the card
+captured once as a CUDA graph and replayed (utils/graphs.py);
+:func:`speculate_chunk_device` is its eager form.
 """
 
 from __future__ import annotations
 
 import torch
+
+from raglite_tpu_torch.utils import graphs
+from raglite_tpu_torch.utils.graphs import StepGraph
 
 #: Sentinel in decode output for "row was already done".
 _NO_TOKEN = -1
@@ -133,7 +139,8 @@ def speculate_chunk_device(  # noqa: PLR0913
     window freezes (its sampling state carries into the next chunk) while
     the others keep verifying.  Returns (out [B, num_tokens]: committed
     tokens then ``_NO_TOKEN``, cache, cache_lens, last_logits, reject, done,
-    hist, hist_len, n_verify_iters)."""
+    hist, hist_len, n_verify_iters).  The eager form of
+    :class:`SpeculativeLoop`, which generation runs."""
     k = draft_len
     greedy = temperature == 0.0
     cap = num_tokens
@@ -206,3 +213,109 @@ def speculate_chunk_device(  # noqa: PLR0913
         hl = hl + n_emit
         it += 1
     return out[:, :cap], cache, cache_lens, logits, reject, done, hist, hl, it
+
+
+class SpeculativeLoop:
+    """:func:`speculate_chunk_device` as one verify iteration (draw, draft,
+    the T = draft_len + 1 forward, acceptance, carry) on a state of tensors
+    updated in place: ``lens``, ``logits``, ``reject``, ``done``, ``hist``,
+    ``hl`` (copies of the arguments, carried from chunk to chunk) and the
+    chunk's ``out``, ``out_len`` and ``active``.  The iteration ends by
+    computing the next one's ``active``, so the host's one read per
+    iteration is ``active.any()``.  It runs through a :class:`StepGraph`:
+    on the card captured once and replayed, on the CPU eagerly."""
+
+    def __init__(  # noqa: PLR0913
+        self, model, cache, params, cache_lens: torch.Tensor, last_logits: torch.Tensor, reject: torch.Tensor,
+        logits_mask: torch.Tensor, done: torch.Tensor, stop_ids: torch.Tensor, gen: torch.Generator,
+        hist: torch.Tensor, hist_len: torch.Tensor, *,
+        num_tokens: int, draft_len: int, pad_id: int, temperature: float, top_p: float, top_k: int, min_p: float,
+    ) -> None:
+        self.model, self.cache, self.params = model, cache, params
+        self.logits_mask, self.stop_ids, self.gen = logits_mask, stop_ids, gen
+        self.k, self.cap, self.pad_id = draft_len, num_tokens, pad_id
+        self.greedy = temperature == 0.0
+        self.sampling = dict(temperature=temperature, top_p=top_p, top_k=top_k, min_p=min_p)
+        b, dev = last_logits.shape[0], last_logits.device
+        self.lens, self.logits, self.reject = cache_lens.clone(), last_logits.clone(), reject.clone()
+        self.done, self.hist, self.hl = done.clone(), hist.clone(), hist_len.clone()
+        self.out = torch.full((b, num_tokens + 1), _NO_TOKEN, dtype=torch.int64, device=dev)
+        self.out_len = torch.zeros((b,), dtype=torch.int64, device=dev)
+        self.active = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.rows = torch.arange(b, device=dev)
+        self.graph = StepGraph(
+            self.step, capture=graphs.captures(model, dev), generator=None if self.greedy else gen,
+        )
+
+    def _probs(self, logits: torch.Tensor) -> torch.Tensor:
+        masked = logits + self.logits_mask
+        if self.greedy:
+            # The argmax's one-hot distribution (by a comparison: F.one_hot
+            # reads its input's range on the host for a CPU tensor).
+            ids = torch.arange(masked.shape[-1], device=masked.device)
+            return (ids == torch.argmax(masked, dim=-1, keepdim=True)).to(torch.float32)
+        return _filtered_probs(masked, **self.sampling)
+
+    def _set_active(self) -> None:
+        """Rows that verify next: not done, with room for a whole window in
+        the chunk and in the KV cache (KV capacity == history capacity)."""
+        window = self.k + 1
+        self.active.copy_(
+            ~self.done & (self.out_len + window <= self.cap) & (self.lens + window <= self.hist.shape[1])
+        )
+
+    def step(self) -> None:
+        k, cap, active = self.k, self.cap, self.active
+        b = active.shape[0]
+        # 1. Commit one token per row (with the residual exclusion).
+        t = _draw(self._probs(self.logits), self.reject, self.gen, greedy=self.greedy)
+        # 2. Draft K continuation tokens per row from its history.
+        drafts = _ngram_draft(self.hist, self.hl, t, k, self.pad_id)
+        window = torch.cat([t[:, None], drafts], dim=1)  # [B, K+1]
+        # 3. Verify: one forward over every row's window at its offset
+        #    (frozen and done rows too, at their unadvanced offsets).
+        wlogits, _ = self.model.forward(self.params, torch.where(active[:, None], window, 0), self.cache, self.lens)
+        probs = self._probs(wlogits)  # [B, K+1, V]
+        # 4. Longest accepted prefix per row.
+        p_draft = probs[:, :k, :].gather(2, drafts[:, :, None])[..., 0]
+        if self.greedy:
+            acc = p_draft > 0.5  # one-hot: draft == argmax
+        else:
+            acc = torch.rand((b, k), generator=self.gen, device=active.device) < p_draft
+        acc_cum = torch.cumprod(acc.to(torch.int64), dim=1).to(torch.bool)
+        a = acc_cum.sum(dim=1)  # [B] accepted drafts
+        # 5. Emission: t plus accepted drafts, cut at the first stop.
+        ok = torch.cat([torch.ones((b, 1), dtype=torch.bool, device=active.device), acc_cum], dim=1)
+        is_stop = (window[:, :, None] == self.stop_ids[None, None, :]).any(dim=2) & ok
+        stopped = torch.cumsum(is_stop.to(torch.int64), dim=1) > 0  # inclusive
+        emit = ok & ~stopped & active[:, None]
+        done_next = self.done | (is_stop.any(dim=1) & active)
+        n_emit = emit.sum(dim=1)
+        slot = torch.cumsum(emit.to(torch.int64), dim=1) - 1
+        # Non-emitted window tokens go to the scratch slot `cap`.
+        self.out.scatter_(1, torch.where(emit, self.out_len[:, None] + slot, cap), torch.where(emit, window, _NO_TOKEN))
+        hist_pos = torch.where(emit, self.hl[:, None] + slot, self.hist.shape[1] - 1)
+        self.hist.scatter_(1, hist_pos, torch.where(emit, window, self.hist[:, -1:]))
+        # 6. Carry: KV is valid for t and the accepted drafts; the next
+        #    iteration samples after the last committed token (window row a),
+        #    excluding the rejected draft's mass.
+        self.lens += torch.where(done_next | ~active, 0, 1 + a)
+        self.logits.copy_(torch.where(active[:, None], wlogits[self.rows, a, :], self.logits))
+        rejected = torch.where(a < k, drafts[self.rows, torch.clamp(a, max=k - 1)], -1)
+        self.reject.copy_(torch.where(active, rejected, self.reject))
+        self.out_len += n_emit
+        self.hl += n_emit
+        self.done.copy_(done_next)
+        self._set_active()
+
+    def chunk(self) -> tuple[torch.Tensor, int]:
+        """Up to ``num_tokens`` tokens per row; returns (out [B, num_tokens]:
+        committed tokens then ``_NO_TOKEN``, verify iterations run)."""
+        self.out.fill_(_NO_TOKEN)
+        self.out_len.zero_()
+        self._set_active()
+        iters = 0
+        while iters < self.cap and bool(self.active.any()):  # the one host read per iteration
+            self.graph()
+            iters += 1
+        return self.out[:, : self.cap], iters

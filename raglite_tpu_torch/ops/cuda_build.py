@@ -9,11 +9,14 @@ starts one ``nvcc`` per source, all at once, and waits for them.
 
 Every wrapper calls its kernel the same way: :func:`function` binds a
 launcher's C signature once, :func:`launch` calls it on the current CUDA
-stream, raises on a cudaError and counts the launch.
+stream, raises on a cudaError and counts the launch.  Under a CUDA graph's
+capture (:func:`recording_launches`) the launch is recorded, not run, and
+the graph counts it on each replay (:func:`count_replayed`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -24,7 +27,10 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["BUILD_DIR", "FLOAT", "INT", "LONG", "SOURCES", "VOID", "build_all", "function", "launch", "library"]
+__all__ = [
+    "BUILD_DIR", "FLOAT", "INT", "LONG", "SOURCES", "VOID", "build_all", "count_replayed", "function", "launch",
+    "library", "recording_launches",
+]
 
 #: C types of the launchers: pointers are void*, shapes int, sizes long long.
 VOID, INT, FLOAT, LONG = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -44,6 +50,8 @@ _libs: dict[str, ctypes.CDLL] = {}
 _functions: dict[str, ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+#: The launches this thread's current graph capture has recorded, if any.
+_capturing = threading.local()
 
 
 def _nvcc() -> str:
@@ -114,11 +122,39 @@ def function(source: str, symbol: str, argtypes: list, restype=INT):
 def launch(counts: dict[str, int], name: str, fn, args: list, device: torch.device) -> None:
     """Call the launcher ``fn`` with ``args`` and, as its last argument, the
     current CUDA stream of ``device``; raise if it returns a cudaError, else
-    add one to ``counts[name]`` (the one place a kernel launch is counted)."""
+    add one to ``counts[name]``, or, under this thread's graph capture,
+    record the launch for :func:`count_replayed` (the two places a kernel
+    launch is counted)."""
     with torch.cuda.device(device):
         err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         msg = f"{name}: kernel launch failed with cudaError {err}"
         raise RuntimeError(msg)
+    recorded = getattr(_capturing, "launches", None)
+    if recorded is not None:  # captured into a graph: counted when it replays
+        recorded.setdefault((id(counts), name), [counts, name, 0])[2] += 1
+        return
     with _count_lock:  # threads may launch at once (insert_evals searches on 4)
         counts[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Around a CUDA graph's capture in this thread: yields a list that
+    receives, when the block ends, ``(counts, name, n)`` for the launches of
+    each kernel recorded into the graph (and not counted by :func:`launch`)."""
+    out: list[tuple[dict[str, int], str, int]] = []
+    _capturing.launches = {}
+    try:
+        yield out
+    finally:
+        out.extend(tuple(entry) for entry in _capturing.launches.values())
+        _capturing.launches = None
+
+
+def count_replayed(recorded: list[tuple[dict[str, int], str, int]]) -> None:
+    """Count the launches one replay of a graph made (``recorded`` by
+    :func:`recording_launches` during its capture)."""
+    with _count_lock:
+        for counts, name, n in recorded:
+            counts[name] += n

@@ -99,6 +99,10 @@ class TPDecoderModel(DecoderModel):
     per layer, every shard's attention and MLP on its own device, each
     followed by the reduce of their partial sums onto the first device."""
 
+    #: Its steps run eagerly: a forward that spans devices is not captured
+    #: as a CUDA graph (utils/graphs.py).
+    captures = False
+
     def __init__(self, cfg: dict, devices: list[torch.device]) -> None:
         super().__init__(cfg)
         self.devices = list(devices)
