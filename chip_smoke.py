@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
-query-adapter, checkpoint, ingestion-to-surface, multi-GPU, IR-benchmark and
-CUDA-graph decode paths once on one NVIDIA GPU.
+query-adapter, checkpoint, ingestion-to-surface, multi-GPU, IR-benchmark,
+CUDA-graph decode and CUDA-graph retrieval paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -247,13 +247,39 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    token); (g) complete_batch of 8 at T = 4,096, greedy and under the
    metadata schema; (h) two threads answering at once, equal to the same
    calls one after the other.
+15. The retrieval programs as CUDA graphs (after phase 12, before phase 10
+   replaces the phase-3 store; ``utils/graphs.py:ProgramGraphs``): (a)
+   every call of a program whose key is held (captured or replayed) is
+   followed by one more replay and by the eager program on the same inputs
+   (``eager_programs``), ids equal and scores within PHASE15_RTOL (0: bit
+   for bit), their launches taken back out of the counts: over the phase-3
+   store, 8 vector_searches and reranks of their top 20 and a
+   vector_search_batch of 32 (the token, normalised-state, MaxSim and
+   pooled programs of ``flax:sem``, the int4 route at B 1 and 32), the
+   single-stage route (bf16 rows, the bucket scan kernel) and the dense
+   route (the first 131,072 rows) at B 1 and 8 over views of the same
+   device rows, the exact route over every row kept eager by the size rule
+   (asserted); (b) the checking replays' int4 and bucket scan launches
+   equal to the eager programs'; (c) a document inserted (found, a new
+   generation and capture), deleted (gone) and an adapter set (a new
+   generation), each search held as in (a); (d) PHASE15_THREADS threads of
+   vector_search + rerank_chunks at once, equal to the same calls in turn,
+   and 8 threads of vector_search racing an insert, each result equal to
+   the same search before or after it; (e) from the graphs and eager in turns: the query encode, vector_search
+   (B 1) and vector_search_batch (B 32) p50, rerank_chunks of a top 20 cold
+   and warm at d 768 and, with phase 10 (e)'s bge-m3-shaped encoder, d
+   1,024 (its programs held as in (a), token states at T >= 2,048 from a
+   graph, a [8, T] rerank tile kept eager by the size rule, asserted), the
+   idle share of one vector_search, device ops a replay beside the eager
+   program's, capture ms per key and the bytes each object's pool holds.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
 at ``--rows``; ``--only phase12`` runs phase 3's store at ``--rows`` and
 phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``;
 ``--only phase14`` runs phase 3's store at ``--rows``, loads `large` and
-runs phase 14 on phase 6's RAG prompt (none of them prints a result line).
+runs phase 14 on phase 6's RAG prompt; ``--only phase15`` runs phase 3's
+store at ``--rows`` and phase 15 (none of them prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -313,6 +339,14 @@ METADATA_SCHEMA = {
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+_STARTED = time.perf_counter()
+
+
+def mark(label: str) -> None:
+    """Log the seconds since the script started, after ``label``."""
+    log(f"{label}: {time.perf_counter() - _STARTED:.1f} s since the start")
 
 
 def card_line() -> str:
@@ -994,7 +1028,7 @@ def _timed_tokens(tokens) -> tuple[list[int], float, float]:
     return out, first or 0.0, (time.perf_counter() - t0) * 1e3
 
 
-def _profile_window(fn, what: str, card: str) -> tuple[int, float]:
+def _profile_window(fn, what: str, card: str, top: int = 12) -> tuple[int, float]:
     """One torch.profiler window over ``fn`` (warm): the device's busy time
     by kernel and its idle share of the window (the profiler's own host
     overhead is inside the window, so the idle share is an upper bound).
@@ -1008,10 +1042,11 @@ def _profile_window(fn, what: str, card: str) -> tuple[int, float]:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [
+    kernels = [  # the device's own work: kernels and copies, not the ranges user code annotates
         (e.key, e.self_device_time_total, e.count)
         for e in prof.key_averages()
         if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)
     ]
     kernels.sort(key=lambda k: -k[1])
     busy_us = sum(k[1] for k in kernels)
@@ -1019,7 +1054,7 @@ def _profile_window(fn, what: str, card: str) -> tuple[int, float]:
         f"profile: {what}, window {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
         f"idle share {1 - busy_us / wall_us:.4f}, {sum(k[2] for k in kernels)} device ops, on {card}"
     )
-    for name, us, count in kernels[:12]:
+    for name, us, count in kernels[:top]:
         log(f"  profile: {us / 1e3:9.3f} ms  {count:5d}x  {name[:110]}")
     return sum(k[2] for k in kernels), 1 - busy_us / wall_us
 
@@ -3815,6 +3850,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
         windows_for,
     )
     from raglite_tpu_torch.models.boundary_data import make_corpus
+    from raglite_tpu_torch.models.encoder import encoder_from_config
     from raglite_tpu_torch.ops import fused_scan as fs
     from raglite_tpu_torch.search import corrected_num_hits, vector_search
     from raglite_tpu_torch.sentences import heuristic_sentence_boundaries, split_sentences
@@ -3962,6 +3998,8 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             f"builds from it in {build_s:.2f} s and the first search takes {reopened_first_ms:.1f} ms, on {card}")
 
         # (e) The web chat on 127.0.0.1, answering through `jax:large`.
+        programs = {"encoder": encoder_from_config(cfg).programs, "index": index.programs}
+        mix_before = _graph_mix(programs)
         chat_cfg = dataclasses.replace(cfg, llm="jax:large")
         app = create_web_app(chat_cfg)
         server, port = app.serve_background("127.0.0.1", 0)
@@ -4011,6 +4049,8 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
         finally:
             server.shutdown()
             server.server_close()
+        out["graph_mix"] = _graph_mix_since(programs, mix_before)
+        log(f"phase 11 (e) retrieval graphs over the web chat's searches, upload and chat: {json.dumps(out['graph_mix'])}, on {card}")
         times = sorted(times)
         out["web"] = {
             "search_p50_ms": statistics.median(times), "search_p99_ms": times[int(0.99 * (len(times) - 1))],
@@ -4742,6 +4782,8 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
         f"documents of the BEIR directory ({doc_rows} rows) inserted in {insert_s:.2f} s, {rows - doc_rows} background "
         f"rows in {seed_s:.2f} s, on {card}")
     runs, out = {}, {"insert_s": insert_s, "seed_s": seed_s, "write_s": write_s}
+    programs = {"encoder": encoder_from_config(first.config).programs, "index": index.programs}
+    mix_before = _graph_mix(programs)
     for variant, evaluator in evaluators.items():
         launches: dict[str, int] = {}
         t0 = time.perf_counter()
@@ -4752,6 +4794,8 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
         assert index.last_route == "int4_two_stage", (variant, index.last_route)
         assert launches.get("int4_bucket_scan", 0) == len(dataset.queries), (variant, launches)
         out[variant] = {"AP@10": evaluator.score("AP@10"), "runs_s": seconds}
+    out["graph_mix"] = _graph_mix_since(programs, mix_before)
+    log(f"phase 13 (b) retrieval graphs over the three evaluators' runs: {json.dumps(out['graph_mix'])}, on {card}")
     exact = RAGLiteTPUEvaluator(
         dataset, variant="multivector", config=dataclasses.replace(cfg, use_int4_stage1=False), cache_dir=str(root / "b-exact-cache")
     )
@@ -5372,6 +5416,419 @@ def phase14(llm, prompt: str, card: str, total: dict[str, int]) -> dict:
     return {"steps": steps, "paths": paths}
 
 
+# --- Phase 15: the retrieval programs as CUDA graphs -------------------------
+
+#: Largest relative deviation allowed between a replay and its eager program
+#: (0: bit for bit).
+PHASE15_RTOL = 0.0
+#: Phase 15 (c)'s document, inserted into the phase-3 store and deleted again.
+PHASE15_DOC_ID = "phase15-lighthouse"
+PHASE15_DOC = (
+    "The keepers of the Zanzibar lighthouse log the tide at dawn. The brass ledger of the Zanzibar "
+    "lighthouse records every ship that passed the coral reef since the great storm."
+)
+PHASE15_QUERY = "What does the brass ledger of the Zanzibar lighthouse record?"
+#: Threads of phase 15 (d), each a vector_search and a rerank_chunks.
+PHASE15_THREADS = 8
+
+
+def _deviation(got, want) -> float:
+    """Largest |got - want| over the largest |want| (finite entries; the
+    infinite ones must be equal); 0 for equal tensors of any dtype."""
+    import torch
+
+    if torch.equal(got, want):
+        return 0.0
+    assert got.shape == want.shape and got.dtype == want.dtype and got.dtype.is_floating_point, (got, want)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite) and torch.equal(got[~finite], want[~finite])
+    scale = float(want[finite].abs().max().clamp(min=1e-30))
+    return float((got[finite] - want[finite]).abs().max()) / scale
+
+
+class _ProgramCheck:
+    """Phase 15 (a) and (b): while ``on``, each ProgramGraphs call that
+    leaves its key held is followed by one more call (a replay) and the
+    eager program on the same inputs (``eager_programs``): integer outputs
+    equal, float outputs within PHASE15_RTOL of the eager ones, and the
+    replay's scan launches equal to the eager program's.  The launches of
+    those two calls are taken back out of the counts.  ``held`` keeps per
+    (owner, key) the checks, the largest deviation and the last call, for
+    profiling; ``launches`` the replays' and the eager programs' scan
+    launches in all."""
+
+    def __init__(self, names: dict[int, str]) -> None:
+        self.names = names
+        self.on = False
+        self.held: dict[tuple, dict] = {}
+        self.launches = {"replay": {}, "eager": {}}
+
+    def __enter__(self):
+        from raglite_tpu_torch.utils import graphs
+
+        self.original = original = graphs.ProgramGraphs.__call__
+        check = self
+
+        def call(programs, key, program, *inputs):
+            out = original(programs, key, program, *inputs)
+            if check.on and key in programs:
+                check.verify(programs, key, program, inputs, out)
+            return out
+
+        graphs.ProgramGraphs.__call__ = call
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from raglite_tpu_torch.utils import graphs
+
+        graphs.ProgramGraphs.__call__ = self.original
+
+    def verify(self, programs, key, program, inputs, out) -> None:
+        from raglite_tpu_torch.ops import fused_scan as fs
+        from raglite_tpu_torch.utils import graphs
+
+        snap = dict(fs.launch_counts)
+        replay = self.original(programs, key, program, *inputs)
+        mid = dict(fs.launch_counts)
+        with graphs.eager_programs():
+            eager = programs.eager(program, *inputs)
+        end = dict(fs.launch_counts)
+        fs.launch_counts.update(snap)
+        by_replay = {k: mid[k] - snap[k] for k in snap}
+        by_eager = {k: end[k] - mid[k] for k in snap}
+        assert by_replay == by_eager, (key, by_replay, by_eager)
+        for what, n in (("replay", by_replay), ("eager", by_eager)):
+            for k, v in n.items():
+                self.launches[what][k] = self.launches[what].get(k, 0) + v
+        dev = 0.0
+        for got in (out, replay):
+            for a, b in zip(graphs._as_tuple(got), graphs._as_tuple(eager), strict=True):
+                dev = max(dev, _deviation(a, b))
+        assert dev <= PHASE15_RTOL, (self.names.get(id(programs)), key, dev)
+        entry = self.held.setdefault((self.names.get(id(programs), "?"), key), {"checks": 0, "deviation": 0.0})
+        entry["checks"] += 1
+        entry["deviation"] = max(entry["deviation"], dev)
+        entry["call"] = (programs, key, program, inputs)
+
+
+def _paired_p50(fn, items, reps: int = 1) -> tuple[float, float]:
+    """p50 host-clock ms of ``fn(item)`` from the graphs and eagerly
+    (``eager_programs``), in turns, each call ended by a synchronize."""
+    import torch
+
+    from raglite_tpu_torch.utils import graphs
+
+    graph, eager = [], []
+    for _ in range(reps):
+        for item in items:
+            for times, ctx in ((graph, contextlib.nullcontext()), (eager, graphs.eager_programs())):
+                with ctx:
+                    t0 = time.perf_counter()
+                    fn(item)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(graph), statistics.median(eager)
+
+
+def _replay_ops(check: _ProgramCheck, names: list[str], card: str) -> dict[str, dict]:
+    """Device ops and idle share of one call from its graph and of the
+    eager program, for the last held key of each kind of each owner."""
+    from raglite_tpu_torch.utils import graphs
+
+    last: dict[tuple, tuple] = {}
+    for (owner, key), entry in check.held.items():
+        if owner in names and "call" in entry:
+            last[(owner, key[0])] = entry["call"]
+    out = {}
+    for (owner, _), (programs, key, program, inputs) in sorted(last.items(), key=str):
+        programs(key, program, *inputs)  # held (again, if a later generation dropped it)
+        ops, idle = _profile_window(lambda: programs(key, program, *inputs), f"one replay, {owner} {key}", card, top=3)
+        with graphs.eager_programs():
+            e_ops, e_idle = _profile_window(lambda: programs(key, program, *inputs), f"eager, {owner} {key}", card, top=3)
+        out[f"{owner} {key[:-1] if owner == 'index' else key}"] = {
+            "ops": ops, "idle": idle, "eager_ops": e_ops, "eager_idle": e_idle,
+        }
+    return out
+
+
+def _pool_report(programs) -> dict:
+    stats = programs.stats()
+    return {
+        "keys": len(stats), "pool_bytes": sum(v["pool_bytes"] for v in stats.values()),
+        "capture_ms": {str(k): round(v["capture_ms"], 3) for k, v in stats.items()}, "counts": dict(programs.counts),
+    }
+
+
+def _graph_mix(programs: dict) -> dict:
+    """Each named ProgramGraphs object's counts and capture ms now (the
+    baseline of :func:`_graph_mix_since`)."""
+    return {name: {**p.counts, "capture_ms": p.capture_ms} for name, p in programs.items()}
+
+
+def _graph_mix_since(programs: dict, before: dict) -> dict:
+    """Per named ProgramGraphs object, since ``before``: its calls by
+    outcome, the keys it holds, the share of calls that replayed, and the
+    capture ms in all and per call."""
+    out = {}
+    for name, p in programs.items():
+        delta = {k: p.counts[k] - before[name][k] for k in p.counts}
+        calls = delta["captured"] + delta["replayed"] + delta["kept_eager"]
+        capture_ms = p.capture_ms - before[name]["capture_ms"]
+        out[name] = {
+            **delta, "calls": calls, "keys_held": len(p), "replayed_share": delta["replayed"] / max(calls, 1),
+            "capture_ms": capture_ms, "capture_ms_per_call": capture_ms / max(calls, 1),
+        }
+    return out
+
+
+def _long_text(encoder, texts: list[str], lo: int, hi: int) -> str:
+    """A prefix of the documents' text of more than ``lo`` and at most
+    ``hi`` tokens of ``encoder`` (a few tokenizations, each prefix scaled
+    by the characters a token the last one took)."""
+    text = "\n\n".join(texts)
+    size = 8 * hi
+    for _ in range(8):
+        n = encoder.count_tokens([text[:size]])[0]
+        if lo < n <= hi:
+            return text[:size]
+        size = int(size * (lo + hi) / 2 / max(n, 1))
+    msg = f"no prefix of {lo}-{hi} tokens found"
+    raise AssertionError(msg)
+
+
+def phase15_rerank(ecfg, queries: list[str], chunk_lists: list, card: str, label: str) -> dict:
+    """``rerank_chunks`` of each query's top 20 from the graphs and eagerly:
+    cold (the encoder's rerank cache emptied first) and warm, in turns."""
+    from raglite_tpu_torch.models.encoder import encoder_from_config
+    from raglite_tpu_torch.search import rerank_chunks
+
+    from raglite_tpu_torch.utils.lang import detect_language
+
+    encoder = encoder_from_config(ecfg)
+    pairs = list(zip(queries, chunk_lists))
+
+    def cold(pair):
+        encoder._rerank_cache.clear()
+        rerank_chunks(pair[0], pair[1], config=ecfg)
+
+    for pair in pairs:  # every tile's key captured: "cold" is the rerank cache's state
+        cold(pair)
+    cold_g, cold_e = _paired_p50(cold, pairs)
+    for pair in pairs:
+        rerank_chunks(pair[0], pair[1], config=ecfg)
+    warm_g, warm_e = _paired_p50(lambda pair: rerank_chunks(pair[0], pair[1], config=ecfg), pairs)
+    # The host's share: the per-language reranker's language detection and
+    # the candidates' tokenization, made on every call.
+    lang_ms = _p50_ms(lambda pair: [detect_language(str(c)) for c in pair[1]] + [detect_language(pair[0])], pairs)
+    tok_ms = _p50_ms(lambda pair: [encoder._encode_ids(str(c)) for c in pair[1]], pairs)
+    log(f"phase 15 (e) rerank_chunks of a top 20 at {label}, p50 over {len(pairs)} queries on {card}: cold "
+        f"{cold_g:.3f} ms from the graphs, {cold_e:.3f} eager; warm {warm_g:.3f} ms from the graphs, {warm_e:.3f} eager; "
+        f"of it on the host: language detection {lang_ms:.3f} ms, the candidates' tokenization {tok_ms:.3f} ms")
+    return {"cold_ms": cold_g, "cold_eager_ms": cold_e, "warm_ms": warm_g, "warm_eager_ms": warm_e,
+            "detect_language_ms": lang_ms, "tokenize_ms": tok_ms}
+
+
+def phase15(cfg, texts: list[str], queries: list[str], seed: int, card: str, total: dict[str, int]) -> dict:
+    """Phase 15: the retrieval path's one-dispatch programs from CUDA graphs
+    (utils/graphs.py:ProgramGraphs) over the phase-3 store, held to their
+    eager programs (module docstring, phase 15)."""
+    import shutil
+    import threading
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch import Document, RAGLiteConfig, delete_documents, insert_documents
+    from raglite_tpu_torch.documents import Chunk
+    from raglite_tpu_torch.embed import embed_strings
+    from raglite_tpu_torch.index.dense import GRAPH_SCAN_BYTES, DenseIndex, dense_index_from_config
+    from raglite_tpu_torch.models.encoder import encoder_from_config
+    from raglite_tpu_torch.search import corrected_num_hits, rerank_chunks, retrieve_chunks, vector_search, vector_search_batch
+    from raglite_tpu_torch.store import store_from_config
+    from raglite_tpu_torch.utils import graphs
+
+    t_start = time.perf_counter()
+    store = store_from_config(cfg)
+    encoder = encoder_from_config(cfg)
+    index = dense_index_from_config(cfg)
+    index._refresh_device()
+    rows = index.num_rows
+    # The single-stage and dense routes over the same device rows (views):
+    # the bucket scan at every row, the exact scan over the first 131,072.
+    fused = DenseIndex.from_device_arrays(index._rows[0][:rows], index._dev_row_chunk[:rows])
+    fused.use_int4_stage1 = False
+    small = DenseIndex.from_device_arrays(index._rows[0][:131_072], index._dev_row_chunk[:131_072])
+    names = {id(encoder.programs): "sem", id(index.programs): "index", id(fused.programs): "fused", id(small.programs): "small"}
+    q32 = (queries * 4)[:32]
+    out: dict = {}
+    with _ProgramCheck(names) as check:
+        check.on = True
+        # (a) Every program of the default path at its serving keys.
+        def default_path():
+            tops = []
+            for q in queries:
+                ids, _ = vector_search(q, num_results=20, config=cfg)
+                tops.append(retrieve_chunks(ids, config=cfg))
+                assert index.last_route == "int4_two_stage", index.last_route
+            for q, chunks in zip(queries, tops):
+                rerank_chunks(q, chunks, config=cfg)
+            batch = vector_search_batch(q32, num_results=10, config=cfg)
+            assert len(batch) == 32 and index.last_route == "int4_two_stage"
+            return tops
+
+        tops = _counted(total, default_path)
+        emb = np.stack([embed_strings([q], config=cfg)[0] for q in queries]).astype(np.float32)
+        hits = min(corrected_num_hits(4, 10, cfg), rows)
+
+        def other_routes():
+            for b in (1, 8):
+                fused.search_chunks_device(emb[:b], num_hits=hits, num_results=10)
+                assert fused.last_route == "fused_scan", fused.last_route
+                small.search_chunks_device(emb[:b], num_hits=hits, num_results=10)
+                assert small.last_route == "dense", small.last_route
+            # The size rule: the exact route over every row stays eager.
+            kept = index.programs.counts["kept_eager"]
+            index.search_chunks_device(emb[:1], num_hits=hits, num_results=10, exact=True)
+            assert index.last_route == "dense" and index.programs.counts["kept_eager"] == kept + 1
+            assert not any(k[0] == "dense" for k in index.programs._entries)
+            assert rows * 4 * (index.dim + 1) > GRAPH_SCAN_BYTES
+
+        _counted(total, other_routes)
+        # (c) Invalidation: an insert, a delete, an adapter.
+        gen, captured = index.generation, index.programs.counts["captured"]
+        insert_documents([Document.from_text(PHASE15_DOC, id=PHASE15_DOC_ID)], config=cfg)
+        new = {cid for cid in store.chunk_order[-16:] if store.get_chunk(cid).document_id == PHASE15_DOC_ID}
+        ids, _ = _counted(total, lambda: vector_search(PHASE15_QUERY, num_results=10, config=cfg))
+        assert new and new & set(ids), (new, ids)
+        assert index.generation > gen and index.programs.counts["captured"] > captured
+        gen = index.generation
+        delete_documents([PHASE15_DOC_ID], config=cfg)
+        ids2, _ = _counted(total, lambda: vector_search(PHASE15_QUERY, num_results=10, config=cfg))
+        assert not new & set(ids2) and index.generation > gen, (ids2, index.generation)
+        gen = index.generation
+        rng = np.random.default_rng(seed + 15)
+        a = (np.eye(index.dim) + 0.02 * rng.normal(size=(index.dim, index.dim))).astype(np.float32)
+        store.index_metadata["query_adapter"] = a
+        adapted = [_counted(total, lambda q=q: vector_search(q, num_results=10, config=cfg))[0] for q in queries[:4]]
+        assert index.generation == gen + 1, (index.generation, gen)
+        del store.index_metadata["query_adapter"]
+        plain = [vector_search(q, num_results=10, config=cfg)[0] for q in queries[:4]]
+        log(f"phase 15 (c) on {card}: the inserted chunk found ({sorted(new & set(ids))}), gone after the delete; "
+            f"generation {gen + 1} after the adapter (ids differ from the plain search on "
+            f"{sum(x != y for x, y in zip(adapted, plain))} of 4 queries); every call equal to its eager program")
+        check.on = False
+        # (d) Threads: vector_search and rerank_chunks at once, against the
+        # same calls in turn (the turns run second, on the states the
+        # threads cached).
+        calls = (queries * 2)[:PHASE15_THREADS]
+        encoder._rerank_cache.clear()
+        got: dict[int, tuple] = {}
+
+        def one(i: int) -> tuple:
+            ids, scores = vector_search(calls[i], num_results=20, config=cfg)
+            reranked = rerank_chunks(calls[i], retrieve_chunks(ids, config=cfg), config=cfg)
+            return ids, scores, [c.id for c in reranked]
+
+        def run(i: int) -> None:
+            got[i] = one(i)
+
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(len(calls))]
+        t0 = time.perf_counter()
+        _counted(total, lambda: ([t.start() for t in threads], [t.join(timeout=300) for t in threads]))
+        threads_s = time.perf_counter() - t0
+        assert not any(t.is_alive() for t in threads) and len(got) == len(calls)
+        want = [one(i) for i in range(len(calls))]
+        assert [got[i] for i in range(len(calls))] == want, "threads differ from the same calls in turn"
+        log(f"phase 15 (d) {len(calls)} threads of vector_search + rerank_chunks at once in {threads_s:.3f} s: equal "
+            f"to the same calls in turn, on {card}")
+        # Searches racing an insert: every result equals the same search
+        # before or after it (no search reads arrays a sync replaced).
+        racers = [PHASE15_QUERY, *queries[:3]] * 2
+        race_id = PHASE15_DOC_ID + "-race"
+        before = {q: vector_search(q, num_results=10, config=cfg) for q in set(racers)}
+        raced: dict[int, list] = {}
+
+        def search_during(i: int) -> None:
+            raced[i] = [vector_search(racers[i], num_results=10, config=cfg) for _ in range(4)]
+
+        threads = [threading.Thread(target=search_during, args=(i,)) for i in range(len(racers))]
+        threads.append(threading.Thread(target=lambda: insert_documents([Document.from_text(PHASE15_DOC, id=race_id)], config=cfg)))
+        gen = index.generation
+        _counted(total, lambda: ([t.start() for t in threads], [t.join(timeout=300) for t in threads]))
+        assert not any(t.is_alive() for t in threads) and len(raced) == len(racers)
+        after = {q: vector_search(q, num_results=10, config=cfg) for q in set(racers)}
+        assert index.generation > gen and before[PHASE15_QUERY] != after[PHASE15_QUERY]
+        mixed = [r for i, rs in raced.items() for r in rs if r not in (before[racers[i]], after[racers[i]])]
+        assert not mixed, mixed
+        delete_documents([race_id], config=cfg)
+        log(f"phase 15 (d) {len(racers)} threads of vector_search racing an insert: each of "
+            f"{sum(map(len, raced.values()))} results equal to the same search before or after it "
+            f"({sum(r == after[racers[i]] for i, rs in raced.items() for r in rs)} after), on {card}")
+        # (e) Times from the graphs and eager, in turns.
+        enc_g, enc_e = _paired_p50(lambda q: embed_strings([q], config=cfg), queries, reps=2)
+        vs_g, vs_e = _paired_p50(lambda q: vector_search(q, num_results=10, config=cfg), queries, reps=2)
+        vb_g, vb_e = _paired_p50(lambda qs: vector_search_batch(qs, num_results=10, config=cfg), [q32] * 4)
+        log(f"phase 15 (e) on {card}: query encode ([8, 128] token states) p50 {enc_g:.3f} ms from the graph, "
+            f"{enc_e:.3f} eager; vector_search (B 1, int4 route) p50 {vs_g:.3f} ms, {vs_e:.3f} eager; "
+            f"vector_search_batch (B 32) {vb_g:.3f} ms, {vb_e:.3f} eager")
+        out.update({"encode_ms": enc_g, "encode_eager_ms": enc_e, "vector_search_ms": vs_g, "vector_search_eager_ms": vs_e,
+                    "batch32_ms": vb_g, "batch32_eager_ms": vb_e})
+        out["rerank_768"] = phase15_rerank(cfg, queries[:4], tops[:4], card, "d 768 (flax:sem)")
+        _, idle = _profile_window(lambda: vector_search(queries[0], num_results=10, config=cfg), "one vector_search from the graphs", card, top=5)
+        with graphs.eager_programs():
+            _, idle_e = _profile_window(lambda: vector_search(queries[0], num_results=10, config=cfg), "one vector_search, eager", card, top=5)
+        out.update({"idle_share": idle, "idle_share_eager": idle_e})
+        # The bge-m3-shaped encoder of phase 10 (e): its programs held and
+        # timed, one key at T >= 2,048, and the size rule at a rerank tile.
+        root = scratch_dir(1_300_000_000, "bge_m3_p15_")
+        try:
+            (root / "tokenizer.json").write_text(json.dumps(unigram_tokenizer_json(_markdown_texts())))
+            write_bge_m3_checkpoint(root, seed + 20)
+            ecfg = RAGLiteConfig(store_path=":memory:", device="cuda", embedder=f"flax:{root}")
+            big = encoder_from_config(ecfg)
+            names[id(big.programs)] = "bge-m3"
+            check.on = True
+
+            def bge_calls():
+                rerank_chunks(queries[0], tops[0], config=ecfg)
+                rerank_chunks(queries[1], tops[1], config=ecfg)
+                embed_strings([queries[0]], config=ecfg)
+                long = _long_text(big, texts, 1920, 2816)
+                states = big.embed_token_level(long)
+                t = -(-states.shape[0] // 128) * 128
+                assert t >= 2048 and ("tokens", 1, t) in big.programs, states.shape
+                kept = big.programs.counts["kept_eager"]
+                chunk = Chunk(id="phase15-long", document_id="phase15-long", index=0, headings="", body=long)
+                rerank_chunks(queries[0], [*tops[0][:3], chunk], config=ecfg)
+                assert big.programs.counts["kept_eager"] == kept + 1 and ("norm", 8, t) not in big.programs
+                log(f"phase 15 bge-m3 shape: token states at T {t} ({states.shape[0]} tokens) from a graph; a rerank "
+                    f"tile [8, {t}] kept eager by the size rule ({8 * 16 * t * t * 4 / 2**20:.0f} MiB of logits), on {card}")
+
+            _counted(total, bge_calls)
+            check.on = False
+            out["rerank_1024"] = phase15_rerank(ecfg, queries[:4], tops[:4], card, "d 1,024 (bge-m3 shape)")
+            out["ops"] = _replay_ops(check, ["sem", "index", "fused", "small", "bge-m3"], card)
+            out["pools"] = {n: _pool_report(p) for n, p in (("sem", encoder.programs), ("index", index.programs),
+                                                           ("fused", fused.programs), ("small", small.programs),
+                                                           ("bge-m3", big.programs))}
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+    dev = max(e["deviation"] for e in check.held.values())
+    scans = {k: check.launches["replay"].get(k, 0) for k in ("int4_bucket_scan", "bucketed_max_scan")}
+    assert scans["int4_bucket_scan"] > 0 and scans["bucketed_max_scan"] > 0, check.launches
+    assert check.launches["replay"] == check.launches["eager"], check.launches
+    log(f"phase 15 (a) on {card}: {len(check.held)} keys held to their eager programs "
+        f"({sum(e['checks'] for e in check.held.values())} checks), largest deviation {dev:.3g} (bound {PHASE15_RTOL}); "
+        f"(b) scan launches of the checking replays {scans} = the eager programs' {check.launches['eager']}")
+    for (owner, key), entry in sorted(check.held.items(), key=str):
+        log(f"  phase 15 key {owner} {key}: {entry['checks']} checks, deviation {entry['deviation']:.3g}")
+    for name, report in out["pools"].items():
+        log(f"phase 15 pool {name} on {card}: {json.dumps(report)}")
+    out.update({"keys": len(check.held), "deviation": dev, "replay_launches": scans, "seconds": time.perf_counter() - t_start})
+    log(f"phase 15 done in {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5383,14 +5840,15 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14"],
+        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
         "with phase 6's message; 'phase11' builds every kernel and runs phase 11 alone at --rows rows; 'phase12' builds "
         "every kernel, serves phase 3's store at --rows rows and runs phase 12 over it; 'phase13' builds every kernel and "
         "runs phase 13 alone at --rows rows; 'phase14' builds every kernel, serves phase 3's store at --rows rows, "
-        "loads the large preset and runs phase 14 on phase 6's RAG prompt",
+        "loads the large preset and runs phase 14 on phase 6's RAG prompt; 'phase15' builds every kernel, serves phase 3's "
+        "store at --rows rows and runs phase 15 over it",
     )
     # One rank of phase 12 (d), started by phase 12 itself.
     parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
@@ -5497,6 +5955,21 @@ def main() -> int:
         log("partial run (--only phase14): no result line")
         return 0
 
+    if args.only == "phase15":
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
+        cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
+        t0 = time.perf_counter()
+        insert_documents([Document.from_text(t) for t in texts], config=cfg)
+        store = store_from_config(cfg)
+        add_background(store, args.rows - sum(m.shape[0] for m in store.embeddings.values()), args.seed)
+        log(f"phase 3's store at {args.rows} rows in {time.perf_counter() - t0:.1f} s")
+        vs_q = pick_queries(texts, 8 + 4 + 32, args.seed)[:8]  # phase 3's 8 sentences
+        launches15: dict[str, int] = {}
+        summary15 = phase15(cfg, texts, vs_q, args.seed, card, launches15)
+        log(f"phase 15 summary on {card}: {json.dumps({**summary15, 'launches': launches15})}")
+        log("partial run (--only phase15): no result line")
+        return 0
+
     if args.only == "phase11":
         texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
         launches11: dict[str, int] = {}
@@ -5505,10 +5978,14 @@ def main() -> int:
         log("partial run (--only phase11): no result line")
         return 0
 
+    mark("build")
+
     # 2. Kernels vs plain versions.
     errs = check_kernels(args.seed)
     # 2b. Attention kernels vs plain versions; verify rows vs decode.
     errs.update(check_attention_kernels(args.seed))
+
+    mark("phases 2 and 2b")
 
     # 3. Serve, default config (int4 two-stage route).
     texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
@@ -5538,6 +6015,8 @@ def main() -> int:
     if args.profile:
         profile_search(cfg, vs_q, card)
 
+    mark("phase 3")
+
     # 4. Serve, single-stage (int8 rows, use_pallas, no int4 stage).
     cfg8 = RAGLiteConfig(
         store_path=":memory:", device="cuda", embedding_dtype="int8",
@@ -5554,9 +6033,13 @@ def main() -> int:
     if args.profile:
         profile_search(cfg8, vs_q, card)
 
+    mark("phase 4")
+
     # 4b. Keyword and hybrid search, default config.
     hybrid = keyword_and_hybrid(cfg, vs_q, rr_q, background, args.seed, card, profile=args.profile)
     log(f"phase 4b summary on {card}: {json.dumps(hybrid)}")
+
+    mark("phase 4b")
 
     # 5. Timings at the served index's arrays.
     from raglite_tpu_torch.embed import embed_queries
@@ -5567,15 +6050,23 @@ def main() -> int:
     launches = {"int4_bucket_scan": launches_default["int4_bucket_scan"], "bucketed_max_scan": launches_single["bucketed_max_scan"]}
     log(f"launches per query: { {k: v / n_queries for k, v in launches.items()} }")
 
+    mark("phase 5")
+
     # 6. RAG answers from the `large` decoder over the phase-3 index.
     answer = serve_rag(cfg, vs_q[0], card, profile=args.profile)
     launches.update(answer["launches"])
 
+    mark("phase 6")
+
     # 7. Attention kernel timings at the `large` shapes.
     timings += time_attention(args.seed, answer["rag_s"], answer["rag_pos"], answer["rag_t"], card, profile=args.profile)
 
+    mark("phase 7")
+
     # 8. Structured and batched generation on the same decoder.
     structured = structured_generation(cfg, vs_q, args.seed, card)
+
+    mark("phase 8")
 
     # 14. The decode programs as CUDA graphs, on phase 6's decoder and RAG
     # prompt: each step form against the module's eager function, the
@@ -5590,6 +6081,8 @@ def main() -> int:
     for name in ("gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase14_launches.get(name, 0) > 0, (name, phase14_launches)
 
+    mark("phase 14")
+
     # 9. Evals, the query adapter and async RAG over the phase-3 store and
     # the same decoder; each kernel's launches on this path counted apart.
     phase9_launches: dict[str, int] = {}
@@ -5601,6 +6094,8 @@ def main() -> int:
     for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase9_launches.get(name, 0) > 0, (name, phase9_launches)
 
+    mark("phase 9")
+
     # 12. Multi-GPU on the one card, over the phase-3 store and phase 6's
     # decoder (before phase 10 releases it and replaces the store): the
     # sharded index, sharded BM25, tensor-parallel `large`, two ranks.
@@ -5609,6 +6104,19 @@ def main() -> int:
     log(f"phase 12 summary on {card}: {json.dumps(_without_timings(summary12))}; launches {phase12_launches}")
     for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase12_launches.get(name, 0) > 0, (name, phase12_launches)
+
+    mark("phase 12")
+
+    # 15. The retrieval programs as CUDA graphs, over the phase-3 store
+    # (before phase 10 replaces it): each held key against its eager
+    # program, invalidation, threads, graph and eager side by side.
+    phase15_launches: dict[str, int] = {}
+    summary15 = phase15(cfg, texts, vs_q, args.seed, card, phase15_launches)
+    log(f"phase 15 summary on {card}: {json.dumps({**summary15, 'launches': phase15_launches})}")
+    for name in ("int4_bucket_scan", "bucketed_max_scan"):
+        assert phase15_launches.get(name, 0) > 0, (name, phase15_launches)
+
+    mark("phase 15")
 
     # 10. Real checkpoints: a Qwen3-4B-shaped hf: checkpoint (bf16 and
     # @int8) answering over the phase-3 store, a bge-m3-shaped encoder at
@@ -5630,9 +6138,13 @@ def main() -> int:
     for name in ("int4_bucket_scan", "gqa_decode_attention", "gqa_verify_attention", "gqa_prefill_attention"):
         assert phase10_launches.get(name, 0) > 0, (name, phase10_launches)
 
+    mark("phase 10")
+
     # 8 (d) and 9 (f) replace the cached ":memory:" store: they come last.
     hash_on_card(texts, vs_q, card)
     phase9_openai(texts[:2], vs_q[0], card)
+
+    mark("phases 8 (d) and 9 (f)")
 
     # 11. From files to answers through the surfaces: documents of every
     # kind, learned boundaries, a persistent store on disk, a cold CLI, the
@@ -5644,6 +6156,8 @@ def main() -> int:
         assert phase11_launches.get(name, 0) > 0, (name, phase11_launches)
     assert phase11_launches.get("gqa_decode_attention", 0) + phase11_launches.get("gqa_verify_attention", 0) > 0
 
+    mark("phase 11")
+
     # 13. The IR benchmark: every variant on the card and the CPU, a
     # bge-base-shaped BERT over a store at --rows (the int4 route), the
     # HNSW baseline, and the CLI's bench (its own temporary directory).
@@ -5651,6 +6165,7 @@ def main() -> int:
     summary13 = phase13(args.rows, args.seed, card, phase13_launches)
     log(f"phase 13 summary on {card}: {json.dumps({**summary13, 'launches': phase13_launches})}")
     assert phase13_launches.get("int4_bucket_scan", 0) > 0, phase13_launches
+    mark("phase 13")
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -5690,6 +6205,9 @@ def main() -> int:
             # And on phase 14's (the step graphs against the eager steps,
             # the entry points from the graphs and the eager reference).
             "launches_phase14": phase14_launches.get(name, 0),
+            # And on phase 15's (the retrieval programs' entry points, the
+            # graphs' warm-ups and replays; checking calls not counted).
+            "launches_phase15": phase15_launches.get(name, 0),
         })
         p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
         if p12 is not None:

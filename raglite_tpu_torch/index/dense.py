@@ -38,6 +38,22 @@ the exact scan through ``sharded_topk_search``; only the single-stage
 kernel stays single-device, as in the JAX package.  The row -> chunk map
 stays whole on the first device, where the merged winners' multi-vector
 group-max runs.
+
+``search_chunks_device`` runs each route as one program, the JAX package's
+``_int4_two_stage_chunks`` (:func:`int4_two_stage_chunks`),
+``_dense_search_chunks_fused`` (:func:`dense_search_chunks`) and its
+single-stage scan with the group-max (:func:`fused_scan_chunks`).  On one
+card each is replayed from a CUDA graph per key (utils/graphs.py): the
+route, the batch, the hit and result counts, whether a row mask and an
+adapter enter, and the index's ``generation``.  A graph reads the device
+arrays at the addresses it was captured with, so every change to an array
+a program reads (growth, an append, an upload, the int4 copy, the
+tombstone mask, the adapter) bumps the generation and drops the graphs.
+The queries and the row mask are copied into each key's static buffers.
+Size rule: the dense route's key stays eager where its f32 copy of the rows
+and its [B, N] scores would exceed :data:`GRAPH_SCAN_BYTES` in the graph's
+pool (above ~300,000 rows at d = 768; there its launches are a few per cent
+of its time).  A sharded index runs every route eagerly.
 """
 
 from __future__ import annotations
@@ -64,6 +80,7 @@ from raglite_tpu_torch.ops.fused_scan import (
 from raglite_tpu_torch.parallel.mesh import index_devices, split_rows
 from raglite_tpu_torch.parallel.sharded import sharded_int4_two_stage, sharded_topk_search
 from raglite_tpu_torch.types import DistanceMetric
+from raglite_tpu_torch.utils.graphs import ProgramGraphs
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
 if TYPE_CHECKING:
@@ -79,6 +96,8 @@ _DTYPES = {
     "float32": torch.float32, "int8": torch.int8,
 }
 _DTYPE_NAMES = {dt: name for name, dt in _DTYPES.items()}
+#: Pool bytes above which a dense-route key runs eagerly (module docstring).
+GRAPH_SCAN_BYTES = 1 << 30
 
 
 def _dense_search(
@@ -135,6 +154,86 @@ def _group_max_topk(
     final_chunks = chunks.gather(1, pos)
     final_chunks = final_chunks.masked_fill(torch.isneginf(final_scores), -1)
     return final_scores, final_chunks
+
+
+def _adapted(queries: torch.Tensor, adapter: torch.Tensor | None) -> torch.Tensor:
+    return queries if adapter is None else queries @ adapter.T
+
+
+def int4_two_stage_chunks(
+    packed: list[torch.Tensor],  # [Np, d//2] int4-packed rows per shard
+    scale4: list[torch.Tensor],  # [Np] f32
+    rows: list[torch.Tensor],  # [N, d] full-precision rows (rescore)
+    row_scale: list[torch.Tensor] | None,  # [N] f32 (int8 rows)
+    row_sqnorm: list[torch.Tensor],  # [N] f32 (l2)
+    valid: list[torch.Tensor],  # [N] bool (tombstones and row mask)
+    row_chunk: torch.Tensor,  # [capacity] row -> chunk ordinal, first device
+    queries: torch.Tensor,  # [B, d] f32
+    adapter: torch.Tensor | None = None,  # [d, d]
+    *,
+    num_hits: int,
+    num_results: int,
+    candidates: int,
+    metric: str,
+    devices: list[torch.device],
+    num_buckets: int = INT4_NUM_BUCKETS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_int4_two_stage_chunks`` as one program: the
+    adapter, every shard's int4 scan and rescore (``sharded_int4_two_stage``),
+    the merge and the multi-vector group-max.  Returns (scores [B, R],
+    ordinals [B, R])."""
+    scores, idx = sharded_int4_two_stage(
+        packed, scale4, rows, row_scale, row_sqnorm, valid, _adapted(queries, adapter),
+        num_hits=num_hits, candidates=candidates, metric=metric, devices=devices, num_buckets=num_buckets,
+    )
+    return _group_max_topk(scores, idx, row_chunk, num_results=num_results)
+
+
+def dense_search_chunks(
+    rows: list[torch.Tensor],
+    row_sqnorm: list[torch.Tensor],
+    valid: list[torch.Tensor],
+    row_chunk: torch.Tensor,
+    queries: torch.Tensor,
+    row_scale: list[torch.Tensor] | None = None,
+    adapter: torch.Tensor | None = None,
+    *,
+    num_hits: int,
+    num_results: int,
+    metric: str,
+    devices: list[torch.device],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's ``_dense_search_chunks_fused`` (exact) as one
+    program: the adapter, every shard's exact scan and top-k
+    (``sharded_topk_search``), the merge and the group-max."""
+    scores, idx = sharded_topk_search(
+        rows, row_sqnorm, valid, _adapted(queries, adapter), row_scale,
+        num_hits=num_hits, metric=metric, devices=devices,
+    )
+    return _group_max_topk(scores, idx, row_chunk, num_results=num_results)
+
+
+def fused_scan_chunks(
+    rows: torch.Tensor,
+    row_sqnorm: torch.Tensor,
+    valid: torch.Tensor,
+    row_chunk: torch.Tensor,
+    queries: torch.Tensor,
+    row_scale: torch.Tensor | None = None,
+    adapter: torch.Tensor | None = None,
+    *,
+    num_hits: int,
+    num_results: int,
+    metric: str,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The single-stage route as one program (the JAX package dispatches
+    ``bucketed_max_scan``'s top-k and ``_group_max_topk`` apart): the
+    adapter, the bucket scan kernel and its top-k (``fused_scan_topk``),
+    the group-max; one device."""
+    scores, idx = fused_scan_topk(
+        rows, row_sqnorm, valid, _adapted(queries, adapter), num_hits=num_hits, metric=metric, row_scale=row_scale,
+    )
+    return _group_max_topk(scores, idx, row_chunk, num_results=num_results)
 
 
 def fetch_scored(scores: torch.Tensor, ordinals: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
@@ -199,8 +298,27 @@ class DenseIndex:
         #: Which route served the last search: "int4_two_stage",
         #: "fused_scan" (single-stage kernel) or "dense" (plain exact scan).
         self.last_route: str | None = None
-        #: Serializes sync() against concurrent server threads.
+        #: Serializes sync() and every search against concurrent server
+        #: threads: a search holds it from its device refresh until its
+        #: scan is enqueued, so no sync replaces an array it reads.
         self._sync_lock = threading.Lock()
+        #: Bumped by every change to a device array the search programs
+        #: read (under the sync lock); part of every program key.
+        self.generation = 0
+        #: The search programs, replayed from CUDA graphs on one card.
+        self.programs = ProgramGraphs(self.device, capture=self.num_devices == 1, capture_if=self._captured)
+
+    def _bump(self) -> None:
+        """A device array the programs read changed: drop their graphs."""
+        self.generation += 1
+        self.programs.clear()
+
+    def _captured(self, key: tuple) -> bool:
+        """The size rule (module docstring): a dense-route key ``(route,
+        B, ...)`` is captured while its f32 row copy and [B, N] scores fit
+        GRAPH_SCAN_BYTES."""
+        route, batch = key[0], key[1]
+        return route != "dense" or self.capacity * 4 * (self.dim + batch) <= GRAPH_SCAN_BYTES
 
     @property
     def shard_rows(self) -> int:
@@ -213,6 +331,7 @@ class DenseIndex:
         if needed <= self.capacity:
             return
         self._dirty = True
+        self._bump()
         # A multiple of the shard count x the int4 bucket count: the rows
         # split evenly, every shard holds whole buckets, no scan ever pads.
         new_cap = _round_up(max(needed, 2 * max(self.capacity, 1)), INT4_NUM_BUCKETS * self.num_devices)
@@ -250,6 +369,7 @@ class DenseIndex:
         )
         self._apply_tombstones(store)
         self._dirty = True
+        self._bump()
         self._synced_version = store.version
         self._synced_generation = store.generation
 
@@ -266,6 +386,7 @@ class DenseIndex:
         if not np.array_equal(new_valid, self._host_valid[: self.num_rows]):
             self._host_valid[: self.num_rows] = new_valid
             self._valid_dirty = True
+            self._bump()
         self._synced_deleted = len(deleted)
 
     def sync(self, store: "Store") -> None:
@@ -314,6 +435,7 @@ class DenseIndex:
             for s, dev in enumerate(self.devices)
         ]
         self._valid_dirty = False
+        self._bump()
 
     def _device_rows(self, host_f16: np.ndarray, device: torch.device):
         """(rows in the storage dtype, int8 scales or None, sqnorm) on
@@ -345,6 +467,7 @@ class DenseIndex:
         self._dev_row_chunk[start:end] = torch.from_numpy(self.row_chunk[start:end]).to(self.device)
         self._dev_rows_synced = end
         self._packed4 = None  # the stage-1 copy is stale; rebuilt lazily
+        self._bump()
 
     def _full_upload(self) -> None:
         c = self.shard_rows
@@ -359,6 +482,7 @@ class DenseIndex:
         self._dirty = False
         self._dev_rows_synced = self.num_rows
         self._packed4 = None
+        self._bump()
 
     def _ensure_packed4(self) -> None:
         """Build the int4-packed stage-1 copy of every shard from its device
@@ -376,30 +500,34 @@ class DenseIndex:
             packed4.append(packed.contiguous())
             scale4.append(sc4.contiguous())
         self._packed4, self._scale4 = packed4, scale4
+        self._bump()
 
     # --- Search -----------------------------------------------------------
 
-    def _adapter_device(self, adapter: np.ndarray | None) -> torch.Tensor | None:
-        """Device copy of the query adapter, re-uploaded only when the host
-        object changes (compared with ``is``)."""
+    def _adapter_device(self, adapter: np.ndarray | torch.Tensor | None) -> torch.Tensor | None:
+        """Device copy of the query adapter, re-made only when the given
+        object changes (compared with ``is``; a new one bumps the
+        generation)."""
         if adapter is None:
             return None
-        if isinstance(adapter, torch.Tensor):
-            return adapter.to(self.device)
         cached = self._adapter
         if cached is None or cached[0] is not adapter:
-            cached = (adapter, torch.as_tensor(np.asarray(adapter, dtype=np.float32), device=self.device))
+            dev = (
+                adapter.to(self.device) if isinstance(adapter, torch.Tensor)
+                else torch.as_tensor(np.asarray(adapter, dtype=np.float32), device=self.device)
+            )
+            cached = (adapter, dev)
             self._adapter = cached
+            self._bump()
         return cached[1]
 
-    def device_row_mask(self, row_mask: np.ndarray | None) -> list[torch.Tensor] | None:
-        """Device copies of a row filter mask, padded to the capacity and
-        split like the rows (one per shard), cached by content digest (up to
-        4 entries)."""
+    def _row_mask_full(self, row_mask: np.ndarray | torch.Tensor | None) -> torch.Tensor | None:
+        """A row filter mask padded to the capacity, [capacity] bool on the
+        first device, cached by content digest (up to 4 entries)."""
         if row_mask is None:
             return None
         if isinstance(row_mask, torch.Tensor):
-            return [m.to(dev) for m, dev in zip(row_mask.split(self.shard_rows), self.devices)]
+            return row_mask.to(self.device)
         mask_np = np.asarray(row_mask, dtype=np.bool_)
         key = (hashlib.blake2b(mask_np.tobytes(), digest_size=16).digest(), len(mask_np), self.capacity)
         hit = self._row_mask_cache.get(key)
@@ -407,24 +535,23 @@ class DenseIndex:
             return hit
         padded = np.zeros((self.capacity,), dtype=np.bool_)
         padded[: len(mask_np)] = mask_np
-        c = self.shard_rows
-        dev = [torch.from_numpy(padded[s * c : (s + 1) * c]).to(d) for s, d in enumerate(self.devices)]
+        dev = torch.from_numpy(padded).to(self.device)
         if len(self._row_mask_cache) >= 4:
             self._row_mask_cache.pop(next(iter(self._row_mask_cache)))
         self._row_mask_cache[key] = dev
         return dev
 
-    def _valid_shards(self, row_mask) -> list[torch.Tensor]:
-        """Each shard's valid mask, ANDed with the row filter."""
-        if row_mask is None:
-            return self._valid
-        return [v & m for v, m in zip(self._valid, self.device_row_mask(row_mask))]
+    def _valid_shards(self, valid: list[torch.Tensor], mask: torch.Tensor | None) -> list[torch.Tensor]:
+        """Each shard's valid mask, ANDed with a [capacity] row filter
+        (:meth:`_row_mask_full`) split like the rows."""
+        if mask is None:
+            return valid
+        return [v & m.to(v.device) for v, m in zip(valid, mask.split(self.shard_rows))]
 
     def _queries(self, queries, adapter=None) -> torch.Tensor:
         """The queries on the first device, the adapter applied."""
         queries_dev = torch.as_tensor(np.asarray(queries, dtype=np.float32), device=self.device)
-        adapter_dev = self._adapter_device(adapter)
-        return queries_dev if adapter_dev is None else queries_dev @ adapter_dev.T
+        return _adapted(queries_dev, self._adapter_device(adapter))
 
     def search(
         self,
@@ -458,22 +585,22 @@ class DenseIndex:
         """Scan returning device tensors (scores [B, K], row ids [B, K]):
         the single-stage kernel on one device, else each shard's exact scan
         (the JAX package's sharded route ignores ``exact`` too)."""
-        self._refresh_device()
-        queries_dev = self._queries(queries, adapter)
-        k = min(num_hits, self.capacity)
-        if exact is None:
-            exact = self.num_rows <= EXACT_TOPK_MAX_ROWS
-        if self.num_devices == 1 and not exact and self._use_fused_kernel(queries.shape[0]):
-            self.last_route = "fused_scan"
-            return fused_scan_topk(
-                self._rows[0], self._sqnorm[0], self._valid_shards(row_mask)[0], queries_dev,
-                num_hits=k, metric=self.metric, row_scale=None if self._scale is None else self._scale[0],
+        with self._sync_lock:  # the device arrays stay this generation's until the scan is enqueued
+            self._refresh_device()
+            queries_dev = self._queries(queries, adapter)
+            valid = self._valid_shards(self._valid, self._row_mask_full(row_mask))
+            k = min(num_hits, self.capacity)
+            if self._route(queries.shape[0], exact, int4=False) == "fused_scan":
+                self.last_route = "fused_scan"
+                return fused_scan_topk(
+                    self._rows[0], self._sqnorm[0], valid[0], queries_dev,
+                    num_hits=k, metric=self.metric, row_scale=None if self._scale is None else self._scale[0],
+                )
+            self.last_route = "dense"
+            return sharded_topk_search(
+                self._rows, self._sqnorm, valid, queries_dev, self._scale,
+                num_hits=k, metric=self.metric, devices=self.devices,
             )
-        self.last_route = "dense"
-        return sharded_topk_search(
-            self._rows, self._sqnorm, self._valid_shards(row_mask), queries_dev, self._scale,
-            num_hits=k, metric=self.metric, devices=self.devices,
-        )
 
     def search_chunks(
         self,
@@ -515,29 +642,71 @@ class DenseIndex:
         exact: bool | None = None,
     ) -> tuple[torch.Tensor, torch.Tensor]:
         """Device half of :meth:`search_chunks`: (scores [B, R], ordinals
-        [B, R] int64) left on the device.  Routes as the module docstring
-        says and records the route in ``last_route``."""
-        batch = queries.shape[0]
-        exact_resolved = self.num_rows <= EXACT_TOPK_MAX_ROWS if exact is None else exact
-        if self._use_int4_stage1(batch, exact_resolved):
-            self._refresh_device()
-            self._ensure_packed4()
-            self.last_route = "int4_two_stage"
-            hits = min(num_hits, self.capacity)
-            # The rescore pool always covers the hits with headroom.
-            candidates = max(INT4_STAGE1_CANDIDATES, 2 * hits)
-            scores, idx = sharded_int4_two_stage(
-                self._packed4, self._scale4, self._rows, self._scale, self._sqnorm,
-                self._valid_shards(row_mask), self._queries(queries, adapter),
-                num_hits=hits, candidates=candidates, metric=self.metric,
-                devices=self.devices, num_buckets=INT4_NUM_BUCKETS,
-            )
+        [B, R] int64) left on the device, copies the caller may keep.
+        Routes as the module docstring says, records the route in
+        ``last_route``, and runs the route's program (from its graph on
+        one card)."""
+        if isinstance(queries, torch.Tensor):
+            queries = queries.to(torch.float32)
         else:
-            scores, idx = self._scan_device(
-                queries, num_hits=num_hits, row_mask=row_mask, adapter=adapter, exact=exact
+            queries = np.asarray(queries, dtype=np.float32)
+        batch = queries.shape[0]
+        # Under the sync lock from the refresh to the enqueued program: the
+        # arrays a program closes over and the generation in its key are
+        # one generation's, and no bump frees them while it is captured or
+        # replayed (the entry then keeps them alive, utils/graphs.py).
+        with self._sync_lock:
+            route = self._route(batch, exact)
+            self._refresh_device()
+            if route == "int4_two_stage":
+                self._ensure_packed4()
+            self.last_route = route
+            hits = min(num_hits, self.capacity)
+            adapter_dev = self._adapter_device(adapter)
+            mask = self._row_mask_full(row_mask)
+            program = self._chunks_program(route, num_hits=hits, num_results=num_results, adapter=adapter_dev)
+            key = (route, batch, hits, num_results, mask is not None, adapter_dev is not None, self.generation)
+            inputs = (queries,) if mask is None else (queries, mask)
+            return self.programs(key, program, *inputs)
+
+    def _route(self, batch: int, exact: bool | None, *, int4: bool = True) -> str:
+        """The module docstring's routing (``int4`` False: a row search,
+        which never takes the two-stage route)."""
+        if exact is None:
+            exact = self.num_rows <= EXACT_TOPK_MAX_ROWS
+        if int4 and self._use_int4_stage1(batch, exact):
+            return "int4_two_stage"
+        if self.num_devices == 1 and not exact and self._use_fused_kernel(batch):
+            return "fused_scan"
+        return "dense"
+
+    def _chunks_program(self, route: str, *, num_hits: int, num_results: int, adapter: torch.Tensor | None):
+        """The route's program over this generation's device arrays:
+        ``(queries [B, d] f32[, row mask [capacity] bool]) -> (scores,
+        ordinals)``."""
+        rows, sqnorm, valid, scale, row_chunk = self._rows, self._sqnorm, self._valid, self._scale, self._dev_row_chunk
+        packed4, scale4, devices, metric = self._packed4, self._scale4, self.devices, self.metric
+
+        def program(queries: torch.Tensor, mask: torch.Tensor | None = None):
+            v = self._valid_shards(valid, mask)
+            if route == "int4_two_stage":
+                return int4_two_stage_chunks(
+                    packed4, scale4, rows, scale, sqnorm, v, row_chunk, queries, adapter,
+                    num_hits=num_hits, num_results=num_results, metric=metric, devices=devices,
+                    # The rescore pool always covers the hits with headroom.
+                    candidates=max(INT4_STAGE1_CANDIDATES, 2 * num_hits),
+                )
+            if route == "fused_scan":
+                return fused_scan_chunks(
+                    rows[0], sqnorm[0], v[0], row_chunk, queries, None if scale is None else scale[0], adapter,
+                    num_hits=num_hits, num_results=num_results, metric=metric,
+                )
+            return dense_search_chunks(
+                rows, sqnorm, v, row_chunk, queries, scale, adapter,
+                num_hits=num_hits, num_results=num_results, metric=metric, devices=devices,
             )
-        # The multi-vector group-max, after the merge, on the first device.
-        return _group_max_topk(scores, idx, self._dev_row_chunk, num_results=num_results)
+
+        return program
 
     @classmethod
     def from_device_arrays(
@@ -582,6 +751,7 @@ class DenseIndex:
         index.chunk_ids = []
         index._dirty = False
         index._dev_rows_synced = n
+        index._bump()
         return index
 
     # --- Checkpoint / resume ----------------------------------------------
@@ -643,6 +813,7 @@ class DenseIndex:
         index.row_chunk = np.load(root / "row_chunk.npy").astype(np.int64)
         index.chunk_ids = list(manifest["chunk_ids"])
         index._dirty = True
+        index._bump()
         return index
 
     def _use_int4_stage1(self, batch: int, exact: bool) -> bool:

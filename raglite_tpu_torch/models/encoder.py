@@ -3,7 +3,10 @@
 ``TransformerEncoder`` ("flax:<preset|dir|file.safetensors|ckpt:dir>", the
 JAX package's spec names kept so configs map one to one) runs the PyTorch
 ``EncoderModel`` on the configured device, with token-level outputs for late
-chunking and a device-resident MaxSim rerank.  ``"flax:sem"`` is the packaged 8-layer,
+chunking and a device-resident MaxSim rerank.  Its four programs (token
+states, the pooled forward, normalised token states, the MaxSim score) run
+from CUDA graphs on the card, one per shape key (utils/graphs.py), as the JAX
+package jits them.  ``"flax:sem"`` is the packaged 8-layer,
 d=768 semantic encoder; its weights are read by path from the JAX package's
 data directory.  ``HashEncoder`` ("hash:<dim>") is the weightless
 feature-hashing encoder of the hermetic configs, over the JAX package's own
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import os
 import re
+import threading
 import zlib
 from functools import lru_cache
 from pathlib import Path
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+from raglite_tpu_torch.utils.graphs import ProgramGraphs, Stacked
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
 __all__ = [
@@ -229,7 +234,20 @@ class TransformerEncoder:
     drawn from a seeded ``torch.Generator`` (not the JAX package's draws).
     Texts are padded to 128-token buckets and batched per bucket, as in the
     JAX package.
+
+    The programs (``_tokens_program``, ``_pooled_program``, ``_norm_program``,
+    ``_maxsim``) run through one :class:`ProgramGraphs`, keyed by program and
+    shape: captured at a key's first call on the card, replayed after.  Size
+    rule: a forward whose f32 attention logits (B x heads x T x T x 4 bytes)
+    exceed :data:`GRAPH_ATTENTION_BYTES` runs eagerly, since its graph pool
+    would hold that much for good while its launches are a few per cent of
+    its time (at bge-m3's width, [8, 2048] holds 2.1 GB of logits and takes
+    over 100 ms of f32 matmuls against ~6 ms of ~1,100 launches).
     """
+
+    #: Attention-logit bytes above which a forward key stays eager (512 MiB:
+    #: [8, 1024] at 16 heads, [8, 1152] at 12).
+    GRAPH_ATTENTION_BYTES = 512 << 20
 
     supports_token_embeddings = True
 
@@ -298,6 +316,18 @@ class TransformerEncoder:
         # package.
         self._rerank_cache: dict[str, tuple[torch.Tensor, int]] = {}
         self._rerank_cache_cap = int(os.environ.get("RAGLITE_TPU_RERANK_CACHE", "128"))
+        #: Serializes the rerank cache's reads and writes across threads.
+        self._rerank_lock = threading.Lock()
+        #: The four programs, replayed from CUDA graphs on the card.
+        self.programs = ProgramGraphs(self.device, capture_if=self._captured)
+
+    def _captured(self, key: tuple) -> bool:
+        """The size rule (class docstring): score keys are always captured,
+        forward keys ``(kind, B, T)`` while their logits fit."""
+        if key[0] == "score":
+            return True
+        _, b, t = key
+        return b * self._cfg["heads"] * t * t * 4 <= self.GRAPH_ATTENTION_BYTES
 
     def count_tokens(self, texts: list[str]) -> list[int]:
         return [len(self._tokenizer.encode(t)) for t in texts]
@@ -305,12 +335,24 @@ class TransformerEncoder:
     def _encode_ids(self, text: str) -> np.ndarray:
         return np.asarray(self._tokenizer.encode(text)[: self.max_tokens], np.int64)
 
-    @torch.inference_mode()
+    def _tokens_program(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """[B, T] ids and mask -> [B, T, d] f32 states (``apply_tokens``)."""
+        return self._model(ids, mask)
+
+    def _pooled_program(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """The masked mean of the token states, [B, d] (``_forward_pooled``)."""
+        hidden = self._model(ids, mask)
+        denom = mask.sum(dim=1, keepdim=True).clamp(min=1)
+        return (hidden * mask[:, :, None]).sum(dim=1) / denom
+
+    def _norm_program(self, ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """L2-normalised token states [B, T, d] f32 (``_rerank_encode``)."""
+        hidden = self._model(ids, mask)
+        return hidden / torch.linalg.vector_norm(hidden, dim=-1, keepdim=True).clamp(min=1e-12)
+
     def _forward(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """[B, T] ids and mask (host) -> [B, T, d] f32 states on the device."""
-        ids_t = torch.from_numpy(ids).to(self.device)
-        mask_t = torch.from_numpy(mask).to(self.device)
-        return self._model(ids_t, mask_t)
+        return self.programs(("tokens", *ids.shape), self._tokens_program, ids, mask)
 
     def _padded(self, encoded: list[np.ndarray], members: list[int], pad: int, bpad: int):
         ids = np.zeros((bpad, pad), np.int64)
@@ -372,22 +414,28 @@ class TransformerEncoder:
             for start in range(0, len(members), rows):
                 group = members[start : start + rows]
                 ids, mask = self._padded(encoded, group, pad, min(_round_up(len(group), 8), rows))
-                hidden = self._forward(ids, mask)
-                mask_t = torch.from_numpy(mask).to(self.device)
-                denom = mask_t.sum(dim=1, keepdim=True).clamp(min=1)
-                pooled = (hidden * mask_t[:, :, None]).sum(dim=1) / denom
+                pooled = self.programs(("pooled", *ids.shape), self._pooled_program, ids, mask)
                 out[group] = pooled.cpu().numpy()[: len(group)]
         return out
 
     def _encode_norm(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """L2-normalized token states [B, T, d] f32, left on the device."""
-        hidden = self._forward(ids, mask)
-        return hidden / torch.linalg.vector_norm(hidden, dim=-1, keepdim=True).clamp(min=1e-12)
+        """L2-normalized token states [B, T, d] f32, left on the device (a
+        copy of the graph's output: the rerank cache keeps its rows)."""
+        return self.programs(("norm", *ids.shape), self._norm_program, ids, mask)
+
+    def _score(self, qh: torch.Tensor, q_mask: np.ndarray, rows: list[torch.Tensor], c_mask: np.ndarray) -> torch.Tensor:
+        """The MaxSim program on query states [Tq, d], the [1, Tq] query
+        mask, cached candidate states (``rows``, each [Tc, d], stacked into
+        the key's [C, Tc, d] buffer with zero rows up to C) and the [C, Tc]
+        candidate mask -> [C] f32."""
+        key = ("score", qh.shape[0], *c_mask.shape)
+        return self.programs(key, self._maxsim, qh, q_mask, Stacked(rows, c_mask.shape[0]), c_mask)
 
     @staticmethod
-    def _score(qh, q_mask, ch, c_mask) -> torch.Tensor:
+    def _maxsim(qh, q_mask, ch, c_mask) -> torch.Tensor:
         """Masked MaxSim of query states [Tq, d] against candidate states
-        [C, Tc, d] -> [C] f32, at full f32 precision (TF32 off)."""
+        [C, Tc, d] -> [C] f32, at full f32 precision (TF32 off)
+        (``_rerank_score``)."""
         with full_f32_matmul():
             sims = torch.einsum("qd,ctd->cqt", qh, ch)
         sims = sims.masked_fill(~c_mask[:, None, :], float("-inf"))
@@ -406,53 +454,47 @@ class TransformerEncoder:
             return np.zeros(len(texts), np.float32)
         encoded = [self._encode_ids(t) for t in texts]
         qt = _round_up(max(q_ids.size, 8), 128)
-        q_np, q_mask_np = self._padded([q_ids], [0], qt, 1)
-        q_mask = torch.from_numpy(q_mask_np).to(self.device)
-        qh = self._encode_norm(q_np, q_mask_np)[0]
+        q_np, q_mask = self._padded([q_ids], [0], qt, 1)
+        qh = self._encode_norm(q_np, q_mask)[0]
         cache, cap = self._rerank_cache, self._rerank_cache_cap
-        # Refresh hits' recency before this call's inserts, so a candidate
-        # list near the cap cannot evict its own entries.
-        for text in texts:
-            if text in cache:
-                cache[text] = cache.pop(text)
         tile = 32  # bounds the encode's [B, heads, T, T] attention
-        missing = self._buckets(encoded, skip=lambda i: texts[i] in cache)
-        for tc, members in missing.items():
-            for start in range(0, len(members), tile):
-                group = members[start : start + tile]
-                states = self._encode_norm(
-                    *self._padded(encoded, group, tc, _round_up(len(group), 8))
-                )
-                for row, i in enumerate(group):
-                    cache[texts[i]] = (states[row], int(encoded[i].size))
-        scores = np.zeros(len(texts), np.float32)
-        by_tc: dict[int, list[int]] = {}
-        for i, text in enumerate(texts):
-            if text in cache:  # texts with no tokens score 0
-                by_tc.setdefault(int(cache[text][0].shape[0]), []).append(i)
         pieces: list[tuple[list[int], int]] = []
         dev_scores: list[torch.Tensor] = []
-        offset = 0
-        for tc, members in by_tc.items():
-            for start in range(0, len(members), tile):
-                group = members[start : start + tile]
-                bpad = _round_up(len(group), 8)
-                rows = [cache[texts[i]][0] for i in group]
-                rows.extend([torch.zeros_like(rows[0])] * (bpad - len(rows)))
-                c_mask = torch.zeros((bpad, tc), dtype=torch.bool)
-                for row, i in enumerate(group):
-                    c_mask[row, : cache[texts[i]][1]] = True
-                dev_scores.append(
-                    self._score(qh, q_mask, torch.stack(rows), c_mask.to(self.device))
-                )
-                pieces.append((group, offset))
-                offset += bpad
+        with self._rerank_lock:  # threads rerank at once (the web chat, evals)
+            # Refresh hits' recency before this call's inserts, so a
+            # candidate list near the cap cannot evict its own entries.
+            for text in texts:
+                if text in cache:
+                    cache[text] = cache.pop(text)
+            missing = self._buckets(encoded, skip=lambda i: texts[i] in cache)
+            for tc, members in missing.items():
+                for start in range(0, len(members), tile):
+                    group = members[start : start + tile]
+                    states = self._encode_norm(*self._padded(encoded, group, tc, _round_up(len(group), 8)))
+                    for row, i in enumerate(group):
+                        cache[texts[i]] = (states[row], int(encoded[i].size))
+            by_tc: dict[int, list[int]] = {}
+            for i, text in enumerate(texts):
+                if text in cache:  # texts with no tokens score 0
+                    by_tc.setdefault(int(cache[text][0].shape[0]), []).append(i)
+            offset = 0
+            for tc, members in by_tc.items():
+                for start in range(0, len(members), tile):
+                    group = members[start : start + tile]
+                    bpad = _round_up(len(group), 8)
+                    c_mask = np.zeros((bpad, tc), dtype=np.bool_)
+                    for row, i in enumerate(group):
+                        c_mask[row, : cache[texts[i]][1]] = True
+                    dev_scores.append(self._score(qh, q_mask, [cache[texts[i]][0] for i in group], c_mask))
+                    pieces.append((group, offset))
+                    offset += bpad
+            while len(cache) > cap:
+                cache.pop(next(iter(cache)))
+        scores = np.zeros(len(texts), np.float32)
         if dev_scores:
             flat = torch.cat(dev_scores).cpu().numpy()  # the one host fetch
             for group, off in pieces:
                 scores[group] = flat[off : off + len(group)]
-        while len(cache) > cap:
-            cache.pop(next(iter(cache)))
         return scores
 
 

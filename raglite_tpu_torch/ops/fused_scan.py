@@ -16,6 +16,12 @@ A wrapper launches its kernel for CUDA tensors and its plain version for
 CPU tensors, and nothing else: there is no fallback from the card to the
 plain version.  The integer kernels are bit-exact against the plain
 versions; bf16/f32 agree to a tolerance (summation order).
+
+The routes built on them (``fused_scan_topk``, ``int4_two_stage_block``)
+can be captured into a CUDA graph (index/dense.py replays them): no host
+read, no upload from the host (constants are filled on the device), outputs
+and kernel scratch allocated per call (in the graph's pool under a capture),
+and every launch on the current stream.
 """
 
 from __future__ import annotations
@@ -153,8 +159,9 @@ _SIGNATURES = {
 
 
 def _launch(name: str, source: str, symbol: str, args: list, shape: list, device, num_buckets: int):
-    """Allocate the outputs and the kernel's scratch, launch ``symbol`` of
-    ``csrc/<source>.cu`` (:func:`cuda_build.launch`).  ``shape`` holds the
+    """Allocate the outputs and the kernel's scratch (per call, so a
+    captured launch owns its scratch in the graph's pool), launch ``symbol``
+    of ``csrc/<source>.cu`` on the current stream (:func:`cuda_build.launch`).  ``shape`` holds the
     launcher's shape arguments (those of ``args`` after the pointers:
     [kind,] B, d, N, L)."""
     fn = cuda_build.function(source, symbol, _SIGNATURES[symbol])
@@ -237,7 +244,7 @@ def fused_scan_topk(
         if row_scale is not None:
             row_scale = torch.cat([row_scale, row_scale.new_zeros(pad)])
     alpha = 2.0 if metric == "l2" else 1.0
-    neg = torch.tensor(NEG, dtype=torch.float32, device=rows.device)
+    neg = torch.full((), NEG, dtype=torch.float32, device=rows.device)
     base = -row_sqnorm if metric == "l2" else torch.zeros_like(row_sqnorm)
     bias = torch.where(valid, base, neg)
     if rows.dtype == torch.int8:
@@ -373,7 +380,7 @@ def int4_two_stage_block(
     -inf.  Rescore gathers of bucket-padding candidates (ids in [N, Np))
     clamp to the last row; their -1e30 bias keeps them out of every result."""
     alpha = 2.0 if metric == "l2" else 1.0
-    neg = torch.tensor(NEG, dtype=torch.float32, device=rows.device)
+    neg = torch.full((), NEG, dtype=torch.float32, device=rows.device)
     base = -row_sqnorm if metric == "l2" else torch.zeros_like(row_sqnorm)
     bias = torch.where(valid, base, neg)
     np4 = packed.shape[0]

@@ -17,6 +17,11 @@ Every shard of a call holds the same number of rows, as in the JAX
 package; across ranks, rank r's global ids start at r times its own row
 count.
 
+With one shard and no process group, ``sharded_int4_two_stage`` and
+``sharded_topk_search`` can be captured into a CUDA graph (index/dense.py
+replays them): no host read, no copy between devices, and the merge of one
+shard's winners returns them without a launch.
+
 One difference from the JAX package: above 131,072 rows a shard,
 ``sharded_topk_search`` there takes ``approx_max_k``; PyTorch has none, so
 the port's shard scan stays exact, as its single-device dense route does.
