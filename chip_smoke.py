@@ -3,7 +3,7 @@
 query-adapter, checkpoint, ingestion-to-surface, multi-GPU, IR-benchmark,
 CUDA-graph decode and CUDA-graph retrieval paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15|phase16]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -55,9 +55,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    per-side lists (0 mismatches); p50s of keyword_search and hybrid_search
    at B = 1, hybrid_search's split (encode, dense side, BM25 side, RRF and
    fetch), queries per second of the batch forms at B = 256 (and hybrid at
-   B = 32), and each torch-op program's time per call (CUDA events) beside
-   its bytes bound; ``--profile`` counts the device operations of one
-   hybrid_search call.
+   B = 32), and each torch-op program's time per call (CUDA events) from
+   its CUDA graph and eagerly, beside its bytes bound; ``--profile`` counts
+   the device operations of one hybrid_search call.  BM25 and RRF run
+   from their CUDA graphs here (phase 16 holds them to eager).
 5. Timings at the index's own arrays (B = 1 and 32): each kernel, its plain
    version and one PyTorch library computation of the same function (CUDA
    events, median of 20 runs of 10 launches), the kernels' bound,
@@ -95,8 +96,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    them; the common-prefix share of each greedy row against a B = 1
    complete; each attention kernel timed at the batch's shapes as in phase
    7; (d) ``hash:1024`` on the card over the phase-3 documents: token
-   embeddings against the f64 plain pool over the same bf16 table (asserted
-   within HASH_ATOL), vector_search and hybrid_search p50, and the top-10
+   embeddings, pooled from CUDA graphs (asserted), against the f64 plain
+   pool over the same bf16 table (asserted within HASH_ATOL), vector_search and hybrid_search p50, and the top-10
    overlap with the CPU port on the phase-3 sentences.  (d) runs after
    phase 9: its fresh ":memory:" stores replace the phase-3 store.
 9. Evals, the query adapter and async and remote RAG, on the phase-3 store
@@ -105,8 +106,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    route (one int4 launch each, asserted), every failed eval a ValueError,
    and each threaded search equal to the same search made alone; (b)
    update_query_adapter at d = 768 (its time split, peak memory; A
-   orthogonal within 1e-3; the first NNLS batch on the card equal to the
-   same op on the CPU within 1e-4; the op timed against its bound); (c)
+   orthogonal within 1e-3; the first NNLS batch on the card, from its CUDA
+   graph, equal to the same op on the CPU within 1e-4; the op timed from
+   its graph and eagerly against its bound and D's reads); (c)
    vector_search with the stored adapter (int4 route, p50, recall@10 >=
    RECALL_MIN against the exact route with the same adapter), then the
    adapter removed and the plain ids asserted as before; (d) answer_evals
@@ -160,7 +162,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    from consecutive parts of the four documents' text, each converted with
    document_to_markdown (host ms) and shown to hold its headings and a
    sentence of its source; (b) the learned boundary model on the card
-   against its CPU version on those documents and a held-out multilingual
+   (its blocks from CUDA graphs, asserted) against its CPU version on those documents and a held-out multilingual
    corpus (BOUNDARY_ATOL, sentences equal), its boundary-F1 against the
    heuristic's and its ms per 100,000 characters; (c) a persistent store
    (``sentence_boundary_model="learned"``, the default encoder, bf16 rows):
@@ -272,6 +274,25 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    graph, a [8, T] rerank tile kept eager by the size rule, asserted), the
    idle share of one vector_search, device ops a replay beside the eager
    program's, capture ms per key and the bytes each object's pool holds.
+16. The search side's remaining programs as CUDA graphs (after phase 15,
+   over the phase-3 store and phase 4b's keyword index): (a) every call of
+   a held key is followed by a replay and its eager program, bit for bit
+   (phase 15's check): hybrid_search and keyword_search over the 8
+   sentences and 8 tail-term queries (resident BM25, device RRF, the int4
+   route), hybrid_search_batch at B 32 and 256, keyword_search_batch at B
+   256, a query over RESIDENT_MAX_TERMS terms (host-gather BM25), a
+   ``maxsim_chunklet`` rerank of 4 top 20s, ``hash:1024`` token embeddings
+   of 6,000 characters, the boundary model over the 4 documents and the
+   adapter's NNLS at B 64, P = N = 40, d 768, every family holding a key
+   (asserted); (b) the checking replays' int4 launches equal the eager
+   programs'; (c) from the graphs and eager in turns: hybrid_search and
+   keyword_search p50 at B 1, hybrid's split, the batch forms at B 256
+   (and hybrid at 32); (d) device operations per hybrid_search call; (e)
+   capture ms, pool bytes and keys held per object and per family; (f) 8
+   hybrid searches racing an insert, each equal to the same search before
+   or after it; (g) the hash:1024 encode, the chunklet rerank, the boundary
+   model's ms per 100,000 characters and the NNLS from their graphs and
+   eager.
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
@@ -279,7 +300,9 @@ at ``--rows``; ``--only phase12`` runs phase 3's store at ``--rows`` and
 phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``;
 ``--only phase14`` runs phase 3's store at ``--rows``, loads `large` and
 runs phase 14 on phase 6's RAG prompt; ``--only phase15`` runs phase 3's
-store at ``--rows`` and phase 15 (none of them prints a result line).
+store at ``--rows`` and phase 15; ``--only phase16`` runs phase 3's store
+at ``--rows``, phase 4b over it and phase 16 (none of them prints a result
+line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1501,11 +1524,14 @@ def hash_on_card(texts: list[str], sentences: list[str], card: str) -> None:
             want = hash_pool_plain(encoder._table.float().cpu().numpy(), ids_, signs, bounds)
             err = float(abs(got - want).max())
             assert got.shape == (n, 1024) and err <= HASH_ATOL, err
+            held = [k for k in encoder.programs._entries if k[0] == "hash"]
+            assert held and encoder.programs.counts["replayed"] > 0, encoder.programs.counts  # the pool ran from graphs
             vs_p50 = _p50_ms(lambda q: vector_search(q, config=hcfg), sentences * 3)
             hs_p50 = _p50_ms(lambda q: hybrid_search(q, config=hcfg), sentences * 3)
             log(f"phase 8 (d) hash:1024 on the card: encoder built in {build_s:.3f} s (65,536 x 1,024 table drawn in C++ on "
                 f"the host, uploaded in bf16), inserted {len(texts)} documents in {insert_s:.1f} s; {n} token embeddings "
-                f"= the plain f64 gather and segment sum over the same bf16 table, max_abs_err {err:.3g} (limit {HASH_ATOL}); "
+                f"= the plain f64 gather and segment sum over the same bf16 table, max_abs_err {err:.3g} (limit {HASH_ATOL}), "
+                f"the pool from CUDA graphs ({len(held)} keys, {encoder.programs.counts}); "
                 f"vector_search p50 {vs_p50:.3f} ms, hybrid_search p50 {hs_p50:.3f} ms over {len(sentences) * 3} queries, on {card}")
     overlap = [len(set(a) & set(b)) / 10 for a, b in zip(found["cuda"], found["cpu"])]
     log(f"phase 8 (d) top-10 overlap, card (bf16 table) against the CPU port (f32 table), over the phase-3 sentences: "
@@ -1641,14 +1667,14 @@ def phase9_adapter(cfg, queries: list[str], total: dict[str, int], card: str) ->
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             split[what] += time.perf_counter() - t0
-            if attr == "batched_query_targets":
+            if attr == "_nnls_targets":
                 nnls_calls.append((args, kwargs, out))
             return out
 
         setattr(qa, attr, wrapper)
 
     for attr, what in (("embed_queries", "embed"), ("search_blocked", "blocked search"),
-                       ("batched_query_targets", "device NNLS"), ("procrustes_adapter", "f64 Procrustes")):
+                       ("_nnls_targets", "device NNLS"), ("procrustes_adapter", "f64 Procrustes")):
         timed(attr, what)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1671,23 +1697,35 @@ def phase9_adapter(cfg, queries: list[str], total: dict[str, int], card: str) ->
     orth = float(np.abs(A @ A.T - np.eye(D)).max())
     assert orth <= 1e-3, orth
     assert store.index_metadata["query_adapter"] is A
-    # The device NNLS of the first batch against the same op on the CPU.
+    # The device NNLS of the first batch (from its CUDA graph) against the
+    # same op on the CPU.
+    from raglite_tpu_torch.ops.nnls import query_targets_from_rows
+    from raglite_tpu_torch.utils import graphs
+
     args, kwargs, out = nnls_calls[0]
-    assert all(a.device.type == "cuda" for a in args), "the NNLS left the card"
-    want = qa.batched_query_targets(*(a.cpu() for a in args), **kwargs)
+    assert out.device.type == "cuda", "the NNLS left the card"
+    host = args[1:]
+    want = query_targets_from_rows(*(torch.from_numpy(a) for a in host), alpha=kwargs["alpha"])
     err = float((out.cpu() - want).abs().max())
     assert err <= 1e-4, err
-    b, p, d = args[1].shape
-    m = p * args[2].shape[1]
-    nnls_ms = median_ms(lambda: qa.batched_query_targets(*args, **kwargs), reps=3, inner=1, warmup=1)
-    moved = sum(a.numel() * a.element_size() for a in args) + out.numel() * out.element_size()
+    b, p, d = host[1].shape
+    m = p * host[2].shape[1]
+    on_card = [torch.from_numpy(a).cuda() for a in host]
+    nnls_ms = median_ms(lambda: qa._nnls_targets("cuda", *on_card, **kwargs), reps=3, inner=1, warmup=1)
+    with graphs.eager_programs():
+        nnls_eager_ms = median_ms(lambda: qa._nnls_targets("cuda", *on_card, **kwargs), reps=3, inner=1, warmup=1)
+    moved = sum(a.nbytes for a in host) + out.numel() * out.element_size()
     flops = 2.0 * b * m * d * (2 * 16 + 2 * 200 + 1)  # matrix-vector products over the [B, m, d] pair rows
     bound = {"bytes": moved / PEAK_BYTES_PER_S * 1e3, "operations": flops / PEAK_F32_FLOPS * 1e3}
     bound_by = max(bound, key=bound.get)
+    # The port's formulation materialises the pair rows D [B, m, d] f32 and
+    # reads them about twice an iteration: its own bytes bound.
+    d_reads = b * m * d * 4 * (2 * 16 + 2 * 200 + 2)
     log(f"phase 9 (b) NNLS batch B={b}, P*N={m}, d={d}: device = CPU op within {err:.3g} (limit 1e-4); {nnls_ms:.3f} ms "
-        f"a call (CUDA events), inputs and output {moved / 1e6:.3f} MB, pair rows {b * m * d * 4 / 1e6:.1f} MB f32, "
-        f"{flops / 1e9:.2f} GFLOP f32, bound {bound[bound_by]:.4f} ms ({bound_by}; bytes {bound['bytes']:.4f}, "
-        f"operations {bound['operations']:.4f} at 67 TFLOP/s f32); ||AA^T - I||_inf {orth:.3g}, on {card}")
+        f"a call from its CUDA graph, {nnls_eager_ms:.3f} eager (CUDA events), inputs and output {moved / 1e6:.3f} MB, pair rows "
+        f"{b * m * d * 4 / 1e6:.1f} MB f32, {flops / 1e9:.2f} GFLOP f32, bound {bound[bound_by]:.4f} ms ({bound_by}; bytes "
+        f"{bound['bytes']:.4f}, operations {bound['operations']:.4f} at 67 TFLOP/s f32); reading D {d_reads / 1e9:.1f} GB: "
+        f"{d_reads / PEAK_BYTES_PER_S * 1e3:.2f} ms at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; ||AA^T - I||_inf {orth:.3g}, on {card}")
     # (c) vector_search with the stored adapter.
     latencies, routes = [], set()
     for q in queries:
@@ -1713,7 +1751,8 @@ def phase9_adapter(cfg, queries: list[str], total: dict[str, int], card: str) ->
     log(f"phase 9 (c) vector_search with the adapter (int4 route): p50 {statistics.median(latencies):.3f} ms over "
         f"{len(queries)} queries, recall@10 against the exact route with the same adapter {recall:.4f}; adapter "
         f"removed, the plain searches' ids as before, on {card}")
-    return {"adapter_ms": wall * 1e3, "peak_gb": peak / 1e9, "nnls_ms": nnls_ms, "adapted_p50_ms": statistics.median(latencies)}
+    return {"adapter_ms": wall * 1e3, "peak_gb": peak / 1e9, "nnls_ms": nnls_ms, "nnls_eager_ms": nnls_eager_ms,
+            "adapted_p50_ms": statistics.median(latencies)}
 
 
 def phase9_judge(cfg, total: dict[str, int], card: str) -> dict:
@@ -3140,6 +3179,40 @@ def _p50_ms(fn, items) -> float:
     return statistics.median(times)
 
 
+def _hybrid_stages(cfg, queries: list[str], k_side: int, num_results: int) -> dict[str, list[float]]:
+    """hybrid_search's stages apart, for each query at B = 1, each ended by
+    a synchronize (host clock, ms): the query encode, the dense side, the
+    resident BM25 side, RRF and the fetch."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.index.dense import dense_index_from_config, fetch_scored
+    from raglite_tpu_torch.index.keyword import keyword_index_from_config
+    from raglite_tpu_torch.search import corrected_num_hits, fuse_device
+
+    dense, kw = dense_index_from_config(cfg), keyword_index_from_config(cfg)
+    n = len(kw.chunk_ids)
+    mask, _ = kw.resident_device_mask(None)
+    hits1 = min(corrected_num_hits(4, k_side, cfg), dense.num_rows)
+    stages: dict[str, list[float]] = {"encode": [], "dense side": [], "BM25 side": [], "RRF and fetch": []}
+    for query in queries:
+        t0 = time.perf_counter()
+        q_emb = embed_queries([query], config=cfg).astype(np.float32)
+        t1 = time.perf_counter()
+        d_side = dense.search_chunks_device(q_emb, num_hits=hits1, num_results=k_side)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        k_side_dev = kw.resident_block_device(kw.resident_prepare([query]), num_hits=k_side, mask=mask, masked=False)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        fetch_scored(*fuse_device(d_side, k_side_dev, num_chunks=n, num_results=num_results))
+        t4 = time.perf_counter()
+        for name, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            stages[name].append(dt * 1e3)
+    return stages
+
+
 def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], background: set[str], seed: int, card: str, *, profile: bool = False) -> dict:
     """Phase 4b: keyword and hybrid search over the phase-3 store through
     the user entry points, checked at scale, then timed.  Returns the
@@ -3152,9 +3225,9 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
     from raglite_tpu_torch.index.dense import fetch_scored
     from raglite_tpu_torch.index.keyword import keyword_index_from_config
     from raglite_tpu_torch.ops import fused_scan as fs
-    from raglite_tpu_torch.ops.rrf import rrf_fuse_topk
     from raglite_tpu_torch.search import (
         corrected_num_hits,
+        fuse_device,
         hybrid_search,
         hybrid_search_batch,
         keyword_search,
@@ -3241,7 +3314,7 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
     dense_side = dense.search_chunks_device(emb, num_hits=num_hits, num_results=k_side)
     assert dense.last_route == "int4_two_stage"
     kw_side = kw.resident_block_device(kw.resident_prepare(mixed), num_hits=k_side, mask=mask, masked=masked)
-    fused_scores, fused_ords = fetch_scored(*rrf_fuse_topk(dense_side, kw_side, num_chunks=n, num_results=num_results))
+    fused_scores, fused_ords = fetch_scored(*fuse_device(dense_side, kw_side, num_chunks=n, num_results=num_results))
     d_scores, d_ords = fetch_scored(*dense_side)
     k_scores, k_ords = fetch_scored(*kw_side)
     mismatches, overlap = 0, 0
@@ -3272,22 +3345,7 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
         f"tail-term queries; {out['keyword_p50_ms_sentences']:.3f} and {out['hybrid_p50_ms_sentences']:.3f} ms over the "
         f"8 sentences (B = 1, host clock, embed included) on {card}")
     # hybrid_search's layers apart, each ended by a synchronize.
-    stages = {"encode": [], "dense side": [], "BM25 side": [], "RRF and fetch": []}
-    hits1 = min(corrected_num_hits(4, k_side, cfg), dense.num_rows)
-    for query in [*queries, *tail[:32]]:
-        t0 = time.perf_counter()
-        q_emb = embed_queries([query], config=cfg).astype(np.float32)
-        t1 = time.perf_counter()
-        d_side = dense.search_chunks_device(q_emb, num_hits=hits1, num_results=k_side)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        k_side_dev = kw.resident_block_device(kw.resident_prepare([query]), num_hits=k_side, mask=mask, masked=False)
-        torch.cuda.synchronize()
-        t3 = time.perf_counter()
-        fetch_scored(*rrf_fuse_topk(d_side, k_side_dev, num_chunks=n, num_results=num_results))
-        t4 = time.perf_counter()
-        for name, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            stages[name].append(dt * 1e3)
+    stages = _hybrid_stages(cfg, [*queries, *tail[:32]], k_side, num_results)
     out["split_ms"] = {k: statistics.median(v) for k, v in stages.items()}
     log(f"hybrid_search split p50 over 40 queries (ms, host clock, each stage synchronized) on {card}: "
         + ", ".join(f"{k} {v:.3f}" for k, v in out["split_ms"].items()))
@@ -3307,7 +3365,16 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
         route = f"; dense side {dense.last_route}" if name.startswith("hybrid") else ""
         log(f"{name} B = {batch} tail-term queries: {batch / statistics.median(times):.1f} queries/s (median of 5, "
             f"{statistics.median(times) * 1e3:.2f} ms a call{route}) on {card}")
-    # Each torch-op program's time per call (CUDA events), beside its bytes.
+    # Each torch-op program's time per call (CUDA events) from its graph and
+    # eagerly (``eager_programs``), beside its bytes.
+    from raglite_tpu_torch.utils import graphs
+
+    def timed_both(fn) -> tuple[float, float]:
+        fn()  # its key held
+        graph = median_ms(fn)
+        with graphs.eager_programs():
+            return graph, median_ms(fn)
+
     programs = []
     for batch in (1, 256):
         block = term_ids[:batch]
@@ -3317,20 +3384,20 @@ def keyword_and_hybrid(cfg, queries: list[str], rerank_queries: list[str], backg
             lcap_b *= 2
         read = int(np.minimum(kw._res["df_host"][valid], lcap_b).sum())
         moved = block.size * 4 + valid.size * 16 + read * 8 + batch * k_side * 12
-        ms = median_ms(lambda: kw.resident_block_device(block, num_hits=k_side, mask=mask, masked=False))
-        programs.append({"name": "bm25_topk_resident", "batch": batch, "ms": ms, "bytes": moved,
+        ms, eager_ms = timed_both(lambda: kw.resident_block_device(block, num_hits=k_side, mask=mask, masked=False))
+        programs.append({"name": "bm25_topk_resident", "batch": batch, "ms": ms, "eager_ms": eager_ms, "bytes": moved,
                          "bound_ms": moved / PEAK_BYTES_PER_S * 1e3, "postings": read, "lcap": lcap_b})
     for batch in (1, 32):
         d_b = tuple(x[:batch] for x in dense_side)
         k_b = tuple(x[:batch] for x in kw_side)
         moved = batch * 2 * k_side * 12 + batch * num_results * 12
-        ms = median_ms(lambda: rrf_fuse_topk(d_b, k_b, num_chunks=n, num_results=num_results))
-        programs.append({"name": "rrf_fuse_topk", "batch": batch, "ms": ms, "bytes": moved,
+        ms, eager_ms = timed_both(lambda: fuse_device(d_b, k_b, num_chunks=n, num_results=num_results))
+        programs.append({"name": "rrf_fuse_topk", "batch": batch, "ms": ms, "eager_ms": eager_ms, "bytes": moved,
                          "bound_ms": moved / PEAK_BYTES_PER_S * 1e3})
     for p in programs:
-        log(f"timing {p['name']} (torch ops) B={p['batch']} on {card}: {p['ms']:.4f} ms a call (CUDA events, calls "
-            f"enqueued back to back), {p['bytes']} bytes, bound {p['bound_ms']:.6f} ms (bytes)"
-            + (f", {p['postings']} postings read, lcap {p['lcap']}" if "postings" in p else ""))
+        log(f"timing {p['name']} B={p['batch']} on {card}: {p['ms']:.4f} ms a call from its CUDA graph, "
+            f"{p['eager_ms']:.4f} eager (torch ops; CUDA events, calls enqueued back to back), {p['bytes']} bytes, "
+            f"bound {p['bound_ms']:.6f} ms (bytes)" + (f", {p['postings']} postings read, lcap {p['lcap']}" if "postings" in p else ""))
     out["programs"] = programs
     if profile:
         ops, _ = _profile_window(
@@ -3889,6 +3956,8 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             assert split_sentences(doc, max_len=2048, base_probas="learned", device="cuda") == split_sentences(
                 doc, max_len=2048, base_probas="learned", device="cpu"
             )
+        held = sorted(k for k in gpu_model.programs._entries if k[0] == "boundary")
+        assert held and gpu_model.programs.counts["replayed"] > 0, gpu_model.programs.counts  # blocks from graphs
         f1_learned = float(np.mean([boundary_f1(gpu_model(d), gold)[0] for d, gold in heldout]))
         f1_heuristic = float(np.mean([boundary_f1(heuristic_sentence_boundaries(d), gold)[0] for d, gold in heldout]))
         big = "\n\n".join(markdown.values())
@@ -3909,7 +3978,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             "cpu_ms_per_100k_chars": cpu_ms * per,
         }
         log(f"phase 11 (b) learned boundaries on the card = CPU within {worst:.3g} (atol {BOUNDARY_ATOL}) over "
-            f"{len(markdown) + len(heldout)} documents, sentences equal; held-out F1 learned {f1_learned:.4f} vs "
+            f"{len(markdown) + len(heldout)} documents, sentences equal, the blocks from CUDA graphs (keys {held}); held-out F1 learned {f1_learned:.4f} vs "
             f"heuristic {f1_heuristic:.4f} (PARITY.md quotes 0.999 vs 0.87, the JAX package on the CPU); {card_ms * per:.2f} ms per 100k characters on the card (the forward "
             f"alone {device_ms * per:.3f} ms, CUDA events; the CPU model {cpu_ms * per:.2f} ms), on {card}")
 
@@ -5829,6 +5898,199 @@ def phase15(cfg, texts: list[str], queries: list[str], seed: int, card: str, tot
     return out
 
 
+#: Phase 16 (f)'s document, raced against 8 hybrid searches, then deleted.
+PHASE16_RACE_ID = "phase16-race"
+#: Phase 16: the program families that must each hold a key.
+PHASE16_FAMILIES = ("bm25", "bm25_gather", "rrf", "chunklet", "hash", "boundary", "nnls")
+
+
+def _family_report(programs: dict) -> dict:
+    """Per program family (a key's first element), over the named
+    ProgramGraphs objects: the keys held, their capture ms and the pool
+    bytes their captures added."""
+    out: dict = {}
+    for p in programs.values():
+        for key, st in p.stats().items():
+            fam = out.setdefault(key[0], {"keys": 0, "capture_ms": 0.0, "pool_bytes": 0})
+            fam["keys"] += 1
+            fam["capture_ms"] += st["capture_ms"]
+            fam["pool_bytes"] += st["pool_bytes"]
+    return out
+
+
+def phase16(cfg, texts: list[str], queries: list[str], seed: int, card: str, total: dict[str, int]) -> dict:
+    """Phase 16: the search side's remaining one-dispatch programs from CUDA
+    graphs over the phase-3 store and its keyword index (module docstring,
+    phase 16), each held key against its eager program."""
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    import raglite_tpu_torch.query_adapter as qa
+    from raglite_tpu_torch import Document, delete_documents, insert_documents
+    from raglite_tpu_torch.index.dense import dense_index_from_config
+    from raglite_tpu_torch.index.keyword import keyword_index_from_config
+    from raglite_tpu_torch.models.boundary import default_model
+    from raglite_tpu_torch.models.encoder import HashEncoder, _hash_table, encoder_from_config
+    from raglite_tpu_torch.search import (
+        hybrid_search,
+        hybrid_search_batch,
+        keyword_search,
+        keyword_search_batch,
+        rerank_chunks,
+        retrieve_chunks,
+    )
+    from raglite_tpu_torch.utils import graphs
+
+    t_start = time.perf_counter()
+    dense, kw = dense_index_from_config(cfg), keyword_index_from_config(cfg)
+    encoder = encoder_from_config(cfg)
+    shared = graphs.shared_programs("cuda")
+    hashed = HashEncoder(dim=1024, device="cuda")  # phase 8 (d)'s embedder, apart from the factory's cache
+    boundary = default_model("cuda")
+    owners = {"keyword": kw.programs, "index": dense.programs, "shared": shared, "hash": hashed.programs,
+              "boundary": boundary.programs, "sem": encoder.programs}
+    names = {id(p): name for name, p in owners.items()}
+    tail = tail_queries(256, seed)
+    ccfg = dataclasses.replace(cfg, reranker="maxsim_chunklet")
+    wide = " ".join(queries)  # more unique terms than the resident postings take
+    rng = np.random.default_rng(seed + 16)
+    qb = rng.normal(size=(64, D)).astype(np.float32)
+    qb /= np.linalg.norm(qb, axis=1, keepdims=True)
+    pb = (rng.normal(size=(64, 40, D)) / np.sqrt(D)).astype(np.float32)
+    nb = (rng.normal(size=(64, 40, D)) / np.sqrt(D)).astype(np.float32)
+    pb[::3, 30:], nb[1::3, 25:] = 0.0, 0.0  # evals with fewer positives or negatives
+    out: dict = {}
+    with _ProgramCheck(names) as check:
+        check.on = True
+
+        def held_programs():
+            for q in [*queries, *tail[:8]]:
+                hybrid_search(q, num_results=10, config=cfg)
+                assert kw.last_route == "hybrid_fused" and dense.last_route == "int4_two_stage", (kw.last_route, dense.last_route)
+                keyword_search(q, num_results=10, config=cfg)
+                assert kw.last_route == "resident", kw.last_route
+            hybrid_search_batch(tail[:32], num_results=10, config=cfg)
+            assert dense.last_route == "int4_two_stage"
+            hybrid_search_batch(tail, num_results=10, config=cfg)
+            keyword_search_batch(tail, num_results=10, config=cfg)
+            for _ in range(2):
+                keyword_search(wide, num_results=10, config=cfg)
+                assert kw.last_route == "host_gather", kw.last_route
+            for q in queries[:4]:
+                ids, _ = hybrid_search(q, num_results=20, config=cfg)
+                rerank_chunks(q, retrieve_chunks(ids, config=cfg), config=ccfg)
+            for text in (texts[0][:6000], texts[1][:6000], texts[0][:6000]):
+                hashed.embed_token_level(text)
+            for text in (*texts, texts[0]):
+                boundary(text)
+            for _ in range(2):
+                qa._nnls_targets("cuda", qb, pb, nb, alpha=0.05)
+
+        _counted(total, held_programs)
+        check.on = False
+    families = {key[0] for _, key in check.held}
+    assert set(PHASE16_FAMILIES) <= families, families
+    dev = max(e["deviation"] for e in check.held.values())
+    scans = check.launches["replay"].get("int4_bucket_scan", 0)
+    assert scans > 0 and check.launches["replay"] == check.launches["eager"], check.launches
+    log(f"phase 16 (a) on {card}: {len(check.held)} keys held to their eager programs "
+        f"({sum(e['checks'] for e in check.held.values())} checks) over the families {sorted(families)}, largest "
+        f"deviation {dev:.3g} (bound {PHASE15_RTOL}); (b) int4 launches of the checking replays {scans} = the eager "
+        f"programs' {check.launches['eager'].get('int4_bucket_scan', 0)}")
+    for (owner, key), entry in sorted(check.held.items(), key=str):
+        if owner != "sem":
+            log(f"  phase 16 key {owner} {key}: {entry['checks']} checks, deviation {entry['deviation']:.3g}")
+    out.update({"keys": len(check.held), "deviation": dev, "replay_int4": scans})
+    # (c) Times from the graphs and eager, in turns.
+    items = [*queries, *tail[:8]]
+    hs_g, hs_e = _paired_p50(lambda q: hybrid_search(q, num_results=10, config=cfg), items)
+    ks_g, ks_e = _paired_p50(lambda q: keyword_search(q, num_results=10, config=cfg), items)
+    split = {"graphs": _hybrid_stages(cfg, items, 20, 10)}
+    with graphs.eager_programs():
+        split["eager"] = _hybrid_stages(cfg, items, 20, 10)
+    split = {mode: {k: statistics.median(v) for k, v in st.items()} for mode, st in split.items()}
+    batches = {}
+    for name, fn, b in (("keyword_search_batch", keyword_search_batch, 256), ("hybrid_search_batch", hybrid_search_batch, 256),
+                        ("hybrid_search_batch", hybrid_search_batch, 32)):
+        g, e = _paired_p50(lambda _, fn=fn, b=b: fn(tail[:b], num_results=10, config=cfg), range(3))
+        batches[f"{name}_b{b}"] = {"ms": g, "eager_ms": e, "qps": b / g * 1e3, "eager_qps": b / e * 1e3}
+    log(f"phase 16 (c) on {card}: hybrid_search p50 {hs_g:.3f} ms from the graphs, {hs_e:.3f} eager; keyword_search "
+        f"p50 {ks_g:.3f} ms, {ks_e:.3f} eager (B 1, {len(items)} queries, host clock); hybrid split p50 (ms) from the "
+        f"graphs {json.dumps({k: round(v, 3) for k, v in split['graphs'].items()})}, eager "
+        f"{json.dumps({k: round(v, 3) for k, v in split['eager'].items()})}; batches "
+        + "; ".join(f"{k} {v['ms']:.2f} ms ({v['qps']:.1f} queries/s) from the graphs, {v['eager_ms']:.2f} ms "
+                    f"({v['eager_qps']:.1f}) eager" for k, v in batches.items()))
+    out.update({"hybrid_ms": hs_g, "hybrid_eager_ms": hs_e, "keyword_ms": ks_g, "keyword_eager_ms": ks_e,
+                "split_ms": split, "batches": batches})
+    # (d) Device operations per hybrid call.
+    for q in queries:
+        hybrid_search(q, num_results=10, config=cfg)
+    ops, idle = _profile_window(lambda: [hybrid_search(q, num_results=10, config=cfg) for q in queries],
+                                f"{len(queries)} hybrid_search calls from the graphs", card, top=8)
+    with graphs.eager_programs():
+        e_ops, e_idle = _profile_window(lambda: [hybrid_search(q, num_results=10, config=cfg) for q in queries],
+                                        f"{len(queries)} hybrid_search calls, eager", card, top=8)
+    log(f"phase 16 (d) device operations per hybrid_search call: {ops / len(queries):.1f} from the graphs (idle share "
+        f"{idle:.3f}), {e_ops / len(queries):.1f} eager (idle share {e_idle:.3f}), on {card}")
+    out.update({"ops_per_hybrid": ops / len(queries), "ops_per_hybrid_eager": e_ops / len(queries),
+                "idle_share": idle, "idle_share_eager": e_idle})
+    # (e) Capture ms, pool bytes and keys held, per object and per family.
+    out["pools"] = {name: _pool_report(p) for name, p in owners.items() if name != "sem"}
+    out["families"] = _family_report({k: v for k, v in owners.items() if k != "sem"})
+    for name, report in out["pools"].items():
+        log(f"phase 16 (e) pool {name} on {card}: keys {report['keys']}, pool bytes {report['pool_bytes']}, "
+            f"counts {report['counts']}")
+    log(f"phase 16 (e) per family on {card}: {json.dumps(out['families'])}")
+    # (f) 8 hybrid searches racing an insert: each result equals the same
+    # search before or after it.
+    racers = [PHASE15_QUERY, *queries[:3]] * 2
+    before = {q: hybrid_search(q, num_results=10, config=cfg) for q in set(racers)}
+    raced: dict[int, list] = {}
+
+    def search_during(i: int) -> None:
+        raced[i] = [hybrid_search(racers[i], num_results=10, config=cfg) for _ in range(4)]
+
+    threads = [threading.Thread(target=search_during, args=(i,)) for i in range(len(racers))]
+    threads.append(threading.Thread(
+        target=lambda: insert_documents([Document.from_text(PHASE15_DOC, id=PHASE16_RACE_ID)], config=cfg)))
+    gen = kw.generation
+    _counted(total, lambda: ([t.start() for t in threads], [t.join(timeout=300) for t in threads]))
+    assert not any(t.is_alive() for t in threads) and len(raced) == len(racers)
+    after = {q: hybrid_search(q, num_results=10, config=cfg) for q in set(racers)}
+    assert kw.generation > gen and before[PHASE15_QUERY] != after[PHASE15_QUERY]
+    mixed = [r for i, rs in raced.items() for r in rs if r not in (before[racers[i]], after[racers[i]])]
+    assert not mixed, mixed
+    delete_documents([PHASE16_RACE_ID], config=cfg)
+    log(f"phase 16 (f) {len(racers)} threads of hybrid_search racing an insert: each of "
+        f"{sum(map(len, raced.values()))} results equal to the same search before or after it "
+        f"({sum(r == after[racers[i]] for i, rs in raced.items() for r in rs)} after), on {card}")
+    # (g) The other programs from their graphs and eager.
+    text = texts[0][:6000]
+    hash_g, hash_e = _paired_p50(lambda _: hashed.embed_token_level(text), range(8))
+    tops = [retrieve_chunks(hybrid_search(q, num_results=20, config=cfg)[0], config=cfg) for q in queries[:4]]
+    rr_g, rr_e = _paired_p50(lambda i: rerank_chunks(queries[i], tops[i], config=ccfg), range(4), reps=2)
+    big = "\n\n".join(texts)
+    bd_g, bd_e = _paired_p50(lambda _: boundary(big), range(3))
+    on_card = [torch.from_numpy(a).cuda() for a in (qb, pb, nb)]
+    nnls_g = median_ms(lambda: qa._nnls_targets("cuda", *on_card, alpha=0.05), reps=3, inner=1, warmup=1)
+    with graphs.eager_programs():
+        nnls_e = median_ms(lambda: qa._nnls_targets("cuda", *on_card, alpha=0.05), reps=3, inner=1, warmup=1)
+    per = 1e5 / len(big)
+    log(f"phase 16 (g) on {card}: hash:1024 encode of {len(text)} characters {hash_g:.3f} ms from its graph, {hash_e:.3f} "
+        f"eager; maxsim_chunklet rerank of a top 20 p50 {rr_g:.3f} ms, {rr_e:.3f} eager; the boundary model "
+        f"{bd_g * per:.3f} ms per 100k characters, {bd_e * per:.3f} eager ({len(big)} characters); NNLS B 64, "
+        f"P*N 1,600, d {D}: {nnls_g:.3f} ms from its graph, {nnls_e:.3f} eager (CUDA events)")
+    out.update({"hash_ms": hash_g, "hash_eager_ms": hash_e, "chunklet_ms": rr_g, "chunklet_eager_ms": rr_e,
+                "boundary_ms_per_100k": bd_g * per, "boundary_eager_ms_per_100k": bd_e * per,
+                "nnls_ms": nnls_g, "nnls_eager_ms": nnls_e, "seconds": time.perf_counter() - t_start})
+    _hash_table.cache_clear()  # phase 8 (d) times the hash: table's draw
+    log(f"phase 16 done in {out['seconds']:.1f} s on {card}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5840,7 +6102,7 @@ def main() -> int:
         "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15"],
+        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15", "phase16"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
@@ -5848,7 +6110,8 @@ def main() -> int:
         "every kernel, serves phase 3's store at --rows rows and runs phase 12 over it; 'phase13' builds every kernel and "
         "runs phase 13 alone at --rows rows; 'phase14' builds every kernel, serves phase 3's store at --rows rows, "
         "loads the large preset and runs phase 14 on phase 6's RAG prompt; 'phase15' builds every kernel, serves phase 3's "
-        "store at --rows rows and runs phase 15 over it",
+        "store at --rows rows and runs phase 15 over it; 'phase16' builds every kernel, serves phase 3's store at --rows "
+        "rows, runs phase 4b's keyword and hybrid checks over it and then phase 16",
     )
     # One rank of phase 12 (d), started by phase 12 itself.
     parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
@@ -5968,6 +6231,23 @@ def main() -> int:
         summary15 = phase15(cfg, texts, vs_q, args.seed, card, launches15)
         log(f"phase 15 summary on {card}: {json.dumps({**summary15, 'launches': launches15})}")
         log("partial run (--only phase15): no result line")
+        return 0
+
+    if args.only == "phase16":
+        texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
+        cfg = RAGLiteConfig(store_path=":memory:", device="cuda")
+        t0 = time.perf_counter()
+        insert_documents([Document.from_text(t) for t in texts], config=cfg)
+        store = store_from_config(cfg)
+        background = add_background(store, args.rows - sum(m.shape[0] for m in store.embeddings.values()), args.seed)
+        log(f"phase 3's store at {args.rows} rows in {time.perf_counter() - t0:.1f} s")
+        queries = pick_queries(texts, 8 + 4 + 32, args.seed)
+        hybrid = keyword_and_hybrid(cfg, queries[:8], queries[8:12], background, args.seed, card, profile=args.profile)
+        log(f"phase 4b summary on {card}: {json.dumps(hybrid)}")
+        launches16: dict[str, int] = {}
+        summary16 = phase16(cfg, texts, queries[:8], args.seed, card, launches16)
+        log(f"phase 16 summary on {card}: {json.dumps({**summary16, 'launches': launches16})}")
+        log("partial run (--only phase16): no result line")
         return 0
 
     if args.only == "phase11":
@@ -6118,6 +6398,17 @@ def main() -> int:
 
     mark("phase 15")
 
+    # 16. The search side's remaining programs as CUDA graphs, over the
+    # phase-3 store and phase 4b's keyword index (before phase 10 replaces
+    # the store): BM25, RRF, the hash: pool, the chunklet MaxSim, the
+    # boundary model, the NNLS, each held key against its eager program.
+    phase16_launches: dict[str, int] = {}
+    summary16 = phase16(cfg, texts, vs_q, args.seed, card, phase16_launches)
+    log(f"phase 16 summary on {card}: {json.dumps({**summary16, 'launches': phase16_launches})}")
+    assert phase16_launches.get("int4_bucket_scan", 0) > 0, phase16_launches
+
+    mark("phase 16")
+
     # 10. Real checkpoints: a Qwen3-4B-shaped hf: checkpoint (bf16 and
     # @int8) answering over the phase-3 store, a bge-m3-shaped encoder at
     # d = 1,024 in a fresh store (phase-3's replaced), ckpt: (orbax) of
@@ -6208,6 +6499,10 @@ def main() -> int:
             # And on phase 15's (the retrieval programs' entry points, the
             # graphs' warm-ups and replays; checking calls not counted).
             "launches_phase15": phase15_launches.get(name, 0),
+            # And on phase 16's (the hybrid and keyword paths from the graphs,
+            # the timed calls and the racing searches; checking calls not
+            # counted).
+            "launches_phase16": phase16_launches.get(name, 0),
         })
         p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
         if p12 is not None:

@@ -301,7 +301,9 @@ class DenseIndex:
         #: Serializes sync() and every search against concurrent server
         #: threads: a search holds it from its device refresh until its
         #: scan is enqueued, so no sync replaces an array it reads.
-        self._sync_lock = threading.Lock()
+        #: Reentrant: the fused hybrid search holds it across a sync and
+        #: its search (search.py:_hybrid_fused_batch).
+        self._sync_lock = threading.RLock()
         #: Bumped by every change to a device array the search programs
         #: read (under the sync lock); part of every program key.
         self.generation = 0

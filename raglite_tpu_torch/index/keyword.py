@@ -10,7 +10,33 @@ configured device (ops/bm25.py).
 
 ``sharded_search_batch`` scores postings partitioned by chunk range over a
 device list (``_ensure_sharded``; parallel/sharded.py:sharded_bm25_topk);
-as in the JAX package, the search layer does not call it.
+as in the JAX package, the search layer does not call it.  It runs eagerly.
+
+On one card both scoring routes run as one program each, replayed from a
+CUDA graph per shape key (``self.programs``, utils/graphs.py), as the JAX
+package jits them:
+
+- the resident route (``bm25_topk_resident``), keyed ``("bm25", b, T, lcap,
+  num_hits, masked, n_pad, generation)``: b <= RESIDENT_BLOCK queries, T
+  the term width padded to a power of two from 4, lcap the block's
+  postings width (the largest truncated df among its terms, a power of
+  two from 128), n_pad the corpus pad (about 12.5 % steps);
+- the host-gather route (``bm25_topk_batch``), keyed ``("bm25_gather",
+  p_pad, batch, num_hits, max_run, n, generation)``: the gathered postings
+  padded to a power of two from 512 (padding postings carry chunk n and
+  weigh nothing), max_run the most unique terms of a query of the batch
+  rounded up to a power of two (a static bound on a (query, chunk) run).
+
+The term ids, the gathered postings, len_norm and a metadata mask enter as
+inputs, copied into each key's static buffers.  The resident arrays are
+closed over, so every change to one bumps ``generation`` and drops the
+graphs: an add (the arrays are dropped, to be rebuilt lazily), a rebuild, a
+new build, and the weights refreshed after deletes.  A search holds
+``_sync_lock`` from reading the resident arrays until its program is
+enqueued.  Size rule: a resident key whose [b, T·lcap] sort holds more
+than :data:`GRAPH_SORT_ENTRIES` entries runs eagerly (at ~60 bytes of
+keys, weights, indices and sort order an entry, its pool would hold
+~0.5 GB for good; e.g. b 256, T 32, lcap 8,192 holds 67 M entries).
 """
 
 from __future__ import annotations
@@ -26,7 +52,8 @@ import torch
 
 from raglite_tpu_torch.index.dense import fetch_scored
 from raglite_tpu_torch.ops.bm25 import K1, bm25_idf, bm25_topk_batch, bm25_topk_resident
-from raglite_tpu_torch.utils.padding import round_up as _round_up
+from raglite_tpu_torch.utils.graphs import ProgramGraphs
+from raglite_tpu_torch.utils.padding import bucket, round_up as _round_up
 
 if TYPE_CHECKING:
     from raglite_tpu_torch.config import RAGLiteConfig
@@ -39,6 +66,9 @@ _WORD_RE = re.compile(r"\w+", re.UNICODE)
 #: Queries per resident BM25 call: the [B, T·lcap] sort of a block at T = 32
 #: and lcap = 8,192 holds 67 M entries (about 0.8 GB of keys and weights).
 RESIDENT_BLOCK = 256
+#: Sort entries (b x T x lcap) above which a resident key runs eagerly
+#: (module docstring).
+GRAPH_SORT_ENTRIES = 1 << 23
 
 
 def tokenize(text: str) -> list[str]:
@@ -74,7 +104,14 @@ class KeywordIndex:
 
     def __init__(self, device: torch.device | str = "cuda") -> None:
         self.device = torch.device(device)
-        self._sync_lock = threading.Lock()  # see DenseIndex._sync_lock
+        #: Serializes sync() against searches (see DenseIndex._sync_lock);
+        #: reentrant, so a search holds it across the build it may trigger.
+        self._sync_lock = threading.RLock()
+        #: Bumped by every change to a resident array the programs close
+        #: over (under the sync lock); part of every program key.
+        self.generation = 0
+        #: The scoring programs, replayed from CUDA graphs on one card.
+        self.programs = ProgramGraphs(self.device, capture_if=self._captured)
         self.chunk_ids: list[str] = []
         #: term -> {chunk ordinal -> tf} (Python fallback path)
         self._postings: dict[str, dict[int, int]] = {}
@@ -103,6 +140,17 @@ class KeywordIndex:
         else:
             logger.warning("native postings builder unavailable; keyword index uses the Python build")
 
+    def _bump(self) -> None:
+        """A resident array changed or went: drop the programs' graphs."""
+        self.generation += 1
+        self.programs.clear()
+
+    @staticmethod
+    def _captured(key: tuple) -> bool:
+        """The size rule (module docstring) for a resident key ``("bm25",
+        b, T, lcap, ...)``; every other key is captured."""
+        return key[0] != "bm25" or key[1] * key[2] * key[3] <= GRAPH_SORT_ENTRIES
+
     @property
     def backend(self) -> str:
         """"native" (the C++ builder) or "python" (the dict fallback)."""
@@ -114,7 +162,9 @@ class KeywordIndex:
         ordinal = len(self.chunk_ids)
         self.chunk_ids.append(chunk_id)
         self._ordinal[chunk_id] = ordinal
-        self._res = None  # postings changed: resident arrays rebuild lazily
+        if self._res is not None:  # postings changed: resident arrays rebuild lazily
+            self._res = None
+            self._bump()
         if self._native is not None:
             self._native.add_chunk(text)
             self._csr = None
@@ -133,6 +183,7 @@ class KeywordIndex:
         self._ordinal = {}
         self._alive_mask = None
         self._res = None
+        self._bump()
         if self._native is not None:
             from raglite_tpu_torch.native import NativePostingsBuilder
 
@@ -324,7 +375,7 @@ class KeywordIndex:
                 "n_pad": int(n_pad),
             }
             self._res = res
-            self._refresh_resident_weights()
+            self._refresh_resident_weights()  # bumps the generation
             return self._res
 
     def _refresh_resident_weights(self) -> None:
@@ -352,6 +403,7 @@ class KeywordIndex:
         res["w"] = torch.as_tensor(w_dev, device=self.device)
         res["host_w"] = w.astype(np.float32)
         res.pop("sharded", None)  # per-shard weights re-derive lazily
+        self._bump()
 
     def _resident_term_ids(self, queries: list[str]) -> np.ndarray | None:
         """[B, T] int32 unique term ids per query (pad -1), or None when a
@@ -381,21 +433,25 @@ class KeywordIndex:
     def resident_prepare(self, queries: list[str]) -> np.ndarray | None:
         """Build the resident arrays if needed and return the [B, T] term-id
         matrix for ``queries``, or None when the resident path can't serve
-        them (disabled, empty index, or a query over RESIDENT_MAX_TERMS)."""
-        if self._ensure_resident() is None:
-            return None
-        return self._resident_term_ids(queries)
+        them (disabled, empty index, or a query over RESIDENT_MAX_TERMS).
+        The ids hold for this ``generation``: a caller that enqueues later
+        checks it under ``_sync_lock`` (search.py:_hybrid_fused_batch)."""
+        with self._sync_lock:
+            if self._ensure_resident() is None:
+                return None
+            return self._resident_term_ids(queries)
 
     def resident_device_mask(self, chunk_mask: np.ndarray | None) -> tuple[torch.Tensor, bool]:
         """(device mask, masked flag) for the resident program's metadata
         filter route.  Weights already encode alive/dead; a metadata filter
-        adds a per-posting mask gather."""
-        res = self._res
-        if chunk_mask is None:
-            return res["dummy_mask"], False
-        n = len(self.chunk_ids)
-        m = np.zeros(res["n_pad"], bool)
-        m[:n] = chunk_mask[:n]
+        adds a per-posting mask gather (the mask is a program input)."""
+        with self._sync_lock:
+            res = self._res
+            if chunk_mask is None:
+                return res["dummy_mask"], False
+            n = len(self.chunk_ids)
+            m = np.zeros(res["n_pad"], bool)
+            m[:n] = chunk_mask[:n]
         return torch.as_tensor(m, device=self.device), True
 
     def resident_block_device(
@@ -409,21 +465,35 @@ class KeywordIndex:
         """One block of queries through the resident BM25 program, returning
         (scores [b, k], ordinals [b, k]) on the device (no host fetch): the
         building block the fused hybrid path chains into device RRF.
-        Winners are ordered by (score desc, ordinal asc)."""
-        res = self._res
-        # Adaptive postings width: the max (truncated) df among THIS block's
-        # terms, a power of two from 128: tail queries fetch and sort far
-        # fewer slots than the global cap.
-        valid = block[block >= 0]
-        max_df = int(res["df_host"][valid].max()) if valid.size else 1
-        lcap_b = 128
-        while lcap_b < max_df:
-            lcap_b *= 2
-        return bm25_topk_resident(
-            res["offsets"], res["chunk"], res["w"], mask,
-            torch.as_tensor(block, device=self.device),
-            num_chunks=res["n_pad"], lcap=lcap_b, num_hits=num_hits, masked=masked,
-        )
+        Winners are ordered by (score desc, ordinal asc).  On one card the
+        program replays from its key's graph (module docstring)."""
+        # Under the sync lock until the program is enqueued: the arrays it
+        # closes over and the generation in its key are one generation's.
+        with self._sync_lock:
+            res = self._res
+            # Adaptive postings width: the max (truncated) df among THIS
+            # block's terms, a power of two from 128: tail queries fetch and
+            # sort far fewer slots than the global cap.
+            valid = block[block >= 0]
+            max_df = int(res["df_host"][valid].max()) if valid.size else 1
+            lcap = bucket(max_df, 128)
+            b, t = block.shape
+            key = ("bm25", b, t, lcap, num_hits, masked, res["n_pad"], self.generation)
+            program = self._resident_program(res, lcap=lcap, num_hits=num_hits, masked=masked)
+            return self.programs(key, program, *((block, mask) if masked else (block,)))
+
+    @staticmethod
+    def _resident_program(res: dict, *, lcap: int, num_hits: int, masked: bool):
+        """The resident program over ``res``'s arrays: ``(term_ids [b, T][,
+        mask [n_pad] bool]) -> (scores, ordinals)``."""
+        offsets, chunk, w, dummy, n_pad = res["offsets"], res["chunk"], res["w"], res["dummy_mask"], res["n_pad"]
+
+        def program(term_ids: torch.Tensor, mask: torch.Tensor = dummy):
+            return bm25_topk_resident(
+                offsets, chunk, w, mask, term_ids, num_chunks=n_pad, lcap=lcap, num_hits=num_hits, masked=masked
+            )
+
+        return program
 
     # --- Sharded postings (multi-GPU) ------------------------------------
 
@@ -554,32 +624,34 @@ class KeywordIndex:
     ) -> list[tuple[list[str], list[float]]] | None:
         """All queries through the resident device program, or None to fall
         back to the host-gather path (resident disabled / too many terms)."""
-        res = self._ensure_resident()
-        if res is None:
-            return None
-        term_ids = self._resident_term_ids(queries)
-        if term_ids is None:
-            return None
-        mask, masked = self.resident_device_mask(chunk_mask)
-        k = min(num_hits, len(self.chunk_ids))
-        results: list[tuple[list[str], list[float]]] = []
-        for start in range(0, len(queries), RESIDENT_BLOCK):
-            scores_b, ordinals_b = fetch_scored(
-                *self.resident_block_device(
-                    term_ids[start : start + RESIDENT_BLOCK], num_hits=k, mask=mask, masked=masked
+        with self._sync_lock:  # one generation's arrays and ids, fetch included
+            res = self._ensure_resident()
+            if res is None:
+                return None
+            term_ids = self._resident_term_ids(queries)
+            if term_ids is None:
+                return None
+            mask, masked = self.resident_device_mask(chunk_mask)
+            k = min(num_hits, len(self.chunk_ids))
+            results: list[tuple[list[str], list[float]]] = []
+            for start in range(0, len(queries), RESIDENT_BLOCK):
+                scores_b, ordinals_b = fetch_scored(
+                    *self.resident_block_device(
+                        term_ids[start : start + RESIDENT_BLOCK], num_hits=k, mask=mask, masked=masked
+                    )
                 )
-            )
-            results.extend(self._hits(s, o) for s, o in zip(scores_b, ordinals_b))
-        self.last_route = "resident"
-        return results
+                results.extend(self._hits(s, o) for s, o in zip(scores_b, ordinals_b))
+            self.last_route = "resident"
+            return results
 
     # --- Search ---------------------------------------------------------
 
     def _gather_postings(
         self, query: str, chunk_mask: np.ndarray | None
-    ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    ) -> tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """Host-side postings gather for one query's terms: returns
-        (chunk ordinals [P], tf [P], idf [P]), metadata-mask applied."""
+        (chunk ordinals [P], tf [P], idf [P], the number of terms gathered),
+        metadata-mask applied."""
         n = len(self.chunk_ids)
         rows_chunk: list[np.ndarray] = []
         rows_tf: list[np.ndarray] = []
@@ -604,7 +676,7 @@ class KeywordIndex:
                 rows_idf.append(np.full(len(bucket), bm25_idf(np.asarray(len(bucket)), n)))
         if not rows_chunk:
             empty = np.zeros((0,), dtype=np.float32)
-            return np.zeros((0,), dtype=np.int32), empty, empty
+            return np.zeros((0,), dtype=np.int32), empty, empty, 0
         chunk = np.concatenate(rows_chunk).astype(np.int32)
         tf = np.concatenate(rows_tf).astype(np.float32)
         idf = np.concatenate(rows_idf).astype(np.float32)
@@ -615,7 +687,7 @@ class KeywordIndex:
         if chunk_mask is not None:
             keep = chunk_mask[chunk]
             chunk, tf, idf = chunk[keep], tf[keep], idf[keep]
-        return chunk, tf, idf
+        return chunk, tf, idf, len(rows_chunk)
 
     def _len_norm(self, n_pad: int) -> np.ndarray:
         doc_len = np.asarray(self.doc_len, dtype=np.float32)
@@ -652,23 +724,41 @@ class KeywordIndex:
         n = len(self.chunk_ids)
         if n == 0 or not queries:
             return [([], []) for _ in queries]
-        resident = self._resident_search(queries, num_hits=num_hits, chunk_mask=chunk_mask)
-        if resident is not None:
-            return resident
-        self.last_route = "host_gather"
+        with self._sync_lock:  # the postings stay one generation's until the fetch
+            resident = self._resident_search(queries, num_hits=num_hits, chunk_mask=chunk_mask)
+            if resident is not None:
+                return resident
+            self.last_route = "host_gather"
+            return self._host_gather_search(queries, num_hits=num_hits, chunk_mask=chunk_mask)
+
+    def _host_gather_search(
+        self, queries: list[str], *, num_hits: int, chunk_mask: np.ndarray | None
+    ) -> list[tuple[list[str], list[float]]]:
+        """Every query's postings gathered on the host, then ONE fixed-shape
+        device program (``bm25_topk_batch``, keyed as the module docstring
+        says) scores them all."""
+        n = len(self.chunk_ids)
         gathered = [self._gather_postings(q, chunk_mask) for q in queries]
-        if sum(g[0].size for g in gathered) == 0:
+        total = sum(g[0].size for g in gathered)
+        if total == 0:
             return [([], []) for _ in queries]
-        chunk = np.concatenate([g[0] for g in gathered])
-        tf = np.concatenate([g[1] for g in gathered])
-        idf = np.concatenate([g[2] for g in gathered])
-        qid = np.repeat(np.arange(len(queries), dtype=np.int32), [g[0].size for g in gathered])
-        scores, ordinals = bm25_topk_batch(
-            *(torch.as_tensor(x, device=self.device) for x in (chunk, qid, tf, idf, self._len_norm(n))),
-            num_chunks=n,
-            batch=len(queries),
-            num_hits=min(num_hits, n),
-        )
+        p_pad = bucket(total, 512)
+        pad = p_pad - total
+        chunk = np.pad(np.concatenate([g[0] for g in gathered]), (0, pad), constant_values=n)
+        tf = np.pad(np.concatenate([g[1] for g in gathered]), (0, pad))
+        idf = np.pad(np.concatenate([g[2] for g in gathered]), (0, pad))
+        qid = np.pad(np.repeat(np.arange(len(queries), dtype=np.int32), [g[0].size for g in gathered]), (0, pad))
+        max_run = bucket(max(g[3] for g in gathered), 1)
+        k = min(num_hits, n)
+        batch = len(queries)
+
+        def program(chunk, qid, tf, idf, len_norm):
+            return bm25_topk_batch(
+                chunk, qid, tf, idf, len_norm, num_chunks=n, batch=batch, num_hits=k, max_run=max_run
+            )
+
+        key = ("bm25_gather", p_pad, batch, k, max_run, n, self.generation)
+        scores, ordinals = self.programs(key, program, chunk, qid, tf, idf, self._len_norm(n))
         scores_b, ordinals_b = fetch_scored(scores, ordinals)
         return [self._hits(s, o) for s, o in zip(scores_b, ordinals_b)]
 

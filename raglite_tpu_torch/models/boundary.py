@@ -11,9 +11,15 @@ The ~12k parameters are the JAX package's packaged
 The module lives on the configured device ("cuda" unless the caller asks
 for the CPU).  Its f32 matmuls run with TF32 off: the probabilities feed an
 exact DP (sentences.py:_solve_boundaries), where a near-tie can flip a cut.
-The JAX package pads the positions to a power-of-two bucket for ``jit``;
-the port runs the N positions as they are (in blocks, to bound memory),
-and the probabilities of the first N positions are the same.
+The positions run in blocks of ``_BLOCK`` = 65,536 (bounding the [block,
+156] f32 activations); the last block is padded with PAD windows to the
+JAX package's ``jit`` bucket (a power of two from 512) and the padding's
+probabilities sliced off, so a program's shape is a bucket and not a
+document length.  Each block's forward is one program, replayed from a
+CUDA graph on the card keyed ``("boundary", rows)`` (``self.programs``,
+utils/graphs.py): at most 8 keys (512 to 65,536 rows), each holding its
+block's activations (~60 MB at 65,536).  The weights are closed over and
+never replaced (``load_state_dict`` copies into them).
 
 ``boundary_f1`` scores any proba function against gold boundaries
 (tests/test_torch_boundary.py, chip_smoke.py phase 11).
@@ -29,6 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from raglite_tpu_torch.utils.graphs import ProgramGraphs
+from raglite_tpu_torch.utils.padding import bucket
 
 __all__ = [
     "char_class_ids",
@@ -120,6 +129,8 @@ class BoundaryModel(nn.Module):
         self.emb = nn.Embedding(VOCAB_SIZE, emb, device=device)
         self.fc1 = nn.Linear(width * emb, hidden, device=device)
         self.fc2 = nn.Linear(hidden, 1, device=device)
+        #: The block forwards, replayed from CUDA graphs on the card.
+        self.programs = ProgramGraphs(device)
 
     @property
     def device(self) -> torch.device:
@@ -183,9 +194,16 @@ class BoundaryModel(nn.Module):
         """Per-character boundary probabilities [len(doc)] float64."""
         if not doc:
             return np.zeros(0, dtype=np.float64)
-        windows = torch.from_numpy(windows_for(char_class_ids(doc))).to(self.device)
-        out = torch.cat([self.forward(windows[i : i + _BLOCK]) for i in range(0, windows.shape[0], _BLOCK)])
-        return out.cpu().numpy().astype(np.float64)
+        windows = windows_for(char_class_ids(doc))
+        n = windows.shape[0]
+        out = []
+        for start in range(0, n, _BLOCK):
+            block = windows[start : start + _BLOCK]
+            rows = bucket(block.shape[0], 512)
+            if rows != block.shape[0]:
+                block = np.concatenate([block, np.full((rows - block.shape[0], block.shape[1]), _PAD_ID, np.int32)])
+            out.append(self.programs(("boundary", rows), self.forward, block))
+        return torch.cat(out)[:n].cpu().numpy().astype(np.float64)
 
 
 @lru_cache(maxsize=4)

@@ -21,7 +21,7 @@ import os
 import re
 import threading
 import zlib
-from functools import lru_cache
+from functools import lru_cache, partial
 from pathlib import Path
 from typing import Protocol
 
@@ -30,7 +30,7 @@ import torch
 
 from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
 from raglite_tpu_torch.utils.graphs import ProgramGraphs, Stacked
-from raglite_tpu_torch.utils.padding import round_up as _round_up
+from raglite_tpu_torch.utils.padding import bucket, round_up as _round_up
 
 __all__ = [
     "Encoder", "HashEncoder", "OpenAICompatEncoder", "TransformerEncoder",
@@ -77,30 +77,58 @@ def _hash_table(seed: int, rows: int, dim: int) -> np.ndarray:
     return table if table is not None else normal_table_np(seed, rows, dim)
 
 
-def _hash_pool(table: torch.Tensor, ids: torch.Tensor, signs: torch.Tensor, bounds: np.ndarray) -> torch.Tensor:
-    """Token embeddings [n, d] f32 on the table's device: the signed sum of
-    each token's feature rows (features ``bounds[t]:bounds[t + 1]``), L2
-    normalised (norm floored at 1e-6), as the JAX package's ``_hash_pool``.
-    Deterministic: tokens are grouped by their feature count rounded up to a
-    power of two, each group's rows gathered into [tokens, count, d] (a pad
-    slot reads the zero row appended to ``ids``) and summed along the count
-    axis; no atomics."""
+def _hash_pool_inputs(ids, signs, bounds: np.ndarray) -> tuple[tuple[np.ndarray, ...], int]:
+    """The fixed-shape inputs of :func:`_hash_pool_program` for one text's
+    features: ((ids [F'] int64, signs [F'] f32, segments [F'] int64, last
+    [T'] int64), width), with F' and T' the feature and token counts
+    rounded up to powers of two from 256 (the JAX package's buckets) and
+    width the most features of a token, rounded up to a power of two.  A
+    padding feature reads row 0 with sign 0 in segment T'; a padding token's
+    ``last`` is F' (it pools to zero)."""
+    ids, signs = np.asarray(ids), np.asarray(signs)
     counts = np.diff(bounds)
-    n = counts.size
-    device = table.device
-    zero_slot = ids.numel()  # rows/signs get one zero entry appended here
-    rows = table[torch.cat([ids, ids.new_zeros(1)])].to(torch.float32)
-    rows = rows * torch.cat([signs, signs.new_zeros(1)])[:, None]
-    out = torch.empty((n, table.shape[1]), dtype=torch.float32, device=device)
-    width = 1 << np.ceil(np.log2(np.maximum(counts, 1))).astype(np.int64)
-    for w in np.unique(width):
-        members = np.nonzero(width == w)[0]
-        slot = bounds[members][:, None] + np.arange(w)[None, :]
-        slot = np.where(np.arange(w)[None, :] < counts[members][:, None], slot, zero_slot)
-        gathered = rows[torch.from_numpy(slot).to(device)]  # [m, w, d]
-        out[torch.from_numpy(members).to(device)] = gathered.sum(dim=1)
+    n, f = counts.size, ids.size
+    f_pad, t_pad = bucket(f), bucket(n)
+    ids_p = np.zeros(f_pad, np.int64)
+    ids_p[:f] = ids
+    signs_p = np.zeros(f_pad, np.float32)
+    signs_p[:f] = signs
+    segments = np.full(f_pad, t_pad, np.int64)
+    segments[:f] = np.repeat(np.arange(n), counts)
+    last = np.full(t_pad, f_pad, np.int64)
+    last[:n] = np.where(counts > 0, bounds[1:] - 1, f_pad)
+    return (ids_p, signs_p, segments, last), bucket(int(counts.max(initial=1)), 1)
+
+
+def _hash_pool_program(
+    table: torch.Tensor, ids: torch.Tensor, signs: torch.Tensor, segments: torch.Tensor, last: torch.Tensor, *, width: int
+) -> torch.Tensor:
+    """Token embeddings [T', d] f32 on the table's device: the signed sum
+    of each token's feature rows, L2 normalised (norm floored at 1e-6), as
+    the JAX package's ``_hash_pool`` (inputs from :func:`_hash_pool_inputs`).
+    Deterministic and of fixed shape: the gathered rows [F', d] are summed
+    within each token's run of features by log2(width) Hillis-Steele
+    shift-adds (a step past a run adds exact zeros), and a token reads its
+    total at its last feature; no atomics, no host read."""
+    rows = table[ids].to(torch.float32)
+    rows *= signs[:, None]
+    step = 1
+    while step < width:
+        shifted = torch.where((segments[step:] == segments[:-step])[:, None], rows[:-step], 0.0)
+        rows[step:] += shifted
+        step *= 2
+    out = rows[torch.clamp(last, max=rows.shape[0] - 1)] * (last < rows.shape[0])[:, None]
     norm = torch.linalg.vector_norm(out, dim=1, keepdim=True)
     return out / torch.clamp(norm, min=1e-6)
+
+
+def _hash_pool(table: torch.Tensor, ids, signs, bounds: np.ndarray) -> torch.Tensor:
+    """:func:`_hash_pool_program` run eagerly on the table's device: token
+    embeddings [n, d] f32 for one text's features (ids, signs: arrays or
+    CPU tensors; bounds [n + 1])."""
+    inputs, width = _hash_pool_inputs(ids, signs, bounds)
+    out = _hash_pool_program(table, *(torch.from_numpy(x).to(table.device) for x in inputs), width=width)
+    return out[: len(bounds) - 1]
 
 
 def hash_pool_plain(table: np.ndarray, ids: np.ndarray, signs: np.ndarray, bounds: np.ndarray) -> np.ndarray:
@@ -120,9 +148,12 @@ class HashEncoder:
     token's embedding is the L2-normalised signed sum of its rows; a text's
     embedding is the mean of its tokens'.  The table is the JAX package's
     ``jax.random.normal(PRNGKey(seed), (2**vocab_bits, dim))``, bit for bit.
-    As in the JAX package, a CUDA device keeps it in bf16 and pools there (a
-    gather and a segment sum); the CPU keeps it in f32 and pools in C++
-    (``native.hash_embed``).
+    As in the JAX package, a CUDA device keeps it in bf16 and pools there
+    (:func:`_hash_pool_program`: a gather and a segmented sum), replayed from
+    a CUDA graph keyed ``("hash", F', T', width)`` (``self.programs``; the
+    feature and token counts and the widest token bucketed as
+    :func:`_hash_pool_inputs` says); the CPU keeps it in f32 and pools in C++
+    (``native.hash_embed``), and runs the same program eagerly without it.
     """
 
     supports_token_embeddings = True
@@ -146,6 +177,7 @@ class HashEncoder:
             if self.device.type == "cuda"
             else torch.from_numpy(self._table_np)
         )
+        self.programs = ProgramGraphs(self.device)
 
     def _features(self, token: str) -> tuple[list[int], list[float]]:
         """Python featurizer (the fallback without the native library)."""
@@ -204,13 +236,10 @@ class HashEncoder:
         ids, signs, bounds, n = self._featurize(text)
         if n == 0:
             return np.zeros((0, self.dim), dtype=np.float32)
-        out = _hash_pool(
-            self._table,
-            torch.from_numpy(ids.astype(np.int64)).to(self.device),
-            torch.from_numpy(signs).to(self.device),
-            bounds,
-        )
-        return out.cpu().numpy()
+        inputs, width = _hash_pool_inputs(ids, signs, bounds)
+        key = ("hash", inputs[0].size, inputs[3].size, width)
+        out = self.programs(key, partial(_hash_pool_program, self._table, width=width), *inputs)
+        return out[:n].cpu().numpy()
 
     def embed(self, texts: list[str]) -> np.ndarray:
         """Mean of each text's token embeddings [len(texts), dim] f32."""

@@ -72,25 +72,25 @@ def _run_totals(keys: torch.Tensor, vals: torch.Tensor, max_run: int) -> tuple[t
 
 
 def _query_chunk_totals(
-    posting_chunk, posting_query, posting_tf, posting_idf, len_norm, *, num_chunks: int
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(query, chunk, BM25 score) of every matched pair, ordered by (query,
-    chunk).  Pairs are grouped by an int64 (query, chunk) key, so no flat id
-    can overflow (the reason the JAX package keeps a 2-D scatter)."""
+    posting_chunk, posting_query, posting_tf, posting_idf, len_norm, *, num_chunks: int, max_run: int | None
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(query, chunk, total, kept) for every posting slot [P], ordered by
+    (query, chunk): a kept slot is the last of its (query, chunk) pair's
+    run and carries the pair's BM25 score; the pair's earlier slots and the
+    padding postings (chunk ``num_chunks``) are not kept.  Pairs are grouped
+    by an int64 (query, chunk) key, so no flat id can overflow (the reason
+    the JAX package keeps a 2-D scatter).  A run is one pair's postings, at
+    most one a query term, so ``max_run`` (None: P, always enough) bounds
+    it; a larger one only adds shift-add steps of exact zeros.  Every shape
+    is P's: no host read."""
     contrib = _contrib(posting_chunk, posting_tf, posting_idf, len_norm, num_chunks)
     query = posting_query.to(torch.int64)
     chunk = posting_chunk.to(torch.int64)
     key = query * (num_chunks + 1) + chunk
     key, order = torch.sort(key, stable=True)
-    contrib = contrib[order]
-    if key.numel() == 0:
-        return key, key, contrib
-    # A run is one (query, chunk) pair: at most one posting per query term.
-    max_run = int(torch.unique_consecutive(key, return_counts=True)[1].max())
-    totals, is_end = _run_totals(key, contrib, max_run)
-    query, chunk = key // (num_chunks + 1), key % (num_chunks + 1)
-    keep = is_end & (chunk < num_chunks)
-    return query[keep], chunk[keep], totals[keep]
+    totals, is_end = _run_totals(key, contrib[order], key.shape[-1] if max_run is None else max_run)
+    chunk = key % (num_chunks + 1)
+    return key // (num_chunks + 1), chunk, totals, is_end & (chunk < num_chunks)
 
 
 def bm25_scores_batch(
@@ -102,22 +102,26 @@ def bm25_scores_batch(
     *,
     num_chunks: int,
     batch: int,
+    max_run: int | None = None,
 ) -> torch.Tensor:
     """Dense BM25 scores [batch, num_chunks]: each pair's total written
-    once at its 2-D (query, chunk) index (no accumulation, no flat id)."""
-    query, chunk, totals = _query_chunk_totals(
-        posting_chunk, posting_query, posting_tf, posting_idf, len_norm, num_chunks=num_chunks
+    once at its 2-D (query, chunk) index (no accumulation, no flat id); the
+    slots that are not kept write to a discarded row and column."""
+    query, chunk, totals, kept = _query_chunk_totals(
+        posting_chunk, posting_query, posting_tf, posting_idf, len_norm, num_chunks=num_chunks, max_run=max_run
     )
-    scores = torch.zeros((batch, num_chunks), dtype=torch.float32, device=len_norm.device)
-    scores[query, chunk] = totals
-    return scores
+    scores = torch.zeros((batch + 1, num_chunks + 1), dtype=torch.float32, device=len_norm.device)
+    scores[torch.where(kept, query, batch), torch.where(kept, chunk, num_chunks)] = totals
+    return scores[:batch, :num_chunks]
 
 
-def bm25_scores(posting_chunk, posting_tf, posting_idf, len_norm, *, num_chunks: int) -> torch.Tensor:
+def bm25_scores(
+    posting_chunk, posting_tf, posting_idf, len_norm, *, num_chunks: int, max_run: int | None = None
+) -> torch.Tensor:
     """Dense BM25 scores [num_chunks] for one query's gathered postings."""
     query = torch.zeros_like(posting_chunk)
     return bm25_scores_batch(
-        posting_chunk, query, posting_tf, posting_idf, len_norm, num_chunks=num_chunks, batch=1
+        posting_chunk, query, posting_tf, posting_idf, len_norm, num_chunks=num_chunks, batch=1, max_run=max_run
     )[0]
 
 
@@ -131,42 +135,46 @@ def bm25_topk_batch(
     num_chunks: int,
     batch: int,
     num_hits: int,
+    max_run: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Top ``num_hits`` chunks per query: (scores [batch, k] f32, ordinals
     [batch, k] int64), ordered by (score desc, ordinal asc) as
     ``lax.top_k`` over :func:`bm25_scores_batch` orders them.  Only matched
     pairs are ranked, so no [batch, num_chunks] matrix is made; slots past a
     query's last match hold score 0 and ordinal ``num_chunks`` (the JAX
-    program fills them with zero-score chunks; callers drop score <= 0)."""
-    query, chunk, totals = _query_chunk_totals(
-        posting_chunk, posting_query, posting_tf, posting_idf, len_norm, num_chunks=num_chunks
+    program fills them with zero-score chunks; callers drop score <= 0).
+    Every shape is P's or the output's (the host-gather route's program,
+    keyed by P's bucket)."""
+    query, chunk, totals, kept = _query_chunk_totals(
+        posting_chunk, posting_query, posting_tf, posting_idf, len_norm, num_chunks=num_chunks, max_run=max_run
     )
     device = len_norm.device
-    out_scores = torch.zeros((batch, num_hits), dtype=torch.float32, device=device)
-    out_ords = torch.full((batch, num_hits), num_chunks, dtype=torch.int64, device=device)
-    if totals.numel() == 0:
-        return out_scores, out_ords
+    # Slots that are not kept go to query ``batch``, past every real one.
+    query = torch.where(kept, query, batch)
     # (query asc, score desc, chunk asc): pairs arrive by (query, chunk), so
     # a stable sort on the score and then one on the query keep the rest.
     order = torch.sort(totals, descending=True, stable=True)[1]
     query, chunk, totals = query[order], chunk[order], totals[order]
     order = torch.sort(query, stable=True)[1]
     query, chunk, totals = query[order], chunk[order], totals[order]
-    rank = torch.arange(query.numel(), device=device) - torch.searchsorted(query, query)
-    keep = rank < num_hits
-    out_scores[query[keep], rank[keep]] = totals[keep]
-    out_ords[query[keep], rank[keep]] = chunk[keep]
-    return out_scores, out_ords
+    rank = torch.arange(query.shape[0], device=device) - torch.searchsorted(query, query)
+    keep = (rank < num_hits) & (query < batch)
+    row, col = torch.where(keep, query, batch), torch.where(keep, rank, num_hits)
+    out_scores = torch.zeros((batch + 1, num_hits + 1), dtype=torch.float32, device=device)
+    out_ords = torch.full((batch + 1, num_hits + 1), num_chunks, dtype=torch.int64, device=device)
+    out_scores[row, col] = totals
+    out_ords[row, col] = chunk
+    return out_scores[:batch, :num_hits], out_ords[:batch, :num_hits]
 
 
 def bm25_topk(
-    posting_chunk, posting_tf, posting_idf, len_norm, *, num_chunks: int, num_hits: int
+    posting_chunk, posting_tf, posting_idf, len_norm, *, num_chunks: int, num_hits: int, max_run: int | None = None
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`bm25_topk_batch` for one query: (scores [k], ordinals [k])."""
     query = torch.zeros_like(posting_chunk)
     scores, ordinals = bm25_topk_batch(
         posting_chunk, query, posting_tf, posting_idf, len_norm,
-        num_chunks=num_chunks, batch=1, num_hits=num_hits,
+        num_chunks=num_chunks, batch=1, num_hits=num_hits, max_run=max_run,
     )
     return scores[0], ordinals[0]
 

@@ -5,6 +5,13 @@ here; no kernel): for each candidate, score = sum over query vectors of the
 max similarity to any candidate vector.  Zero rows are padding.  The
 similarities run at full f32 precision (TF32 off), as the JAX package's
 ``Precision.HIGHEST``.
+
+``maxsim_rank`` (the chunklet rerank, search.py:_rank_with_chunklet_maxsim)
+runs :func:`maxsim_scores` from a CUDA graph on the card, keyed
+``("chunklet", qm, C, m, d)`` with every axis but d rounded up to a
+multiple of 8, through the device's shared ProgramGraphs
+(utils/graphs.py:shared_programs; it has no owner object): the query and
+candidate matrices are its inputs, copied into the key's static buffers.
 """
 
 from __future__ import annotations
@@ -13,6 +20,7 @@ import numpy as np
 import torch
 
 from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+from raglite_tpu_torch.utils.graphs import shared_programs
 from raglite_tpu_torch.utils.padding import round_up as _round_up
 
 __all__ = ["maxsim_rank", "maxsim_scores"]
@@ -47,7 +55,8 @@ def maxsim_rank(
         cands[i, : matrix.shape[0]] = matrix.astype(np.float32)
     q = np.zeros((_round_up(query_matrix.shape[0], 8), d), dtype=np.float32)
     q[: query_matrix.shape[0]] = query_matrix.astype(np.float32)
-    scores = maxsim_scores(torch.from_numpy(q).to(device), torch.from_numpy(cands).to(device))
+    key = ("chunklet", q.shape[0], cands.shape[0], m_max, d)
+    scores = shared_programs(device)(key, maxsim_scores, q, cands)
     scores = scores.cpu().numpy()[: len(candidate_matrices)]
     order = np.argsort(-scores, kind="stable")
     return order, scores[order]

@@ -20,7 +20,10 @@ import torch
 
 from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
 
-__all__ = ["nnls_dual_target", "batched_query_targets"]
+__all__ = ["NNLS_ITERS", "batched_query_targets", "nnls_dual_target", "query_targets_from_rows"]
+
+#: FISTA iterations of the adapter's solve (the JAX package's default).
+NNLS_ITERS = 200
 
 
 def _power_iter_sq_norm(D: torch.Tensor, iters: int = 16) -> torch.Tensor:
@@ -34,7 +37,7 @@ def _power_iter_sq_norm(D: torch.Tensor, iters: int = 16) -> torch.Tensor:
     return torch.clamp(torch.linalg.vector_norm(torch.bmm(D, v), dim=1)[:, 0] ** 2, min=1e-9)
 
 
-def nnls_dual_target(q: torch.Tensor, D: torch.Tensor, *, iters: int = 200) -> torch.Tensor:
+def nnls_dual_target(q: torch.Tensor, D: torch.Tensor, *, iters: int = NNLS_ITERS) -> torch.Tensor:
     """Targets ``q + D^T mu*`` [B, d] for queries q [B, d] and constraint rows
     D [B, m, d] (zero rows are padding: their gradients vanish, so their
     multipliers stay at zero)."""
@@ -63,7 +66,7 @@ def batched_query_targets(
     neg_mask: torch.Tensor,  # [B, Nmax] bool
     *,
     alpha: float = 0.05,
-    iters: int = 200,
+    iters: int = NNLS_ITERS,
 ) -> torch.Tensor:
     """Optimal target vectors [B, d] for a batch of evals.
 
@@ -76,3 +79,14 @@ def batched_query_targets(
     pair_mask = (pos_mask[:, :, None] & neg_mask[:, None, :]).to(qs.dtype)
     D = (D * pair_mask[..., None]).reshape(b, -1, d)
     return nnls_dual_target(qs, D, iters=iters)
+
+
+def query_targets_from_rows(
+    qs: torch.Tensor, pos: torch.Tensor, neg: torch.Tensor, *, alpha: float = 0.05, iters: int = NNLS_ITERS
+) -> torch.Tensor:
+    """:func:`batched_query_targets` with each side's mask read from its
+    zero rows (padding) on the device: the adapter's program, three tensors
+    in (query_adapter.py:_nnls_targets)."""
+    return batched_query_targets(
+        qs, pos, neg, (pos != 0.0).any(dim=-1), (neg != 0.0).any(dim=-1), alpha=alpha, iters=iters
+    )

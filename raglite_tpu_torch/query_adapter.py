@@ -6,7 +6,12 @@ adapter, its top chunks split into positives (the eval's gold chunks) and
 negatives, a target per question solved as a nonnegative least-squares dual
 on the device (ops/nnls.py), and the adapter fitted to (questions, targets)
 by a Procrustes solution in f64 on the host.  Search applies the stored
-adapter as one device matmul (search.py).
+adapter as one device matmul (search.py).  On the card each NNLS batch
+replays from a CUDA graph (:func:`_nnls_targets`), keyed ``("nnls", B,
+Pmax, Nmax, d, alpha, iters)`` in the device's shared ProgramGraphs
+(utils/graphs.py:shared_programs): the 200 FISTA iterations' ~1,700
+launches become one replay; their momentum weights are host f32 scalars,
+the same for every batch, so the capture holds them.
 
 The JAX package searches all E questions in one ``index.search`` call; on
 the card that call materialises an [E, N] f32 score matrix and the stable
@@ -20,6 +25,7 @@ summation order follows its shape).
 
 from __future__ import annotations
 
+import functools
 from dataclasses import replace
 
 import numpy as np
@@ -28,9 +34,10 @@ import torch
 from raglite_tpu_torch.config import RAGLiteConfig
 from raglite_tpu_torch.embed import embed_queries
 from raglite_tpu_torch.index.dense import DenseIndex, dense_index_from_config
-from raglite_tpu_torch.ops.nnls import batched_query_targets
+from raglite_tpu_torch.ops.nnls import NNLS_ITERS, query_targets_from_rows
 from raglite_tpu_torch.store import store_from_config
 from raglite_tpu_torch.types import FloatMatrix
+from raglite_tpu_torch.utils.graphs import shared_programs
 
 __all__ = ["update_query_adapter", "procrustes_adapter", "search_blocked"]
 
@@ -90,6 +97,15 @@ def search_blocked(
         for start in range(0, queries.shape[0], block)
     ]
     return np.concatenate([p[0] for p in parts]), np.concatenate([p[1] for p in parts])
+
+
+def _nnls_targets(device, qs, pos, neg, *, alpha: float) -> torch.Tensor:
+    """One batch's NNLS targets [B, d] on ``device``
+    (``query_targets_from_rows``: zero rows are padding), from its key's
+    CUDA graph on the card, eagerly on the CPU."""
+    key = ("nnls", pos.shape[0], pos.shape[1], neg.shape[1], pos.shape[2], alpha, NNLS_ITERS)
+    program = functools.partial(query_targets_from_rows, alpha=alpha, iters=NNLS_ITERS)
+    return shared_programs(device)(key, program, qs, pos, neg)
 
 
 def update_query_adapter(
@@ -177,13 +193,8 @@ def update_query_adapter(
     T_rows: list[np.ndarray] = []
     for start in range(0, len(Q_rows), _EVAL_BATCH):
         sl = slice(start, start + _EVAL_BATCH)
-        qb, pb, nb = (
-            torch.from_numpy(np.stack(rows[sl])).to(index.device) for rows in (Q_rows, pos_batch, neg_batch)
-        )
-        pm = (pb != 0.0).any(dim=-1)
-        nm = (nb != 0.0).any(dim=-1)
-        targets = batched_query_targets(qb, pb, nb, pm, nm, alpha=optimize_gap)
-        T_rows.append(targets.cpu().numpy())
+        qb, pb, nb = (np.stack(rows[sl]) for rows in (Q_rows, pos_batch, neg_batch))
+        T_rows.append(_nnls_targets(index.device, qb, pb, nb, alpha=optimize_gap).cpu().numpy())
     Q = np.stack(Q_rows)
     T = np.concatenate(T_rows, axis=0)
 

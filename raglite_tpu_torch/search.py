@@ -22,6 +22,7 @@ their queries one by one.
 
 from __future__ import annotations
 
+import functools
 from collections import defaultdict
 from dataclasses import replace
 from itertools import groupby
@@ -35,8 +36,10 @@ from raglite_tpu_torch.embed import embed_queries, embed_strings
 from raglite_tpu_torch.index.dense import dense_index_from_config, fetch_scored
 from raglite_tpu_torch.index.keyword import RESIDENT_BLOCK, keyword_index_from_config
 from raglite_tpu_torch.ops.maxsim import maxsim_rank
+from raglite_tpu_torch.ops.rrf import rrf_fuse_topk
 from raglite_tpu_torch.store import store_from_config
 from raglite_tpu_torch.types import BasicSearchMethod, ChunkId, FloatVector, MetadataFilter
+from raglite_tpu_torch.utils.graphs import shared_programs
 from raglite_tpu_torch.utils.lang import detect_language
 from raglite_tpu_torch.utils.trace import phase
 
@@ -283,7 +286,10 @@ def _hybrid_fused_batch(  # noqa: PLR0913
     (``KeywordIndex.resident_block_device``) and weighted RRF
     (``rrf_fuse_topk``) chained on the device, with ONE host fetch per block
     of up to RESIDENT_BLOCK queries (the reference fuses on the host with a
-    Python dict loop, raglite/_search.py:233-280).
+    Python dict loop, raglite/_search.py:233-280).  On one card each of the
+    three programs replays from a CUDA graph: the indexes' own, and RRF's
+    from the device's shared ProgramGraphs, keyed ``("rrf", B, K1, K2,
+    num_results, w_dense, w_kw, num_chunks)`` (it closes over no array).
 
     Returns None when the fused path cannot serve the batch (resident
     postings disabled, a query over RESIDENT_MAX_TERMS unique terms): the
@@ -292,8 +298,6 @@ def _hybrid_fused_batch(  # noqa: PLR0913
     rank/tie parity argument).  Sets the keyword index's ``last_route`` to
     "hybrid_fused" when it serves.
     """
-    from raglite_tpu_torch.ops.rrf import rrf_fuse_topk
-
     store = store_from_config(config)
     dense = dense_index_from_config(config)
     kw = keyword_index_from_config(config)
@@ -309,52 +313,85 @@ def _hybrid_fused_batch(  # noqa: PLR0913
     term_ids = kw.resident_prepare(queries)
     if term_ids is None:
         return None
+    generation = kw.generation
     embeddings = embed_queries(queries, config=config).astype(np.float32)
     adapter = (
         store.index_metadata.get("query_adapter")
         if config.vector_search_query_adapter
         else None
     )
-    cmask = None
-    if metadata_filter:
-        cmask = _chunk_mask(store, metadata_filter)
-        if not cmask.any():
-            return [([], []) for _ in queries]
-    kw_mask, masked = kw.resident_device_mask(cmask)
-    row_mask = cmask[dense.row_chunk] if cmask is not None else None
     # Per-side candidate depth and the dense sub-vector oversample match the
     # host path (hybrid_search -> vector_search with its default oversample).
     k_each = oversample * num_results
     num_hits = corrected_num_hits(4, k_each, config)
+    fused_blocks = []
+    # Both indexes at one store version from their sync until every program
+    # is enqueued: the keyword index's lock, then the dense index's (no path
+    # takes them in the other order); the calls below re-enter them.  A
+    # search racing an insert thus reads the store before it or after it.
+    with kw._sync_lock, dense._sync_lock:
+        kw.sync(store)
+        dense.sync(store)
+        n = len(kw.chunk_ids)
+        if len(dense.chunk_ids) != n:
+            return None
+        if kw.generation != generation:  # the term ids are another generation's
+            term_ids = kw.resident_prepare(queries)
+            if term_ids is None:
+                return None
+        cmask = None
+        if metadata_filter:
+            cmask = _chunk_mask(store, metadata_filter)
+            if not cmask.any():
+                return [([], []) for _ in queries]
+        kw_mask, masked = kw.resident_device_mask(cmask)
+        row_mask = cmask[dense.row_chunk] if cmask is not None else None
+        chunk_ids = kw.chunk_ids  # appends keep its first n; a rebuild makes a new list
+        for start in range(0, len(queries), RESIDENT_BLOCK):
+            stop = start + RESIDENT_BLOCK
+            dense_side = dense.search_chunks_device(
+                embeddings[start:stop],
+                num_hits=min(num_hits, dense.num_rows),
+                num_results=min(k_each, n),
+                row_mask=row_mask,
+                adapter=adapter,
+            )
+            kw_side = kw.resident_block_device(
+                term_ids[start:stop], num_hits=min(k_each, n), mask=kw_mask, masked=masked
+            )
+            fused_blocks.append(fuse_device(
+                dense_side, kw_side, num_chunks=n, num_results=num_results,
+                w_dense=vector_search_weight, w_kw=keyword_search_weight,
+            ))
+        kw.last_route = "hybrid_fused"
     results: list[tuple[list[ChunkId], list[float]]] = []
-    for start in range(0, len(queries), RESIDENT_BLOCK):
-        stop = start + RESIDENT_BLOCK
-        dense_side = dense.search_chunks_device(
-            embeddings[start:stop],
-            num_hits=min(num_hits, dense.num_rows),
-            num_results=min(k_each, n),
-            row_mask=row_mask,
-            adapter=adapter,
-        )
-        kw_side = kw.resident_block_device(
-            term_ids[start:stop], num_hits=min(k_each, n), mask=kw_mask, masked=masked
-        )
-        fused = rrf_fuse_topk(
-            dense_side,
-            kw_side,
-            num_chunks=n,
-            num_results=num_results,
-            w_dense=vector_search_weight,
-            w_kw=keyword_search_weight,
-        )
+    for fused in fused_blocks:
         scores_b, ords_b = fetch_scored(*fused)  # ONE fetch for the whole block
         for scores, ords in zip(scores_b, ords_b):
             # ops/rrf.py pins empty/out-of-range slots to -1; the upper bound
             # here keeps a regression a short list, not a host IndexError.
             keep = (ords >= 0) & (ords < n)
-            results.append(([kw.chunk_ids[int(o)] for o in ords[keep]], [float(s) for s in scores[keep]]))
-    kw.last_route = "hybrid_fused"
+            results.append(([chunk_ids[int(o)] for o in ords[keep]], [float(s) for s in scores[keep]]))
     return results
+
+
+def _rrf_program(d_scores, d_ords, k_scores, k_ords, **kw):
+    """Device RRF as a program of four device tensors, the two sides'
+    outputs: its graph's inputs, copied device to device."""
+    return rrf_fuse_topk((d_scores, d_ords), (k_scores, k_ords), **kw)
+
+
+def fuse_device(
+    dense_side: tuple, kw_side: tuple, *, num_chunks: int, num_results: int, w_dense: float = 0.75, w_kw: float = 0.25
+) -> tuple:
+    """``rrf_fuse_topk`` of the two sides' device outputs, from the device's
+    shared ProgramGraphs (a CUDA graph on the card): (scores [B, R],
+    ordinals [B, R]) left on the device."""
+    key = ("rrf", *dense_side[1].shape, kw_side[1].shape[1], num_results, w_dense, w_kw, num_chunks)
+    program = functools.partial(
+        _rrf_program, num_chunks=num_chunks, num_results=num_results, w_dense=w_dense, w_kw=w_kw
+    )
+    return shared_programs(dense_side[0].device)(key, program, *dense_side, *kw_side)
 
 
 def hybrid_search(  # noqa: PLR0913

@@ -63,7 +63,7 @@ from raglite_tpu_torch.ops import cuda_build
 
 __all__ = [
     "MAX_STREAMS", "PROGRAM_KEYS", "ProgramGraphs", "Stacked", "StepGraph", "captures", "eager_programs",
-    "generation_stream", "on_stream",
+    "generation_stream", "on_stream", "shared_programs",
 ]
 
 #: Generations that may hold a stream at once on one device (PyTorch hands
@@ -438,3 +438,19 @@ class ProgramGraphs:
             graph.capture_end()
         capture_ms = (time.perf_counter() - t0) * 1e3
         return graph, outputs, recorded, capture_ms, torch.cuda.memory_reserved(self.device) - reserved
+
+
+_shared: dict[str, ProgramGraphs] = {}
+
+
+def shared_programs(device: torch.device | str) -> ProgramGraphs:
+    """The :class:`ProgramGraphs` of ``device``'s ownerless programs: one a
+    card however the device is spelt, one for the CPU (eager)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _setup_lock:
+        programs = _shared.get(str(device))
+        if programs is None:
+            programs = _shared[str(device)] = ProgramGraphs(device)
+        return programs
