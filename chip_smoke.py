@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
 query-adapter, checkpoint, ingestion-to-surface, multi-GPU, IR-benchmark,
-CUDA-graph decode and CUDA-graph retrieval paths once on one NVIDIA GPU.
+CUDA-graph decode, CUDA-graph retrieval and training paths once on one
+NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15|phase16]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15|phase16|phase17]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -210,7 +211,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    exact route equal to one scan of the whole matrix; each rank has its own
    time limit.
 13. The IR benchmark (after phase 11; a temporary directory of its own):
-   (a) run_ir_benchmark on the synthetic dataset (64 documents and
+   (a) run_ir_benchmark on the synthetic dataset (16 documents and
    queries), all seven variants one by one, on the default config on the
    card and again on the CPU (fresh run caches): keyword's AP@10 equal,
    every other within PHASE13_AP_ATOL, the hnsw row present; each
@@ -293,6 +294,34 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    or after it; (g) the hash:1024 encode, the chunklet rerank, the boundary
    model's ms per 100,000 characters and the NNLS from their graphs and
    eager.
+17. Training on the card (after phase 13; a temporary directory of its
+   own; no kernel of the kernels line lies on this path): (a) the boundary
+   trainer's whole recipe (``python -m raglite_tpu_torch.train.boundary``'s
+   ``main``: 800 synthetic documents at seed 1000, 40 epochs of Adam at
+   batch 1,024), its held-out F1 on the 60 documents at seed 2000 beside
+   the packaged model's and the heuristic's (>= 0.99 asserted), steps a
+   second, and the saved file reloaded through ``BoundaryModel.load`` to
+   the same probabilities; (b) the encoder trainer at the packaged
+   encoder's full width (``base``: 8 layers, d 768, vocab 16,384; SEQ 128,
+   QSEQ 64) through ``raglite_tpu_torch.train.corpus``'s and
+   ``train.encoder``'s ``main``: a corpus of PHASE17_CORPUS_MB MB from this
+   machine's site-packages and its token cache, PHASE17_MLM_STEPS MLM steps
+   at batch 256 from the seeded init (the mean loss of the last 20 below
+   the first 20's, asserted), then PHASE17_STEPS steps each of contrastive
+   (batch 512), hard-negative (256, mining over the corpus) and MaxSim
+   (64) from the packaged encoder placed as ``mlm.npz``; for each phase
+   the loss at start and end, steps and tokens a second, model TFLOP/s
+   from the shapes over the card's 989, peak memory and the host's shares
+   of the steady steps' time (making batches; enqueueing the steps); the
+   export, whose
+   ``flax:<dir>`` embeddings of 8 sentences equal the f16-rounded weights
+   built in memory within PHASE17_EXPORT_ATOL, and a 2-document store
+   embedded with it answering 8 vector_search calls; (c) the card against
+   the CPU on the same batches at batch 8: 3 MLM steps from the seeded init
+   and 3 contrastive steps from the packaged encoder, every loss within
+   PHASE17_LOSS_RTOL and the first step's gradients within PHASE17_GRAD_COS
+   (flattened and each leaf), and controls that must fail those limits
+   (a lost update, another step's gradient).
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
@@ -301,8 +330,8 @@ phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``;
 ``--only phase14`` runs phase 3's store at ``--rows``, loads `large` and
 runs phase 14 on phase 6's RAG prompt; ``--only phase15`` runs phase 3's
 store at ``--rows`` and phase 15; ``--only phase16`` runs phase 3's store
-at ``--rows``, phase 4b over it and phase 16 (none of them prints a result
-line).
+at ``--rows``, phase 4b over it and phase 16; ``--only phase17`` runs
+phase 17 alone (none of them prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2454,7 +2483,7 @@ def _f32_logits(llm, ids):
     matmuls (TF32 off) and each attention op's plain version."""
     import torch
 
-    from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+    from raglite_tpu_torch.utils.precision import full_f32_matmul
 
     def f32(x):
         return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
@@ -2913,7 +2942,7 @@ def phase10_fixture(card: str) -> dict:
     from raglite_tpu_torch.models.checkpoint import load_checkpoint
     from raglite_tpu_torch.models.decoder import DecoderModel, params_from_jax
     from raglite_tpu_torch.models.ocdbt import OcdbtReader
-    from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+    from raglite_tpu_torch.utils.precision import full_f32_matmul
 
     on_card, cfg = load_checkpoint(ORBAX_FIXTURE, device="cuda")
     on_cpu, _ = load_checkpoint(ORBAX_FIXTURE, device="cpu")
@@ -4674,10 +4703,14 @@ BGE_BASE_CONFIG = {
 BERT_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
 #: Phase 13: the IR benchmark's queries (and the synthetic corpus's documents).
 PHASE13_QUERIES = 64
+#: Phase 13 (a): the synthetic benchmark's queries (and documents) on each
+#: device; 16, since its CPU half took 191-246 s at 64 and 105-164 s at 32,
+#: the run's longest host-bound part.
+PHASE13_SYNTHETIC_QUERIES = 16
 #: Phase 13 (a): the dense variants' AP@10 on the card against the CPU's.
 #: The two encoders round differently (bf16 on the card, f32 on the CPU), so
-#: near-tied chunks may trade ranks (ROADMAP queue 3): 0.05 is one query in
-#: 64 losing its document from the top 10, or a few dropping a rank or two.
+#: near-tied chunks may trade ranks (ROADMAP queue 3): 0.05 lets one query
+#: in 16 drop its document one rank (0.031), not out of the top 10 (0.0625).
 #: Keyword (BM25, no encoder) must be equal.
 PHASE13_AP_ATOL = 0.05
 #: Phase 13 (c): the HNSW comparison's rows and width (the graph is built in
@@ -4796,11 +4829,13 @@ def phase13_synthetic(root: Path, card: str) -> dict:
         with _bench_cache(root / f"a-{device}-cache"):
             for variant in VARIANTS:
                 t0 = time.perf_counter()
-                table = run_ir_benchmark(dataset="synthetic", num_queries=PHASE13_QUERIES, variants=(variant,), config=cfg)
+                table = run_ir_benchmark(
+                    dataset="synthetic", num_queries=PHASE13_SYNTHETIC_QUERIES, variants=(variant,), config=cfg
+                )
                 assert len(table) == 1, (variant, table)  # the hnsw row too: the card's machine has g++
                 rows[variant] = {"AP@10": _ap(table, variant), "s": time.perf_counter() - t0}
         out[device] = rows
-        log(f"phase 13 (a) run_ir_benchmark(synthetic, {PHASE13_QUERIES} queries) on {device}: "
+        log(f"phase 13 (a) run_ir_benchmark(synthetic, {PHASE13_SYNTHETIC_QUERIES} queries) on {device}: "
             + ", ".join(f"{v} AP@10 {r['AP@10']:.4f} in {r['s']:.2f} s" for v, r in rows.items()) + f" ({card})")
     cuda, cpu = out["cuda"], out["cpu"]
     assert cuda["keyword"]["AP@10"] == cpu["keyword"]["AP@10"], (cuda["keyword"], cpu["keyword"])
@@ -6091,6 +6126,311 @@ def phase16(cfg, texts: list[str], queries: list[str], seed: int, card: str, tot
     return out
 
 
+#: Phase 17 (b): MB of text harvested from this machine's site-packages.
+PHASE17_CORPUS_MB = 3.0
+#: Phase 17 (b): steps of MLM from the seeded init, and of each later phase.
+PHASE17_MLM_STEPS = 200
+PHASE17_STEPS = 50
+#: Phase 17 (b): the exported encoder's embeddings against the same
+#: f16-rounded weights built in memory: the same bf16 values through the same
+#: programs, so equal but for a summation order cuBLAS might change between
+#: two objects' graphs.
+PHASE17_EXPORT_ATOL = 1e-6
+#: Phase 17 (c): the card against the CPU from the same start on the same
+#: batches.  The card's GEMMs are bf16 x bf16 -> f32 on tensor cores, the
+#: CPU's f32 GEMMs of the same bf16 values: each sum differs in order only,
+#: but the residual stream is rounded to bf16 after every sublayer, where a
+#: value on a rounding boundary lands on either side (a relative 2^-8), and
+#: the backward's f32 cotangent enters the tensor cores in bf16 (2^-9 an
+#: element, in no common direction).  The losses, per phase: MLM within
+#: 1e-3 relative, 6.6x the largest difference read (1.52e-4).  Contrastive
+#: within 3e-2: its loss is small (0.06-0.54 at batch 8 from the packaged
+#: encoder) and its logits are cosines over temperature 0.05, so a cosine
+#: 1e-4 apart moves the loss by up to 4e-3; and Adam's first update moves
+#: every parameter by about the learning rate in its gradient's sign, so a
+#: gradient element that is rounding noise moves one way on the card and
+#: the other on the CPU.  The reading was 1.07e-3 at the first step (the
+#: same weights) and 1.17e-2 after an update; a lost update moved the loss
+#: 0.127 (the control), four times the limit.  The first step's gradients:
+#: the flattened cosine at least 0.999 (the CPU tests' bf16 bound against
+#: the JAX script), and each leaf's cosine too, for every leaf whose norm is
+#: at least 1e-3 of the largest leaf's (the key biases' gradients, which
+#: the softmax cancels, are rounding noise with no direction).  Controls,
+#: which must fail these limits: each later batch's loss at the starting
+#: weights (a step whose update was lost) against the CPU's loss after the
+#: update, and the card's second gradient against the CPU's first.
+PHASE17_LOSS_RTOL = {"mlm": 1e-3, "contrastive": 3e-2}
+PHASE17_GRAD_COS = 0.999
+PHASE17_LEAF_FLOOR = 1e-3
+#: Phase 17 (c): the batch and the steps a side.
+PHASE17_PARITY_BATCH, PHASE17_PARITY_STEPS = 8, 3
+
+
+def _phase17_report(stats: dict, card: str) -> dict:
+    keys = ("steps", "first_step_s", "steps_per_s", "tokens_per_s", "tflops", "peak_gb", "host_share",
+            "enqueue_share", "loss_first", "loss_last", "loss_first20", "loss_last20", "mine_s", "mined_docs", "dense_mean", "tok_mean")
+    out = {k: stats[k] for k in keys if k in stats}
+    out["mfu"] = stats["tflops"] * 1e12 / PEAK_BF16_FLOPS
+    log(f"phase 17 (b) {stats['phase']}: {stats['steps']} steps, loss {stats['loss_first']:.4f} -> "
+        f"{stats['loss_last']:.4f}, {stats['steps_per_s']:.3f} steps/s, {stats['tokens_per_s']:.0f} tokens/s, "
+        f"{stats['tflops']:.1f} model TFLOP/s ({100 * out['mfu']:.1f} % of 989), peak {stats['peak_gb']:.2f} GB, "
+        f"host share {stats['host_share']:.4f} making batches, {stats['enqueue_share']:.4f} enqueueing the steps "
+        f"({1e3 * stats['enqueue_share'] / stats['steps_per_s']:.1f} ms a step; first step {stats['first_step_s']:.2f} s) "
+        f"on {card}")
+    assert all(math.isfinite(x) for x in stats["losses"]), stats["phase"]
+    return out
+
+
+def phase17_boundary(root: Path, card: str) -> dict:
+    """Phase 17 (a): the boundary trainer's whole recipe on the card."""
+    import numpy as np
+
+    from raglite_tpu_torch.models.boundary import BoundaryModel
+    from raglite_tpu_torch.models.boundary_data import make_corpus
+    from raglite_tpu_torch.sentences import heuristic_sentence_boundaries
+    from raglite_tpu_torch.train import boundary as tb
+
+    path = root / "boundary.npz"
+    model, stats = tb.main(["--out", str(path)])
+    assert stats["device"] == "cuda", stats["device"]
+    packaged = tb.held_out_f1(BoundaryModel.load(device="cuda"))
+    heuristic = tb.held_out_f1(heuristic_sentence_boundaries)
+    back = BoundaryModel.load(path, device="cuda")
+    docs = [doc for doc, _ in make_corpus(num_documents=tb.NUM_EVAL_DOCS, seed=tb.EVAL_SEED)]
+    same = all(np.array_equal(back(doc), model(doc)) for doc in docs)
+    log(f"phase 17 (a) boundary trainer: {stats['examples']} examples ({stats['positives']} positives) from "
+        f"{stats['docs']} documents in {stats['data_s']:.2f} s; {stats['steps']} steps in {stats['s']:.2f} s "
+        f"({stats['steps_per_s']:.1f} steps/s); held-out F1 {stats['f1_learned']:.4f} (packaged {packaged:.4f}, "
+        f"heuristic {heuristic:.4f}); reloaded probabilities equal: {same}; losses by epoch "
+        f"{ {k: round(v, 5) for k, v in stats['loss_by_epoch'].items()} } on {card}")
+    assert stats["f1_learned"] >= 0.99, stats["f1_learned"]
+    assert same
+    return {k: stats[k] for k in ("examples", "steps", "s", "steps_per_s", "f1_learned")} | {
+        "f1_packaged": packaged, "f1_heuristic": heuristic}
+
+
+def phase17_encoder(root: Path, card: str, total: dict[str, int]) -> dict:
+    """Phase 17 (b): the encoder trainer at the packaged encoder's full
+    width through its command line's entry point (``main(argv)``): a corpus
+    from this machine's site-packages, MLM from the seeded init, then
+    contrastive, hard-negative and MaxSim from the packaged weights, the
+    export, and the export served."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch import Document, RAGLiteConfig, insert_documents, vector_search
+    from raglite_tpu_torch.models.encoder import PACKAGED_ENCODER_DIR, TransformerEncoder, encoder_from_config
+    from raglite_tpu_torch.models.tokenizer import load_tokenizer
+    from raglite_tpu_torch.models.transformer import EncoderModel, load_npz_encoder
+    from raglite_tpu_torch.train import corpus
+    from raglite_tpu_torch.train import encoder as te
+
+    work, out = root / "work", root / "export"
+    t0 = time.perf_counter()
+    summary = corpus.main(["--out", str(root / "corpus"), "--max-mb", str(PHASE17_CORPUS_MB)])
+    harvest_s = time.perf_counter() - t0
+    tokens = te.main(["--phase", "tokens", "--workdir", str(work), "--corpus", str(root / "corpus")])["tokens"]
+    log(f"phase 17 (b) corpus: {summary['train_docs']} train documents ({summary['train_mb']} MB), "
+        f"{summary['heldout_docs']} held out, harvested in {harvest_s:.1f} s; {tokens['tokens']} tokens in "
+        f"{tokens['docs']} documents, tokenized in {tokens['s']:.1f} s, on {card}")
+    args = ["--workdir", str(work), "--device", "cuda"]
+    phases = {"mlm": te.main(["--phase", "mlm", "--steps", str(PHASE17_MLM_STEPS), *args])["mlm"]}
+    # The later phases start from real weights: the packaged encoder as mlm.npz.
+    shutil.copyfile(PACKAGED_ENCODER_DIR / "encoder.npz", work / "mlm.npz")
+    for name in ("contrastive", "hardneg", "maxsim"):
+        phases[name] = te.main(["--phase", name, "--steps", str(PHASE17_STEPS), *args])[name]
+    t0 = time.perf_counter()
+    te.main(["--phase", "export", "--out", str(out), *args])
+    export_s = time.perf_counter() - t0
+    report = {name: _phase17_report(stats, card) for name, stats in phases.items()}
+    mlm = phases["mlm"]
+    assert mlm["loss_last20"] < mlm["loss_first20"], (mlm["loss_first20"], mlm["loss_last20"])
+
+    # The export served: flax:<dir> against the same f16-rounded weights in
+    # memory, then a store embedded with it.
+    texts = pick_queries([(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS[:2]], 8, 17)
+    served = encoder_from_config(RAGLiteConfig(embedder=f"flax:{out}", device="cuda"))
+    cfg, params, _ = load_npz_encoder(str(work / "maxsim.npz"))
+
+    def f16(a):  # the export's rounding: matrices to f16, vectors kept
+        return a.astype(np.float16) if a.ndim >= 2 else a
+
+    params = {k: [{n: f16(a) for n, a in layer.items()} for layer in v] if k == "layers" else f16(v) for k, v in params.items()}
+    memory = TransformerEncoder.from_model(
+        EncoderModel.from_params(cfg, params, dtype=torch.bfloat16, device="cuda"), load_tokenizer(str(out / "tokenizer.json"))
+    )
+    got, want = served.embed(texts), memory.embed(texts)
+    export_err = float(np.abs(got - want).max())
+    store_cfg = RAGLiteConfig(store_path=str(root / "store"), embedder=f"flax:{out}", device="cuda")
+
+    def serve_export():
+        insert_documents([Document.from_text((ROOT / f).read_text(encoding="utf-8")) for f in STORE_DOCS[:2]], config=store_cfg)
+        return [vector_search(q, num_results=5, config=store_cfg) for q in texts]
+
+    t0 = time.perf_counter()
+    results = _counted(total, serve_export)
+    serve_s = time.perf_counter() - t0
+    log(f"phase 17 (b) export: {(out / 'encoder.npz').stat().st_size / 1e6:.1f} MB in {export_s:.1f} s; flax:<dir> "
+        f"embeddings of {len(texts)} texts against the f16-rounded weights in memory: max |diff| {export_err:.3g} "
+        f"(limit {PHASE17_EXPORT_ATOL}); a 2-document store embedded with it and {len(texts)} vector_search calls in "
+        f"{serve_s:.1f} s, {sum(len(ids) for ids, _ in results)} hits, on {card}")
+    assert got.shape == (len(texts), 768) and np.isfinite(got).all()
+    assert export_err <= PHASE17_EXPORT_ATOL, export_err
+    assert all(len(ids) == 5 and np.isfinite(scores).all() for ids, scores in results), results
+    return {"corpus": {**summary, "tokens": tokens["tokens"]}, "phases": report, "export_max_abs_diff": export_err}
+
+
+def phase17_profile(work: Path, card: str) -> None:
+    """``--profile``: two warm steps of each encoder phase at phase 17 (b)'s
+    batch sizes from its workdir's files, in a torch.profiler window each
+    (the device's busy time by kernel and its idle share)."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.train import encoder as te
+    from raglite_tpu_torch.train import optim
+
+    cfg, device = te.SIZES["base"], torch.device("cuda")
+    flat, offsets = te.load_tokens(work / "tokens.npz")
+    ok = np.flatnonzero(np.diff(offsets) >= 48)
+    neighbors = ok[np.random.default_rng(17).integers(0, ok.size, (ok.size, 8))]
+    cases = {
+        "mlm": ("mlm.npz", te.mlm_loss, te.MLMBatches(flat, offsets, 256, te.SEQ, cfg["vocab"])),
+        "contrastive": ("mlm.npz", te.contrastive_loss, te.CropBatches(flat, offsets, 512, te.SEQ, te.QSEQ)),
+        "hardneg": ("contrastive.npz", te.hardneg_loss,
+                    te.NegativeBatches(flat, offsets, ok, neighbors, 256, te.SEQ, te.QSEQ, seed=2)),
+        "maxsim": ("hardneg.npz", te.maxsim_loss,
+                   te.NegativeBatches(flat, offsets, ok, neighbors, 64, te.SEQ, te.QSEQ, seed=3)),
+    }
+    for name, (start, loss_fn, make_batch) in cases.items():
+        net = te.Trainable(cfg, te.load_params(work / start)[1], device, torch.bfloat16)
+        opt = optim.adamw(net.leaves, lambda count: 1e-5, b1=0.9, b2=0.98, eps=1e-6, weight_decay=0.01, clip=1.0)
+        batches = [[te._to_device(a, device) for a in make_batch()] for _ in range(3)]
+        te.train_step(net, opt, loss_fn, batches[0])
+        _profile_window(lambda: [te.train_step(net, opt, loss_fn, b) for b in batches[1:]],
+                        f"phase 17 {name}, 2 steps", card, top=16)
+        del net, opt, batches
+        torch.cuda.empty_cache()
+
+
+class _KeepGrads:
+    """An optimizer that keeps a host copy of its first two steps' gradients
+    (as the loss gave them, before the clip), then updates."""
+
+    def __init__(self, opt) -> None:
+        self.opt, self.grads = opt, []
+
+    def step(self, grads) -> None:
+        if len(self.grads) < 2:
+            self.grads.append([g.detach().to("cpu", copy=True) for g in grads])
+        self.opt.step(grads)
+
+
+def _phase17_steps(device: str, state: dict, loss_fn, batches: list, lr: float) -> dict:
+    """``train_step`` over ``batches`` at the base size from ``state`` (Adam
+    as the trainer sets it, at a constant ``lr``): each step's loss and the
+    first two steps' gradients; on the card also each batch's loss at the
+    starting weights (the control)."""
+    import torch
+
+    from raglite_tpu_torch.train import encoder as te
+    from raglite_tpu_torch.train import optim
+    from raglite_tpu_torch.utils.precision import full_f32_matmul
+
+    dev = torch.device(device)
+    net = te.Trainable(te.SIZES["base"], state, dev, torch.bfloat16)
+    on = [[te._to_device(a, dev) for a in batch] for batch in batches]
+    frozen = None
+    if device == "cuda":
+        with torch.no_grad(), full_f32_matmul():
+            p = net.cast()
+            frozen = [float(loss_fn(net, p, *batch)) for batch in on]
+    opt = _KeepGrads(optim.adamw(net.leaves, lambda count: lr, b1=0.9, b2=0.98, eps=1e-6, weight_decay=0.01, clip=1.0))
+    losses = [float(te.train_step(net, opt, loss_fn, batch).detach()) for batch in on]
+    return {"losses": losses, "frozen": frozen, "grads": opt.grads, "names": list(net.masters)}
+
+
+def _grad_agreement(got: list, want: list, names: list[str]) -> tuple[float, float, str]:
+    """The flattened cosine of two gradients, and the smallest leaf cosine
+    (with its leaf) over the leaves of norm at least PHASE17_LEAF_FLOOR of
+    ``want``'s largest."""
+    dot = sum(float((a.double() * b.double()).sum()) for a, b in zip(got, want, strict=True))
+    norms = [(float(a.double().norm()), float(b.double().norm())) for a, b in zip(got, want, strict=True)]
+    flat = dot / math.sqrt(sum(x * x for x, _ in norms) * sum(y * y for _, y in norms))
+    top = max(y for _, y in norms)
+    worst, leaf = 1.0, ""
+    for name, a, b, (na, nb) in zip(names, got, want, norms, strict=True):
+        if nb >= PHASE17_LEAF_FLOOR * top:
+            cos = float((a.double() * b.double()).sum()) / (na * nb) if na else 0.0
+            worst, leaf = min((worst, leaf), (cos, name))
+    return flat, worst, leaf
+
+
+def phase17_parity(root: Path, card: str) -> dict:
+    """Phase 17 (c): the card against the CPU at full width, batch 8, on
+    the same batches: 3 MLM steps from the seeded init and 3 contrastive
+    steps from the packaged encoder (real weights: embeddings that differ),
+    each phase's losses, its first step's gradients, and the controls."""
+    from raglite_tpu_torch.models.encoder import PACKAGED_ENCODER_DIR
+    from raglite_tpu_torch.train import encoder as te
+
+    cfg = te.SIZES["base"]
+    flat, offsets = te.load_tokens(root / "work" / "tokens.npz")
+    mlm_batches = te.MLMBatches(flat, offsets, PHASE17_PARITY_BATCH, te.SEQ, cfg["vocab"])
+    crop_batches = te.CropBatches(flat, offsets, PHASE17_PARITY_BATCH, te.SEQ, te.QSEQ)
+    cases = {  # the start, the loss, the batches, the trainer's peak learning rate
+        "mlm": (te.init_params(cfg), te.mlm_loss, [mlm_batches() for _ in range(PHASE17_PARITY_STEPS)], 4e-4),
+        "contrastive": (te.load_params(PACKAGED_ENCODER_DIR / "encoder.npz")[1], te.contrastive_loss,
+                        [crop_batches() for _ in range(PHASE17_PARITY_STEPS)], 1e-4),
+    }
+    out, failed = {}, []
+    for name, (state, loss_fn, batches, lr) in cases.items():
+        seconds = {}
+        sides = {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sides[device] = _phase17_steps(device, state, loss_fn, batches, lr)
+            seconds[device] = time.perf_counter() - t0
+        card_side, cpu = sides["cuda"], sides["cpu"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_side["losses"], cpu["losses"], strict=True))
+        control_rel = min(abs(a - b) / abs(b) for a, b in zip(card_side["frozen"][1:], cpu["losses"][1:], strict=True))
+        flat_cos, leaf_cos, leaf = _grad_agreement(card_side["grads"][0], cpu["grads"][0], cpu["names"])
+        control_cos = _grad_agreement(card_side["grads"][1], cpu["grads"][0], cpu["names"])[0]
+        log(f"phase 17 (c) {name} card against CPU (batch {PHASE17_PARITY_BATCH}, {PHASE17_PARITY_STEPS} steps, "
+            f"lr {lr}): losses {card_side['losses']} vs {cpu['losses']}, largest relative difference {rel:.3g} "
+            f"(limit {PHASE17_LOSS_RTOL[name]}; control, the later batches at the starting weights: {control_rel:.3g}, "
+            f"must exceed it); first step's gradients: flattened cosine {flat_cos:.6f}, smallest leaf cosine "
+            f"{leaf_cos:.6f} ({leaf}; limit {PHASE17_GRAD_COS}; control, the card's second step against the CPU's "
+            f"first: {control_cos:.6f}, must fall below it); card {seconds['cuda']:.1f} s, CPU {seconds['cpu']:.1f} s, "
+            f"on {card}")
+        checks = {"loss": rel <= PHASE17_LOSS_RTOL[name], "loss control": control_rel > PHASE17_LOSS_RTOL[name],
+                  "gradient": min(flat_cos, leaf_cos) >= PHASE17_GRAD_COS, "gradient control": control_cos < PHASE17_GRAD_COS}
+        failed += [f"{name} {check}" for check, ok in checks.items() if not ok]
+        out[name] = {"losses_cuda": card_side["losses"], "losses_cpu": cpu["losses"], "worst_rel": rel,
+                     "control_rel": control_rel, "grad_cos": flat_cos, "leaf_cos": leaf_cos, "leaf": leaf,
+                     "control_cos": control_cos, "s_cuda": seconds["cuda"], "s_cpu": seconds["cpu"]}
+    assert not failed, failed
+    return out
+
+
+def phase17(card: str, total: dict[str, int], *, profile: bool = False) -> dict:
+    """Phase 17: (a)-(c) in a temporary directory (deleted at the end)."""
+    import shutil
+
+    root = scratch_dir(4_000_000_000, "phase17_")
+    try:
+        out = {"boundary": phase17_boundary(root, card)}
+        out["encoder"] = phase17_encoder(root, card, total)
+        if profile:
+            phase17_profile(root / "work", card)
+        out["parity"] = phase17_parity(root, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6098,11 +6438,12 @@ def main() -> int:
     parser.add_argument(
         "--profile", action="store_true",
         help="also trace 8 warm vector_search calls of each route, 8 hybrid_search calls, the large preset's "
-        "prefill, one decode chunk and 36 decode, verify and prefill attention calls with "
-        "torch.profiler, and print the phases inside one decode, one verify and one prefill launch",
+        "prefill, one decode chunk and 36 decode, verify and prefill attention calls and two steps of each of "
+        "phase 17's encoder phases with torch.profiler, and print the phases inside one decode, one verify and "
+        "one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15", "phase16"],
+        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15", "phase16", "phase17"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
@@ -6111,7 +6452,8 @@ def main() -> int:
         "runs phase 13 alone at --rows rows; 'phase14' builds every kernel, serves phase 3's store at --rows rows, "
         "loads the large preset and runs phase 14 on phase 6's RAG prompt; 'phase15' builds every kernel, serves phase 3's "
         "store at --rows rows and runs phase 15 over it; 'phase16' builds every kernel, serves phase 3's store at --rows "
-        "rows, runs phase 4b's keyword and hybrid checks over it and then phase 16",
+        "rows, runs phase 4b's keyword and hybrid checks over it and then phase 16; 'phase17' builds every kernel and "
+        "runs phase 17 alone (the trainers)",
     )
     # One rank of phase 12 (d), started by phase 12 itself.
     parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
@@ -6248,6 +6590,13 @@ def main() -> int:
         summary16 = phase16(cfg, texts, queries[:8], args.seed, card, launches16)
         log(f"phase 16 summary on {card}: {json.dumps({**summary16, 'launches': launches16})}")
         log("partial run (--only phase16): no result line")
+        return 0
+
+    if args.only == "phase17":
+        launches17: dict[str, int] = {}
+        summary17 = phase17(card, launches17, profile=args.profile)
+        log(f"phase 17 summary on {card}: {json.dumps({**summary17, 'launches': launches17})}")
+        log("partial run (--only phase17): no result line")
         return 0
 
     if args.only == "phase11":
@@ -6457,6 +6806,17 @@ def main() -> int:
     log(f"phase 13 summary on {card}: {json.dumps({**summary13, 'launches': phase13_launches})}")
     assert phase13_launches.get("int4_bucket_scan", 0) > 0, phase13_launches
     mark("phase 13")
+
+    # 17. Training on the card: the boundary trainer's recipe, the encoder
+    # trainer's four phases at full width and the export served, the card's
+    # losses against the CPU's (its own temporary directory).
+    _release_llms()
+    _fresh_memory_store()
+    torch.cuda.empty_cache()
+    phase17_launches: dict[str, int] = {}
+    summary17 = phase17(card, phase17_launches, profile=args.profile)
+    log(f"phase 17 summary on {card}: {json.dumps({**summary17, 'launches': phase17_launches})}")
+    mark("phase 17")
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -6503,6 +6863,10 @@ def main() -> int:
             # the timed calls and the racing searches; checking calls not
             # counted).
             "launches_phase16": phase16_launches.get(name, 0),
+            # And on phase 17's: 0, training runs none of these kernels,
+            # and the searches over the 2-document store the export
+            # embedded take the exact route (under 131,072 rows).
+            "launches_phase17": phase17_launches.get(name, 0),
         })
         p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
         if p12 is not None:

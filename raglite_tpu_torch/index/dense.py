@@ -72,7 +72,6 @@ from raglite_tpu_torch.ops.fused_scan import (
     INT4_NUM_BUCKETS,
     INT4_STAGE1_CANDIDATES,
     _topk_stable,
-    full_f32_matmul,
     fused_scan_topk,
     pack_rows_int4,
     quantize_rows_int8,
@@ -82,6 +81,7 @@ from raglite_tpu_torch.parallel.sharded import sharded_int4_two_stage, sharded_t
 from raglite_tpu_torch.types import DistanceMetric
 from raglite_tpu_torch.utils.graphs import ProgramGraphs
 from raglite_tpu_torch.utils.padding import round_up as _round_up
+from raglite_tpu_torch.utils.precision import full_f32_matmul
 
 if TYPE_CHECKING:
     from raglite_tpu_torch.config import RAGLiteConfig

@@ -177,7 +177,7 @@ class BoundaryModel(nn.Module):
 
     def forward(self, windows: torch.Tensor) -> torch.Tensor:
         """windows [N, 2W+1] integer class ids -> probabilities [N] f32."""
-        from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+        from raglite_tpu_torch.utils.precision import full_f32_matmul
 
         x = self.emb(windows.to(torch.int64)).reshape(windows.shape[0], -1)
         with full_f32_matmul():

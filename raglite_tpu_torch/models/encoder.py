@@ -28,9 +28,9 @@ from typing import Protocol
 import numpy as np
 import torch
 
-from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
 from raglite_tpu_torch.utils.graphs import ProgramGraphs, Stacked
 from raglite_tpu_torch.utils.padding import bucket, round_up as _round_up
+from raglite_tpu_torch.utils.precision import full_f32_matmul
 
 __all__ = [
     "Encoder", "HashEncoder", "OpenAICompatEncoder", "TransformerEncoder",

@@ -34,8 +34,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "EncoderModel", "load_npz_encoder", "load_safetensors_encoder", "params_from_jax", "params_to_jax",
-    "save_hf_encoder",
+    "EncoderModel", "load_npz_encoder", "load_safetensors_encoder", "matmul_f32", "params_from_jax", "params_to_jax",
+    "save_hf_encoder", "save_npz_encoder", "state_to_jax",
 ]
 
 #: JAX layer parameter name -> (port module, port parameter, transpose).
@@ -57,45 +57,97 @@ _TOP_NAMES = {
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm in f32 with f32 parameters; the result takes the input's dtype."""
+    """LayerNorm in f32 with f32 parameters; the result takes the input's
+    dtype.  ``fused`` (the training forward) computes the same in one
+    ``F.layer_norm`` kernel each way instead of ~10 elementwise ones (its
+    variance by Welford's method: the last bit may differ)."""
 
-    def __init__(self, d: int, eps: float) -> None:
+    def __init__(self, d: int, eps: float, *, fused: bool = False) -> None:
         super().__init__()
         self.eps = eps
+        self.fused = fused
         self.weight = nn.Parameter(torch.ones(d), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(d), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused:
+            return F.layer_norm(x.to(torch.float32), x.shape[-1:], self.weight, self.bias, self.eps).to(x.dtype)
         x32 = x.to(torch.float32)
         mean = x32.mean(dim=-1, keepdim=True)
         var = ((x32 - mean) ** 2).mean(dim=-1, keepdim=True)
         return ((x32 - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias).to(x.dtype)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` [m, n] in f32: cuBLAS's bf16/f16 GEMM on tensor cores with
+    an f32 output for half-precision CUDA tensors, else the f32 GEMM of the
+    same values (products of bf16 values are exact in f32, so the two
+    differ only in summation order)."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+class _MatmulF32(torch.autograd.Function):
+    """``x @ w.T`` in f32 for ``x`` [..., d_in] and ``w`` [d_out, d_in] of
+    one dtype, with its two backward GEMMs, each gradient rounded to its
+    input's dtype as JAX's transpose of an einsum with
+    ``preferred_element_type=f32`` returns it.  On the card the f32
+    cotangent enters the tensor cores rounded to the inputs' dtype (as a
+    TPU's default precision rounds an f32 operand); on the CPU the GEMM
+    takes it in f32, as XLA's CPU dot does."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return _mm_f32(x.reshape(-1, x.shape[-1]), w.t()).reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x, w = ctx.saved_tensors
+        g = grad.reshape(-1, grad.shape[-1])
+        if g.is_cuda:
+            g = g.to(w.dtype)
+        gx = _mm_f32(g, w).to(x.dtype).reshape(x.shape) if ctx.needs_input_grad[0] else None
+        gw = _mm_f32(g.t(), x.reshape(-1, x.shape[-1])).to(w.dtype) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T`` [..., d_out] in f32, differentiable (the training GEMM:
+    bf16 x bf16 -> f32 on tensor cores on the card)."""
+    return _MatmulF32.apply(x, w)
+
+
 class Linear(nn.Module):
     """``x @ W.T + b`` with f32 accumulation and an f32 result; ``W``
-    [d_out, d_in] in the parameter dtype, ``b`` in f32."""
+    [d_out, d_in] in the parameter dtype, ``b`` in f32.  The serving
+    forward computes in f32 (``F.linear`` of f32 casts); a ``trainable``
+    layer multiplies in the parameter dtype through :func:`matmul_f32`."""
 
-    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype) -> None:
+    def __init__(self, d_in: int, d_out: int, dtype: torch.dtype, *, trainable: bool = False) -> None:
         super().__init__()
+        self.trainable = trainable
         self.weight = nn.Parameter(torch.zeros(d_out, d_in, dtype=dtype), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(d_out), requires_grad=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.trainable:
+            return matmul_f32(x.to(self.weight.dtype), self.weight) + self.bias
         return F.linear(x.to(torch.float32), self.weight.to(torch.float32), self.bias)
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, cfg: dict, dtype: torch.dtype, eps: float, gelu: str) -> None:
+    def __init__(self, cfg: dict, dtype: torch.dtype, eps: float, gelu: str, trainable: bool = False) -> None:
         super().__init__()
         d, ff = cfg["d_model"], cfg["d_ff"]
         self.heads = cfg["heads"]
         self.gelu = gelu
-        self.q, self.k, self.v, self.o = (Linear(d, d, dtype) for _ in range(4))
-        self.attn_ln = LayerNorm(d, eps)
-        self.ff1 = Linear(d, ff, dtype)
-        self.ff2 = Linear(ff, d, dtype)
-        self.mlp_ln = LayerNorm(d, eps)
+        self.q, self.k, self.v, self.o = (Linear(d, d, dtype, trainable=trainable) for _ in range(4))
+        self.attn_ln = LayerNorm(d, eps, fused=trainable)
+        self.ff1 = Linear(d, ff, dtype, trainable=trainable)
+        self.ff2 = Linear(ff, d, dtype, trainable=trainable)
+        self.mlp_ln = LayerNorm(d, eps, fused=trainable)
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
@@ -115,9 +167,17 @@ class EncoderLayer(nn.Module):
 
 class EncoderModel(nn.Module):
     """Post-LN bidirectional transformer encoder: ids [B, T] and mask
-    [B, T] bool -> hidden states [B, T, d] f32."""
+    [B, T] bool -> hidden states [B, T, d] f32.
 
-    def __init__(self, cfg: dict, *, dtype: torch.dtype = torch.bfloat16, final_ln: bool = True) -> None:
+    ``trainable=True`` builds the training forward (train/encoder.py runs it
+    through ``torch.func.functional_call`` over half-precision casts of f32
+    master tensors): its linear layers take :func:`matmul_f32` and its
+    LayerNorms the fused kernel; the rest of the layer code is the serving
+    forward's."""
+
+    def __init__(
+        self, cfg: dict, *, dtype: torch.dtype = torch.bfloat16, final_ln: bool = True, trainable: bool = False
+    ) -> None:
         super().__init__()
         self.cfg = cfg
         d = cfg["d_model"]
@@ -126,11 +186,11 @@ class EncoderModel(nn.Module):
         gelu = "tanh" if cfg.get("hidden_act", "gelu") in ("gelu_new", "gelu_pytorch_tanh") else "none"
         self.tok_emb = nn.Embedding(cfg["vocab"], d, dtype=dtype)
         self.pos_emb = nn.Embedding(cfg["max_len"], d, dtype=dtype)
-        self.emb_ln = LayerNorm(d, eps)
-        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, eps, gelu) for _ in range(cfg["layers"]))
+        self.emb_ln = LayerNorm(d, eps, fused=trainable)
+        self.layers = nn.ModuleList(EncoderLayer(cfg, dtype, eps, gelu, trainable) for _ in range(cfg["layers"]))
         # Checkpoints of the XLM-R/BERT family have no final LN; a
         # scale-1/bias-0 LN would still re-standardize every token.
-        self.final_ln = LayerNorm(d, eps) if final_ln else None
+        self.final_ln = LayerNorm(d, eps, fused=trainable) if final_ln else None
         self.requires_grad_(False)
 
     @property
@@ -220,10 +280,17 @@ def load_npz_encoder(path: str) -> tuple[dict, dict[str, Any], None]:
 def params_to_jax(model: EncoderModel) -> dict[str, Any]:
     """The inverse of :func:`params_from_jax`: the JAX package's parameter
     tree (torch tensors; linear weights as ``[d_in, d_out]`` views)."""
+    return state_to_jax(model.state_dict())
+
+
+def state_to_jax(state: dict[str, torch.Tensor]) -> dict[str, Any]:
+    """A state dict of this module -> the JAX package's parameter tree (the
+    same tensors; linear weights as ``[d_in, d_out]`` views)."""
     top = {v: k for k, v in _TOP_NAMES.items()}
     names = {(module, param): (name, transpose) for name, (module, param, transpose) in _LAYER_NAMES.items()}
-    params: dict[str, Any] = {"layers": [{} for _ in model.layers]}
-    for key, value in model.state_dict().items():
+    layers = 1 + max(int(key.split(".")[1]) for key in state if key.startswith("layers."))
+    params: dict[str, Any] = {"layers": [{} for _ in range(layers)]}
+    for key, value in state.items():
         if key in top:
             params[top[key]] = value
             continue
@@ -231,6 +298,36 @@ def params_to_jax(model: EncoderModel) -> dict[str, Any]:
         name, transpose = names[(module, param)]
         params["layers"][int(i)][name] = value.T if transpose else value
     return params
+
+
+def save_npz_encoder(path: str, params: dict[str, Any], cfg: dict, *, dtype=None, compress: bool = True) -> None:
+    """Write a JAX-layout parameter tree (numpy arrays or torch tensors) as
+    the JAX package's flat ``encoder.npz`` (``save_npz_encoder`` there):
+    top-level names, ``layers.<i>.<name>`` and ``__config__`` (the config's
+    JSON as bytes).  ``dtype`` (``np.float16`` for an export) stores the
+    matrices in it and LayerNorms and biases in f32.  ``compress=False``
+    stores the members uncompressed: f32 weights deflate by ~7 % at ~20 MB/s,
+    14 s a save at the ``base`` size; both packages' readers take either."""
+
+    def array(value: Any) -> np.ndarray:
+        if isinstance(value, torch.Tensor):
+            value = value.detach()
+            value = value.float() if value.dtype == torch.bfloat16 else value
+            return np.ascontiguousarray(value.cpu().numpy())
+        return np.ascontiguousarray(value)
+
+    flat: dict[str, np.ndarray] = {}
+    for key, value in params.items():
+        if key == "layers":
+            for i, layer in enumerate(value):
+                for name, arr in layer.items():
+                    flat[f"layers.{i}.{name}"] = array(arr)
+        else:
+            flat[key] = array(value)
+    if dtype is not None:
+        flat = {k: v.astype(dtype) if v.ndim >= 2 else v.astype(np.float32) for k, v in flat.items()}
+    flat["__config__"] = np.frombuffer(json.dumps(cfg).encode(), dtype=np.uint8)
+    (np.savez_compressed if compress else np.savez)(path, **flat)
 
 
 #: HF BERT/XLM-R layer tensor names -> the port's (relative to the layer).

@@ -34,7 +34,7 @@ import torch
 
 from raglite_tpu_torch.ops import cuda_build
 from raglite_tpu_torch.ops.cuda_build import FLOAT, INT, LONG, VOID
-from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+from raglite_tpu_torch.utils.precision import full_f32_matmul
 
 __all__ = [
     "TOL_SIGMAS",

@@ -26,18 +26,16 @@ and every launch on the current stream.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from raglite_tpu_torch.ops import cuda_build
 from raglite_tpu_torch.ops.cuda_build import INT, LONG, VOID
 from raglite_tpu_torch.utils.padding import round_up as _round_up
+from raglite_tpu_torch.utils.precision import full_f32_matmul
 
 __all__ = [
     "bucketed_max_scan",
     "bucketed_max_scan_plain",
-    "full_f32_matmul",
     "fused_scan_topk",
     "int4_bucket_scan",
     "int4_bucket_scan_plain",
@@ -79,17 +77,6 @@ def quantize_rows_int8(x) -> tuple[torch.Tensor, torch.Tensor]:
     scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     q = torch.clamp(torch.round(x / scale[..., None]), -127, 127).to(torch.int8)
     return q, scale
-
-
-@contextlib.contextmanager
-def full_f32_matmul():
-    """f32 matmuls at full precision (TF32 off) for the duration."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def _int_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

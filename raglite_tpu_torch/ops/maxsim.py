@@ -19,9 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
 from raglite_tpu_torch.utils.graphs import shared_programs
 from raglite_tpu_torch.utils.padding import round_up as _round_up
+from raglite_tpu_torch.utils.precision import full_f32_matmul
 
 __all__ = ["maxsim_rank", "maxsim_scores"]
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from raglite_tpu_torch.ops.fused_scan import full_f32_matmul
+from raglite_tpu_torch.utils.precision import full_f32_matmul
 
 __all__ = ["NNLS_ITERS", "batched_query_targets", "nnls_dual_target", "query_targets_from_rows"]
 

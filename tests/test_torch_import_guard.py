@@ -6,10 +6,11 @@ and its NNLS op, the safetensors and checkpoint readers (OCDBT and zstd
 included), the int8
 matmuls, the document converters, the boundary model, the tracer, the
 micro-batcher, the MCP server, the web chat, the CLI, the multi-GPU
-modules, the IR benchmark with its HNSW baseline and the tokenizer's
-Unicode tables) loads neither JAX
+modules, the IR benchmark with its HNSW baseline, the tokenizer's
+Unicode tables and the trainers with their optimizer and corpus) loads
+neither JAX
 nor the JAX package nor click (nor markdown-it,
-tokenizers, safetensors, transformers, orbax, tensorstore, msgpack or
+tokenizers, optax, safetensors, transformers, orbax, tensorstore, msgpack or
 filelock on the in-memory path, a tokenizer.json read included, nor pandas,
 tqdm or pydantic), its public names are the JAX package's, its config asks for the
 card by default,
@@ -54,6 +55,8 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.parallel.mesh, raglite_tpu_torch.parallel.sharded
         import raglite_tpu_torch.parallel.tp_decoder
         import raglite_tpu_torch.irbench, raglite_tpu_torch.models.unicode_props
+        import raglite_tpu_torch.train.optim, raglite_tpu_torch.train.corpus
+        import raglite_tpu_torch.train.encoder, raglite_tpu_torch.train.boundary
         assert "pydantic" not in sys.modules
         assert "pandas" not in sys.modules
         assert "click" not in sys.modules
@@ -74,7 +77,7 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         assert load_tokenizer(str(PACKAGED_ENCODER_DIR / "tokenizer.json")).encode("x")
         Store(":memory:").save()
         extra = {
-            "markdown_it", "tokenizers", "msgpack", "filelock", "safetensors", "transformers", "orbax",
+            "markdown_it", "tokenizers", "optax", "msgpack", "filelock", "safetensors", "transformers", "orbax",
             "tensorstore",
         } & {m.split(".")[0] for m in sys.modules}
         assert not extra, extra
@@ -142,6 +145,19 @@ def test_boundary_model_on_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyP
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         insert_documents([Document.from_text("One sentence here. And two sentences.")], config=config)
     assert default_model("cpu") is not None
+
+
+def test_trainers_on_cuda_without_a_gpu_raise(monkeypatch: pytest.MonkeyPatch, tmp_path) -> None:
+    """The trainers' command lines ask for the card by default and raise
+    where there is none, before they read or write a file."""
+    from raglite_tpu_torch.train import boundary, encoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        boundary.main(["--out", str(tmp_path / "b.npz")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        encoder.main(["--phase", "mlm", "--workdir", str(tmp_path / "work")])
+    assert not list(tmp_path.iterdir())
 
 
 def test_multi_gpu_is_ported() -> None:
