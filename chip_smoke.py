@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's retrieval, answer, structured-generation, eval,
 query-adapter, checkpoint, ingestion-to-surface, multi-GPU, IR-benchmark,
-CUDA-graph decode, CUDA-graph retrieval and training paths once on one
-NVIDIA GPU.
+CUDA-graph decode, CUDA-graph retrieval, training and held-out evaluation
+paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile] [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15|phase16|phase17]
+    python3 chip_smoke.py [--seed 0] [--rows 1249280] [--profile]
+        [--only prefill|phase10|phase11|phase12|phase13|phase14|phase15|phase16|phase17|phase18]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -173,8 +174,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    (d) ``search --method vector`` and ``stats`` in fresh processes (time to
    the first result; ids = this process's vector_search) and
    DenseIndex.load (ids equal); (e) create_web_app on 127.0.0.1: 64
-   concurrent POST /api/search after a warm-up (p50, p99, the
-   micro-batches, at most 8 asserted, every answer = vector_search),
+   concurrent POST /api/search after a warm-up, each thread connected
+   before all are released (p50, p99, the micro-batches, at most 8
+   asserted, every answer = vector_search),
    a PDF upload, a streamed /api/chat answer from ``jax:large`` (first
    token, pieces a second, attention launches asserted), the phases of
    GET /api/stats; (f) ``mcp run`` in a fresh process over pipes
@@ -213,13 +215,15 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 13. The IR benchmark (after phase 11; a temporary directory of its own):
    (a) run_ir_benchmark on the synthetic dataset (16 documents and
    queries), all seven variants one by one, on the default config on the
-   card and again on the CPU (fresh run caches): keyword's AP@10 equal,
+   card and again on the CPU (fresh run caches; the CPU half in a process
+   of its own beside the card half, (b) and (c)): keyword's AP@10 equal,
    every other within PHASE13_AP_ATOL, the hnsw row present; each
    variant's AP@10 and seconds; (b) a BERT-shaped BF16 encoder at
    BAAI/bge-base-en-v1.5's published widths (seeded weights) with a
    hand-made WordPiece tokenizer.json from the frozen Markdown, serving
-   RAGLiteTPUEvaluators (multivector, rerank, hybrid: one store) over a
-   BEIR directory of the synthetic dataset, the store seeded with
+   RAGLiteTPUEvaluators (multivector, hybrid and, on the first
+   PHASE13_RERANK_QUERIES queries, rerank: one store) over a BEIR
+   directory of the synthetic dataset, the store seeded with
    background rows up to ``--rows`` before their runs: one int4 launch a
    dense query (asserted), the multivector document runs' recall@10 against
    the exact route >= RECALL_MIN, a search's p50, AP@10, insert and seeding
@@ -321,7 +325,38 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    and 3 contrastive steps from the packaged encoder, every loss within
    PHASE17_LOSS_RTOL and the first step's gradients within PHASE17_GRAD_COS
    (flattened and each leaf), and controls that must fail those limits
-   (a lost update, another step's gradient).
+   (a lost update, another step's gradient); (d) the tokenizer trainer
+   (``train.encoder --phase tokenizer``, train/bpe.py) at vocab 16,384 on
+   (b)'s train split in a workdir of its own, its token cache and
+   PHASE17_TOKENIZER_MLM_STEPS MLM steps at batch 256 over it: the
+   training seconds, the vocabulary (exactly 16,384, asserted) and merges
+   (every part in the vocabulary, asserted), tokens a character on the
+   held-out split beside the packaged tokenizer's, decode(encode(text)) =
+   the text for every held-out document (asserted; bytes outside the
+   trained alphabet dropped, as ``tokenizers`` drops them), the losses
+   (finite, asserted).
+18. The held-out IR evaluation on the card (after phase 17; a temporary
+   directory of its own) through ``raglite_tpu_torch.train``'s entry
+   points: a corpus of PHASE18_CORPUS_MB MB with PHASE18_HELDOUT_PCT % held
+   out; (a) ``semantic_ir_bench.main`` with the packaged encoder
+   (``flax:sem``) at PHASE18_DOCS documents, PHASE18_QUERIES queries and
+   PHASE18_ADAPTER_QUERIES adapter queries, the rerank on
+   PHASE18_RERANK_QUERIES and its rerank-32 latency block on the script's
+   50, all six variants: MRR@10, nDCG@10 and recall@10 each, the stores'
+   insert seconds, the adapter's, rerank-32 p50 and p95 over 49 timed
+   reranks (no quality meaning: the packaged encoder's training
+   documents may include these); (b) ``export_beir`` and ``irbench``'s
+   PHASE18_BEIR_VARIANTS over that directory at PHASE18_BEIR_QUERIES
+   queries (``beir_main``); (c) the ``reranker_blend`` sweep at
+   PHASE18_BLENDS over (a)'s ``sem_mv`` store (``blend_main``; blend 0.0 =
+   (a)'s rerank row, asserted); (d) at PHASE18_CPU_DOCS documents and
+   PHASE18_CPU_QUERIES queries, ``hash-single`` and ``sem-multivector`` on
+   the card and with ``--device cpu``: every document both rank scored
+   alike and documents trading places only at near ties (PHASE18_CPU_RTOL,
+   asserted), and controls that must fail: the next query's ranking, and
+   for ``flax:sem`` the card's rankings through copies of the encoder with
+   a fault (PHASE18_FAULTS: its last layer left out; its weight matrices
+   rounded to float8 e4m3, near the limit).
 ``--only prefill`` is a partial run for work on that kernel (its checks of
 phase 2b and its rows of phase 7; no result line); ``--only phase10`` runs
 phase 3 at ``--rows`` and phase 10; ``--only phase11`` runs phase 11 alone
@@ -331,7 +366,8 @@ phase 12 over it; ``--only phase13`` runs phase 13 alone at ``--rows``;
 runs phase 14 on phase 6's RAG prompt; ``--only phase15`` runs phase 3's
 store at ``--rows`` and phase 15; ``--only phase16`` runs phase 3's store
 at ``--rows``, phase 4b over it and phase 16; ``--only phase17`` runs
-phase 17 alone (none of them prints a result line).
+phase 17 alone; ``--only phase18`` runs phase 18 alone (none of them
+prints a result line).
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2113,6 +2149,53 @@ def scratch_dir(need: int, prefix: str) -> Path:
     raise RuntimeError(msg)
 
 
+#: Torch threads of a CPU half that runs beside the card's work (the card's
+#: machine has 8 cores; the rest stay with the process driving the card,
+#: whose work beside it is mostly one host thread).
+BESIDE_THREADS = 6
+
+
+@contextlib.contextmanager
+def beside(function: str, *args):
+    """Run this script's ``function(*args)`` (JSON arguments and result) on
+    the CPU in a process of its own, with no card visible and BESIDE_THREADS
+    torch threads, while the caller goes on with the card's work.  Yields
+    ``join(timeout)``, which waits for the process, prints its output and
+    returns (its result, its seconds from start to exit); the process is
+    killed if the caller leaves first."""
+    import os
+    import shutil
+    import tempfile
+
+    out = Path(tempfile.mkdtemp(prefix="beside_"))
+    code = ("import json, sys, torch; torch.set_num_threads(int(sys.argv[3])); import chip_smoke; "
+            "json.dump(getattr(chip_smoke, sys.argv[1])(*json.loads(sys.argv[2])), open(sys.argv[4], 'w'))")
+    t0 = time.perf_counter()
+    with open(out / "log", "w") as sink:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", code, function, json.dumps(args), str(BESIDE_THREADS), str(out / "result.json")],
+            cwd=ROOT, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""}, stdout=sink, stderr=subprocess.STDOUT,
+        )
+
+    def join(timeout: float):
+        rc = proc.wait(timeout=timeout)
+        seconds = time.perf_counter() - t0
+        text = (out / "log").read_text()
+        log(f"{function}(...) on the CPU beside the card's work, exit {rc} after {seconds:.1f} s; its output:\n{text.rstrip()}")
+        if rc:
+            msg = f"{function} on the CPU exited {rc}"
+            raise RuntimeError(msg)
+        return json.loads((out / "result.json").read_text()), seconds
+
+    try:
+        yield join
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        proc.wait()
+        shutil.rmtree(out, ignore_errors=True)
+
+
 def learn_bpe_merges(texts: list[str], count: int) -> list[tuple[str, str]]:
     """``count`` byte-level BPE merges learned from ``texts`` as Qwen's
     tokenizer splits them (NFC, the Split pattern, GPT-2's byte map): the
@@ -3867,14 +3950,28 @@ def check_conversion(kind: str, markdown: str, headings: list[str], sentence: st
 BOUNDARY_ATOL = 1e-5
 #: Phase 11 (e): concurrent /api/search requests, one thread each.
 PHASE11_SEARCHES = 64
+#: Phase 11's store holds --rows // PHASE11_ROWS_DIVISOR rows (312,320 at
+#: the default --rows), above the exact route's 131,072, so every search
+#: still takes the int4 route.  At the full 1,249,280 the background rows,
+#: the save and each fresh process's index build took about 55 s of a run
+#: that has to end within its time limit on a slow host.
+PHASE11_ROWS_DIVISOR = 4
 
 
-def _http(port: int, method: str, path: str, body: bytes = b"", headers: dict | None = None):
-    """One request to the web chat on 127.0.0.1 (http.client: no proxy
-    is ever consulted); returns the open response."""
+def _connection(port: int):
+    """A connection to the web chat on 127.0.0.1, connected (http.client:
+    no proxy is ever consulted)."""
     import http.client
 
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.connect()
+    return conn
+
+
+def _http(port: int, method: str, path: str, body: bytes = b"", headers: dict | None = None, *, conn=None):
+    """One request to the web chat on ``conn`` (a new connection when
+    None); returns the open response."""
+    conn = conn or _connection(port)
     conn.request(method, path, body=body or None, headers={"Content-Type": "application/json", **(headers or {})})
     return conn.getresponse()
 
@@ -3973,6 +4070,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
         log(f"phase 11 (a) converted {len(docs)} documents (bytes {sizes}) to Markdown: host ms {convert_ms}; "
             f"each shows its headings and a sentence of its source")
         out["convert_ms"], out["document_bytes"] = convert_ms, sizes
+        mark("phase 11 (a)")
 
         # (b) Learned boundaries on the card against the CPU.
         cpu_model, gpu_model = BoundaryModel.load(device="cpu"), default_model("cuda")
@@ -4010,6 +4108,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             f"{len(markdown) + len(heldout)} documents, sentences equal, the blocks from CUDA graphs (keys {held}); held-out F1 learned {f1_learned:.4f} vs "
             f"heuristic {f1_heuristic:.4f} (PARITY.md quotes 0.999 vs 0.87, the JAX package on the CPU); {card_ms * per:.2f} ms per 100k characters on the card (the forward "
             f"alone {device_ms * per:.3f} ms, CUDA events; the CPU model {cpu_ms * per:.2f} ms), on {card}")
+        mark("phase 11 (b)")
 
         # (c) A persistent store: the PDF through the CLI, the rest through
         # insert_documents with learned boundaries, then background rows.
@@ -4047,6 +4146,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             f"{doc_chunks} chunks, {doc_rows} rows; {len(background)} background chunks in {background_s:.2f} s; "
             f"store.save {save_s:.2f} s, {store_bytes / 1e9:.3f} GB on disk; DenseIndex.save {index_save_s:.2f} s, "
             f"{index_bytes / 1e9:.3f} GB, on {card}")
+        mark("phase 11 (c)")
 
         # (d) Cold start in fresh processes, and DenseIndex.load here.
         queries = pick_queries(list(markdown.values()), PHASE11_SEARCHES + 4, seed)
@@ -4094,6 +4194,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             f"{stats_s:.2f} s; DenseIndex.load {load_s:.2f} s, its first search (upload, int4 packing) "
             f"{loaded_first_ms:.1f} ms, ids equal; in this process the store opens in {open_s:.2f} s, the index "
             f"builds from it in {build_s:.2f} s and the first search takes {reopened_first_ms:.1f} ms, on {card}")
+        mark("phase 11 (d)")
 
         # (e) The web chat on 127.0.0.1, answering through `jax:large`.
         programs = {"encoder": encoder_from_config(cfg).programs, "index": index.programs}
@@ -4162,6 +4263,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
             f"{len(tokens)} pieces at {rate:.1f}/s, {chat_launches} attention launches; stats phases (mean ms) "
             f"{ {k: round(v, 3) for k, v in out['web']['phases_mean_ms'].items()} }, on {card}")
         _release_llms()
+        mark("phase 11 (e)")
 
         # (f) The MCP server over pipes.
         requests = [
@@ -4180,6 +4282,7 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
         out["mcp_s"] = mcp_s
         log(f"phase 11 (f) MCP over pipes: initialize, tools/list, tools/call in {mcp_s:.2f} s (a fresh process); "
             f"the top document = retrieve_context's ({len(payload['documents'])} documents), on {card}")
+        mark("phase 11 (f)")
 
         # (g) A trace of four searches.
         int4_before = fs.launch_counts["int4_bucket_scan"]
@@ -4208,12 +4311,15 @@ def phase11(texts: list[str], rows: int, seed: int, card: str, total: dict[str, 
 def _web_searches(app, port: int, queries: list[str]) -> tuple[dict[str, list[str]], list[float], list[int]]:
     """Warm the web chat's search path (one request, then one concurrent
     burst), then send one POST /api/search a thread, all released at once:
-    ({query: ids}, per-request ms, this run's micro-batch sizes)."""
+    ({query: ids}, per-request ms from the release, this run's micro-batch
+    sizes).  Each thread opens and connects its connection before the
+    release, so the burst reaches the server as one however slowly the host
+    starts threads and connections."""
     import threading
 
-    def one(q: str) -> tuple[list[str], float]:
+    def one(q: str, conn=None) -> tuple[list[str], float]:
         t0 = time.perf_counter()
-        resp = _http(port, "POST", "/api/search", json.dumps({"query": q, "method": "vector"}).encode())
+        resp = _http(port, "POST", "/api/search", json.dumps({"query": q, "method": "vector"}).encode(), conn=conn)
         body = json.loads(resp.read())
         assert resp.status == 200, body
         return [r["chunk_id"] for r in body["results"]], (time.perf_counter() - t0) * 1e3
@@ -4223,11 +4329,13 @@ def _web_searches(app, port: int, queries: list[str]) -> tuple[dict[str, list[st
         gate = threading.Barrier(len(batch))
 
         def worker(i: int) -> None:
-            gate.wait()
             try:
-                results[i] = one(batch[i])
+                conn = _connection(port)
+                gate.wait()
+                results[i] = one(batch[i], conn)
             except Exception as error:  # re-raised below, in this thread
                 results[i] = error
+                gate.abort()  # the other threads stop waiting
 
         threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(batch))]
         for t in threads:
@@ -4235,9 +4343,9 @@ def _web_searches(app, port: int, queries: list[str]) -> tuple[dict[str, list[st
         for t in threads:
             t.join(timeout=600)
             assert not t.is_alive(), "a web search did not answer in 600 s"
-        for result in results:
-            if isinstance(result, Exception):
-                raise result
+        errors = [r for r in results if isinstance(r, Exception)]
+        for error in sorted(errors, key=lambda e: isinstance(e, threading.BrokenBarrierError)):
+            raise error  # the cause first, not a thread the abort released
         return results
 
     one(queries[0])
@@ -4703,6 +4811,10 @@ BGE_BASE_CONFIG = {
 BERT_SPECIALS = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
 #: Phase 13: the IR benchmark's queries (and the synthetic corpus's documents).
 PHASE13_QUERIES = 64
+#: Phase 13 (b): the rerank evaluator's queries (the first of the
+#: PHASE13_QUERIES): its time is the host's language detection of each
+#: candidate (PERF.md §5), 16.7-25.9 s at 64.
+PHASE13_RERANK_QUERIES = 16
 #: Phase 13 (a): the synthetic benchmark's queries (and documents) on each
 #: device; 16, since its CPU half took 191-246 s at 64 and 105-164 s at 32,
 #: the run's longest host-bound part.
@@ -4714,9 +4826,13 @@ PHASE13_SYNTHETIC_QUERIES = 16
 #: Keyword (BM25, no encoder) must be equal.
 PHASE13_AP_ATOL = 0.05
 #: Phase 13 (c): the HNSW comparison's rows and width (the graph is built in
-#: one thread on the host; M 32, ef_construction 200, ef_search 160).
+#: one thread on the host; M 32, ef_construction 200, ef_search 160).  At
+#: 1,500 rows the f16 scan's recall@10 read 0.9984 against HNSW's 1.0000
+#: (one neighbour of 640 lost to f16 rounding), failing (c)'s assertion.
 PHASE13_HNSW_ROWS = 3000
 PHASE13_HNSW_DIM = 256
+#: Phase 13 (d): the queries of the CLI's ``bench`` in a fresh process.
+PHASE13_CLI_QUERIES = 8
 
 
 def wordpiece_tokenizer_json(texts: list[str], vocab_size: int = 30_522) -> dict:
@@ -4816,32 +4932,37 @@ def _ap(table, variant: str, measure: str = "AP@10") -> float:
     return float(next(row[measure] for row in table if row["variant"] == variant))
 
 
-def phase13_synthetic(root: Path, card: str) -> dict:
+def phase13_synthetic(root: str, device: str) -> dict:
     """Phase 13 (a): run_ir_benchmark on the synthetic dataset, every
-    variant, on the default config on the card and then on the CPU."""
+    variant one by one, on the default config on ``device`` (fresh run
+    caches): {variant: {"AP@10", "s"}}."""
     from raglite_tpu_torch import RAGLiteConfig
     from raglite_tpu_torch.irbench import VARIANTS, run_ir_benchmark
 
-    out: dict = {}
-    for device in ("cuda", "cpu"):
-        cfg = RAGLiteConfig(store_path=str(root / f"a-{device}" / "store"), device=device)
-        rows = {}
-        with _bench_cache(root / f"a-{device}-cache"):
-            for variant in VARIANTS:
-                t0 = time.perf_counter()
-                table = run_ir_benchmark(
-                    dataset="synthetic", num_queries=PHASE13_SYNTHETIC_QUERIES, variants=(variant,), config=cfg
-                )
-                assert len(table) == 1, (variant, table)  # the hnsw row too: the card's machine has g++
-                rows[variant] = {"AP@10": _ap(table, variant), "s": time.perf_counter() - t0}
-        out[device] = rows
+    cfg = RAGLiteConfig(store_path=str(Path(root) / f"a-{device}" / "store"), device=device)
+    rows = {}
+    with _bench_cache(Path(root) / f"a-{device}-cache"):
+        for variant in VARIANTS:
+            t0 = time.perf_counter()
+            table = run_ir_benchmark(
+                dataset="synthetic", num_queries=PHASE13_SYNTHETIC_QUERIES, variants=(variant,), config=cfg
+            )
+            assert len(table) == 1, (variant, table)  # the hnsw row too: the card's machine has g++
+            rows[variant] = {"AP@10": _ap(table, variant), "s": time.perf_counter() - t0}
+    return rows
+
+
+def phase13_synthetic_check(out: dict, card: str) -> None:
+    """Phase 13 (a)'s check: the card's rows against the CPU's."""
+    from raglite_tpu_torch.irbench import VARIANTS
+
+    for device, rows in out.items():
         log(f"phase 13 (a) run_ir_benchmark(synthetic, {PHASE13_SYNTHETIC_QUERIES} queries) on {device}: "
             + ", ".join(f"{v} AP@10 {r['AP@10']:.4f} in {r['s']:.2f} s" for v, r in rows.items()) + f" ({card})")
     cuda, cpu = out["cuda"], out["cpu"]
     assert cuda["keyword"]["AP@10"] == cpu["keyword"]["AP@10"], (cuda["keyword"], cpu["keyword"])
     for variant in VARIANTS:
         assert abs(cuda[variant]["AP@10"] - cpu[variant]["AP@10"]) <= PHASE13_AP_ATOL, (variant, cuda[variant], cpu[variant])
-    return out
 
 
 def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, int]) -> dict:
@@ -4855,7 +4976,7 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
 
     from raglite_tpu_torch import RAGLiteConfig
     from raglite_tpu_torch.index.dense import dense_index_from_config
-    from raglite_tpu_torch.irbench import RAGLiteTPUEvaluator, beir_directory_dataset, synthetic_dataset
+    from raglite_tpu_torch.irbench import IRDataset, RAGLiteTPUEvaluator, beir_directory_dataset, synthetic_dataset
     from raglite_tpu_torch.models.encoder import encoder_from_config
     from raglite_tpu_torch.store import store_from_config
 
@@ -4867,8 +4988,14 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
     write_s = time.perf_counter() - t0
     dataset = beir_directory_dataset(str(write_beir(root / "synthetic-beir", synthetic_dataset(num_docs=PHASE13_QUERIES))))
     cfg = RAGLiteConfig(store_path=str(root / "b" / "store"), embedder=f"flax:{ckpt}", device="cuda")
+    # The rerank on the first PHASE13_RERANK_QUERIES queries (the same
+    # documents and store): its host work is most of its time.
+    kept = list(dataset.queries)[:PHASE13_RERANK_QUERIES]
+    rerank_set = IRDataset(dataset.name, dataset.documents, {q: dataset.queries[q] for q in kept},
+                           {q: dataset.qrels[q] for q in kept if q in dataset.qrels})
     evaluators = {
-        v: RAGLiteTPUEvaluator(dataset, variant=v, config=cfg, cache_dir=str(root / "b-cache")) for v in ("multivector", "rerank", "hybrid")
+        v: RAGLiteTPUEvaluator(rerank_set if v == "rerank" else dataset, variant=v, config=cfg, cache_dir=str(root / "b-cache"))
+        for v in ("multivector", "rerank", "hybrid")
     }
     first = evaluators["multivector"]
     t0 = time.perf_counter()
@@ -4896,7 +5023,7 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
         for name, count in launches.items():
             total[name] = total.get(name, 0) + count
         assert index.last_route == "int4_two_stage", (variant, index.last_route)
-        assert launches.get("int4_bucket_scan", 0) == len(dataset.queries), (variant, launches)
+        assert launches.get("int4_bucket_scan", 0) == len(evaluator.dataset.queries), (variant, launches)
         out[variant] = {"AP@10": evaluator.score("AP@10"), "runs_s": seconds}
     out["graph_mix"] = _graph_mix_since(programs, mix_before)
     log(f"phase 13 (b) retrieval graphs over the three evaluators' runs: {json.dumps(out['graph_mix'])}, on {card}")
@@ -4921,7 +5048,8 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
     tokens_per_s = sum(encoder.count_tokens(texts)) / (time.perf_counter() - t0)
     out.update({"recall_at_10_docs": recall, "search_p50_ms": search_p50, "encoder_tokens_per_s": tokens_per_s})
     log(f"phase 13 (b) over {index.num_rows} rows on {card}: AP@10 (seeded weights: not a quality number) "
-        + ", ".join(f"{v} {out[v]['AP@10']:.4f} (runs of {len(dataset.queries)} queries {out[v]['runs_s']:.2f} s)" for v in evaluators)
+        + ", ".join(f"{v} {out[v]['AP@10']:.4f} (runs of {len(e.dataset.queries)} queries {out[v]['runs_s']:.2f} s)"
+                    for v, e in evaluators.items())
         + f"; int4 launches one a dense query (asserted); multivector document runs' recall@10 against the exact route "
         f"{recall:.4f}; one evaluator search p50 {search_p50:.3f} ms; the encoder {tokens_per_s:.0f} tokens/s "
         f"(token-level batches of the {len(texts)} documents)")
@@ -4976,7 +5104,9 @@ def phase13_cli_start(root: Path):
 
     env = {"RAGLITE_TPU_BENCH_CACHE": str(root / "d-cache")}
     pool = ThreadPoolExecutor(2)
-    table = pool.submit(_cli, root / "d" / "store", "--device", "cuda", "bench", "--num-queries", "16", env=env)
+    table = pool.submit(
+        _cli, root / "d" / "store", "--device", "cuda", "bench", "--num-queries", str(PHASE13_CLI_QUERIES), env=env,
+    )
     report = pool.submit(_cli, root / "d2" / "store", "--device", "cuda", "bench", "--hnsw-recall", "--num-rows", "1000", env=env)
     pool.shutdown(wait=False)
     return table, report
@@ -4993,24 +5123,45 @@ def phase13_cli(started, card: str) -> dict:
     assert list(values) == list(VARIANTS) and "AP@10" in lines[0], table
     report = json.loads(report_text.strip().splitlines()[-1])
     assert report["num_rows"] == 1000.0 and report["tpu_fp16_recall"] >= report["hnsw_recall"] - 1e-9, report
-    log(f"phase 13 (d) `bench --num-queries 16` in a fresh process: {table_s:.1f} s, AP@10 {values}; "
+    log(f"phase 13 (d) `bench --num-queries {PHASE13_CLI_QUERIES}` in a fresh process: {table_s:.1f} s, AP@10 {values}; "
         f"`bench --hnsw-recall --num-rows 1000`: {report_s:.1f} s, {report} (both beside (c); {card})")
     return {"bench_s": table_s, "bench": values, "hnsw_recall_s": report_s}
 
 
-def phase13(rows: int, seed: int, card: str, total: dict[str, int]) -> dict:
-    """Phase 13: (a)-(d) in a temporary directory (deleted at the end)."""
+def phase13_join(out: dict, cpu_half, card: str) -> None:
+    """Phase 13 (a), finished: wait for the CPU half (a ``beside`` join of
+    ``phase13_synthetic``) and hold the card's rows in ``out`` to it."""
+    out["synthetic"]["cpu"], out["synthetic_cpu_s"] = cpu_half(timeout=900)
+    phase13_synthetic_check(out["synthetic"], card)
+    mark("phase 13 (a) on the CPU")
+
+
+def phase13(rows: int, seed: int, card: str, total: dict[str, int], *, cpu_half=None) -> dict:
+    """Phase 13: (a)-(d) in a temporary directory (deleted at the end).
+    (a)'s CPU half runs in a process of its own beside the card's work:
+    started and joined here, or, given ``cpu_half`` (the caller's ``beside``
+    join of ``phase13_synthetic``), joined later by the caller
+    (``phase13_join``), so that it also runs beside the next phase."""
     import shutil
 
     root = scratch_dir(1_000_000_000, "phase13_")
     try:
-        out = {"synthetic": phase13_synthetic(root, card)}
-        _fresh_memory_store()
-        out["bert"] = phase13_bert(rows, seed, root, card, total)
-        _fresh_memory_store()
-        started = phase13_cli_start(root)
-        out["hnsw"] = phase13_hnsw(card)
+        with contextlib.ExitStack() as stack:
+            if own := cpu_half is None:
+                cpu_half = stack.enter_context(beside("phase13_synthetic", str(root), "cpu"))
+            out = {"synthetic": {"cuda": phase13_synthetic(str(root), "cuda")}}
+            mark("phase 13 (a) on the card")
+            _fresh_memory_store()
+            out["bert"] = phase13_bert(rows, seed, root, card, total)
+            mark("phase 13 (b)")
+            _fresh_memory_store()
+            started = phase13_cli_start(root)
+            out["hnsw"] = phase13_hnsw(card)
+            mark("phase 13 (c)")
+            if own:
+                phase13_join(out, cpu_half, card)
         out["cli"] = phase13_cli(started, card)
+        mark("phase 13 (d)")
     finally:
         _fresh_memory_store()
         shutil.rmtree(root, ignore_errors=True)
@@ -5018,8 +5169,13 @@ def phase13(rows: int, seed: int, card: str, total: dict[str, int]) -> dict:
 
 
 #: Phase 14: new tokens each path generates for the graph-against-eager
-#: comparison (4 decode chunks).
-PHASE14_TOKENS = 128
+#: comparison: 2 decode chunks of 32, so every step form replays across a
+#: chunk boundary (more only cost the run's time limit).
+PHASE14_TOKENS = 64
+#: Phase 14 (a): steps of the eager decode chunk in its profile window (each
+#: eager step is the same ~2,200 device ops; the window's events, which the
+#: profiler sorts out on the host, grow with the steps).
+PHASE14_EAGER_STEPS = 4
 #: Phase 14: how far a graph step's logits may lie from the eager step's on
 #: the same inputs, as a share of the largest |logit|.  Expected: 0, bit for
 #: bit (the same kernels and cuBLAS calls in the same order).  The bound is
@@ -5156,6 +5312,7 @@ def _held_to_eager(name: str, pairs, tokens_graph: list[int], tokens_eager: list
         f"{tokens_graph == tokens_eager} ({len(tokens_graph)}), on {card}")
     assert tokens_graph == tokens_eager, (name, tokens_graph, tokens_eager)
     assert diff <= PHASE14_LOGIT_RTOL * scale, (name, diff, scale)
+    mark(f"phase 14 {name}")
     return {"steps": len(pairs), "bit_equal": bit_equal, "max_abs_diff": diff, "max_abs_logit": scale}
 
 
@@ -5215,14 +5372,14 @@ def phase14_steps(llm, prompt: str, batch_prompts: list[str], card: str) -> dict
         def eager_chunk():
             dec._decode_chunk_device(
                 model, cache_e, params, carry[0].clone(), carry[1], mask, carry[2], stops, gen_e,
-                num_steps=dec.DECODE_CHUNK, **greedy,
+                num_steps=PHASE14_EAGER_STEPS, **greedy,
             )
 
         _, decode["idle_share_graph"] = _profile_window(loop.chunk, f"one decode chunk ({dec.DECODE_CHUNK} steps) from the graph", card)
         decode["device_ops_eager"], decode["idle_share_eager"] = _profile_window(
-            eager_chunk, f"one eager decode chunk ({dec.DECODE_CHUNK} steps)", card,
+            eager_chunk, f"an eager decode chunk of {PHASE14_EAGER_STEPS} steps", card,
         )
-        decode["device_ops_eager"] //= dec.DECODE_CHUNK
+        decode["device_ops_eager"] //= PHASE14_EAGER_STEPS
         out["decode"] = decode
         del loop, cache, cache_e
     assert _counters_zero()
@@ -5510,6 +5667,7 @@ def phase14(llm, prompt: str, card: str, total: dict[str, int]) -> dict:
     (:func:`phase14_paths`); every kernel launch counted into ``total``."""
     convs = _batch_convs()
     steps = _counted(total, lambda: phase14_steps(llm, prompt, [llm._format_messages(c, None) for c in convs], card))
+    mark("phase 14 (a)-(d)")
     before = dict(total)
     paths = _counted(total, lambda: phase14_paths(
         llm, prompt, convs, steps["decode"]["bit_equal"] == steps["decode"]["steps"], card,
@@ -6128,9 +6286,11 @@ def phase16(cfg, texts: list[str], queries: list[str], seed: int, card: str, tot
 
 #: Phase 17 (b): MB of text harvested from this machine's site-packages.
 PHASE17_CORPUS_MB = 3.0
-#: Phase 17 (b): steps of MLM from the seeded init, and of each later phase.
-PHASE17_MLM_STEPS = 200
-PHASE17_STEPS = 50
+#: Phase 17 (b): steps of MLM from the seeded init, and of each later phase
+#: (200 and 50 took 58 s of steps in a run that has to end within its time
+#: limit on a slow host; the MLM loss still falls within 100).
+PHASE17_MLM_STEPS = 100
+PHASE17_STEPS = 25
 #: Phase 17 (b): the exported encoder's embeddings against the same
 #: f16-rounded weights built in memory: the same bf16 values through the same
 #: programs, so equal but for a summation order cuBLAS might change between
@@ -6164,6 +6324,8 @@ PHASE17_GRAD_COS = 0.999
 PHASE17_LEAF_FLOOR = 1e-3
 #: Phase 17 (c): the batch and the steps a side.
 PHASE17_PARITY_BATCH, PHASE17_PARITY_STEPS = 8, 3
+#: Phase 17 (d): MLM steps at batch 256 over the trained tokenizer's cache.
+PHASE17_TOKENIZER_MLM_STEPS = 20
 
 
 def _phase17_report(stats: dict, card: str) -> dict:
@@ -6415,19 +6577,344 @@ def phase17_parity(root: Path, card: str) -> dict:
     return out
 
 
-def phase17(card: str, total: dict[str, int], *, profile: bool = False) -> dict:
-    """Phase 17: (a)-(c) in a temporary directory (deleted at the end)."""
+def _byte_level_round_trip(text: str, specials, known: set[int]) -> str:
+    """What a ByteLevel tokenizer (add_prefix_space, no unk token) decodes
+    from the ids it encoded ``text`` to: each piece between special tokens
+    with a space put before it unless it starts with one, the specials
+    dropped (decode skips them), and the bytes outside its alphabet dropped
+    (the model has no token for them)."""
+    raw = "".join(p if p.startswith(" ") else " " + p for p in specials.split(text) if p).encode("utf-8")
+    return bytes(b for b in raw if b in known).decode("utf-8", errors="replace")
+
+
+def phase17_tokenizer(root: Path, card: str) -> dict:
+    """Phase 17 (d): ``train.encoder``'s tokenizer phase (train/bpe.py) at the
+    ``base`` vocabulary on (b)'s train split, in a workdir of its own; its
+    token cache, and PHASE17_TOKENIZER_MLM_STEPS MLM steps at batch 256 from
+    the seeded init over it on the card."""
+    import re
+
+    from raglite_tpu_torch.models.tokenizer import HFTokenizer, _bytes_to_unicode, load_tokenizer
+    from raglite_tpu_torch.train import bpe
+    from raglite_tpu_torch.train import encoder as te
+
+    work = root / "tokenizer"
+    args = ["--workdir", str(work), "--corpus", str(root / "corpus"), "--device", "cuda"]
+    trained = te.main(["--phase", "tokenizer", *args])["tokenizer"]
+    mark("phase 17 (d) tokenizer trained")
+    tokens = te.main(["--phase", "tokens", *args])["tokens"]
+    mlm = te.main(["--phase", "mlm", "--steps", str(PHASE17_TOKENIZER_MLM_STEPS), "--batch", "256", *args])["mlm"]
+    spec = json.loads((work / "tokenizer.json").read_text(encoding="utf-8"))
+    vocab, merges = spec["model"]["vocab"], spec["model"]["merges"]
+    held = [json.loads(line)["text"] for line in open(root / "corpus" / "heldout.jsonl", encoding="utf-8")]
+    ours, packaged = HFTokenizer(str(work / "tokenizer.json")), load_tokenizer(str(te.PACKAGED_TOKENIZER))
+    chars = sum(len(t) for t in held)
+    per_char = sum(len(ours.encode(t)) for t in held) / chars
+    per_char_packaged = sum(len(packaged.encode(t)) for t in held) / chars
+    byte_of = {c: b for b, c in _bytes_to_unicode().items()}
+    known = {byte_of[t] for t in vocab if t in byte_of}
+    specials = re.compile("|".join(re.escape(t) for t in bpe.SPECIAL_TOKENS))
+    lossy = sum(1 for t in held if set(t.encode("utf-8")) - known)
+    wrong = [i for i, t in enumerate(held) if ours.decode(ours.encode(t)) != _byte_level_round_trip(t, specials, known)]
+    log(f"phase 17 (d) tokenizer trainer: vocab {trained['vocab']} ({len(merges)} merges) from {(root / 'corpus' / 'train.jsonl').stat().st_size / 1e6:.2f} MB "
+        f"in {trained['s']:.2f} s; token cache {tokens['tokens']} tokens of {tokens['docs']} documents in {tokens['s']:.1f} s; "
+        f"held-out split ({len(held)} documents, {chars} characters): {per_char:.4f} tokens a character (the packaged "
+        f"tokenizer's {per_char_packaged:.4f}); decode(encode(text)) = the text for all {len(held)} ({lossy} with bytes "
+        f"outside the trained alphabet, dropped as tokenizers drops them); {mlm['steps']} MLM steps at batch 256 "
+        f"over it from the seeded init: loss {mlm['loss_first']:.4f} -> {mlm['loss_last']:.4f}, {mlm['steps_per_s']:.2f} "
+        f"steps/s, on {card}")
+    assert len(vocab) == te.SIZES["base"]["vocab"] == 16_384, len(vocab)
+    assert all(a in vocab and b in vocab and a + b in vocab for a, b in merges)
+    assert not wrong, [held[i][:80] for i in wrong[:3]]
+    assert all(math.isfinite(x) for x in mlm["losses"]), mlm["losses"]
+    return {"s": trained["s"], "vocab": len(vocab), "merges": len(merges), "tokens": tokens["tokens"],
+            "tokens_per_char": per_char, "tokens_per_char_packaged": per_char_packaged, "heldout_docs": len(held),
+            "lossy_docs": lossy, "mlm_loss_first": mlm["loss_first"], "mlm_loss_last": mlm["loss_last"],
+            "mlm_steps_per_s": mlm["steps_per_s"]}
+
+
+def phase17(card: str, total: dict[str, int], *, profile: bool = False, before_parity=None) -> dict:
+    """Phase 17: (a)-(d) in a temporary directory (deleted at the end);
+    ``before_parity()``, if given, is called after (b), before (c)'s CPU
+    steps."""
     import shutil
 
     root = scratch_dir(4_000_000_000, "phase17_")
     try:
         out = {"boundary": phase17_boundary(root, card)}
+        mark("phase 17 (a)")
         out["encoder"] = phase17_encoder(root, card, total)
+        mark("phase 17 (b)")
         if profile:
             phase17_profile(root / "work", card)
+        if before_parity is not None:
+            before_parity()
         out["parity"] = phase17_parity(root, card)
+        mark("phase 17 (c)")
+        out["tokenizer"] = phase17_tokenizer(root, card)
+        mark("phase 17 (d)")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+#: Phase 18: the held-out evaluation's own corpus (phase 17's 5 % split
+#: holds about 97 documents, too few for the protocol), its sizes, and the
+#: BEIR run's queries and variants.  The rerank reranks 160 candidates a
+#: query (search_and_rerank_chunks(num_results=40)), 2.1-2.5 s of host time
+#: each (language detection of every candidate, PERF.md §5): so it and the
+#: blend sweep run on PHASE18_RERANK_QUERIES queries (32 took 69 s and 155 s
+#: in a first run, 8 took 20 s and 36 s in a second) and say that their rows
+#: are a check of the path, not a measure; the rerank-32 latency block runs
+#: PHASE18_LATENCY_QUERIES (the script's 50 took 27 s, 0.56 s each; the
+#: first is not timed), and the BEIR run takes the variants of one store without
+#: the HNSW graph (its other variants insert two more stores and rerank 64
+#: queries: 109 s in the first run; hnsw builds a graph in one host thread).
+PHASE18_CORPUS_MB, PHASE18_HELDOUT_PCT = 3, 20
+PHASE18_DOCS, PHASE18_QUERIES, PHASE18_ADAPTER_QUERIES, PHASE18_RERANK_QUERIES = 400, 100, 200, 4
+PHASE18_BEIR_QUERIES = 64
+PHASE18_BEIR_VARIANTS = "multivector,keyword,hybrid"
+PHASE18_BLENDS = "0.0,0.5"
+PHASE18_LATENCY_QUERIES = 20
+#: Phase 18 (d): the card's per-query rankings against the CPU's at a
+#: smaller size, on the two variants whose stores the CPU builds fastest
+#: (60 documents took 84 s and 30 took 41 s, most of it the CPU's f32
+#: encoder).  The CPU half runs in a process of its own beside (a)-(c), as
+#: phase 13 (a)'s does: beside (b) and (c) it took 64.9 s against 40.7 s in
+#: turn, and in turn it added 41-52 s to a run that has to end within its
+#: time limit on a slow host.
+#: A document both devices rank must score alike within the variant's
+#: relative limit, and a document only one of them ranks must lie within it
+#: of the other's last: documents trade places only where their scores tie
+#: within the limit.  The limits are the bf16 rounding the card adds:
+#: hash:1024's table is bf16 on the card (2^-8 an entry; the largest
+#: difference at a rank 9.4e-4 and 5.7e-4 in two runs); flax:sem's residual
+#: stream is rounded to bf16 after each sublayer in another summation order
+#: than the CPU's (eight layers; 1.18e-2 and 1.03e-2), 2^-5.  Controls must
+#: fail them: each query's ranking against the CPU's ranking of the next
+#: query, and for flax:sem the card's rankings through copies of the
+#: encoder with a fault (PHASE18_FAULTS).
+PHASE18_CPU_DOCS, PHASE18_CPU_QUERIES = 20, 20
+
+
+def _phase18_small(corpus: str) -> list[str]:
+    """Phase 18 (d)'s arguments to ``semantic_ir_bench.main`` on either
+    device, but for ``--device`` and ``--workdir``."""
+    return ["--docs", str(PHASE18_CPU_DOCS), "--queries", str(PHASE18_CPU_QUERIES), "--adapter-queries", "0",
+            "--corpus", corpus, "--embedder", "flax:sem", "--variants", ",".join(PHASE18_CPU_RTOL)]
+
+
+def phase18_cpu(corpus: str, workdir: str) -> dict:
+    """Phase 18 (d)'s CPU half (run by ``beside``): the small protocol on the
+    CPU; its per-query rankings, its rows and its seconds."""
+    from raglite_tpu_torch.train import semantic_ir_bench as sib
+
+    t0 = time.perf_counter()
+    res = sib.main([*_phase18_small(corpus), "--device", "cpu", "--workdir", workdir])
+    return {"rankings": res["rankings"], "variants": res["variants"], "s": time.perf_counter() - t0}
+
+PHASE18_CPU_RTOL = {"hash-single": 2.0**-8, "sem-multivector": 2.0**-5}
+PHASE18_CPU_BUDGET_S = 60.0
+#: Phase 18 (d)'s faulty copies of the packaged encoder (``faulty_encoder``),
+#: which must fail the limit: its last layer left out, and every weight
+#: matrix of its layers rounded to float8 e4m3, a fault near the limit (on
+#: the card over these documents its largest difference at a rank was
+#: 6.08e-2, 6 mismatches, where the last layer's absence gave 0.787; on the
+#: CPU over 12 seeded documents of random words e4m3 gave only 1.07e-2).
+PHASE18_FAULTS = ("drop", "e4m3")
+
+
+def faulty_encoder(out: Path, fault: str) -> Path:
+    """A copy of the packaged encoder (``flax:<out>``) with a fault:
+    ``drop`` leaves out its last layer, ``e4m3`` rounds every weight matrix
+    of its layers to float8 e4m3 (stored back in its own dtype)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch.models.encoder import PACKAGED_ENCODER_DIR
+
+    out.mkdir(parents=True)
+    shutil.copy(Path(PACKAGED_ENCODER_DIR) / "tokenizer.json", out)
+    with np.load(Path(PACKAGED_ENCODER_DIR) / "encoder.npz") as z:
+        arrays = {k: z[k] for k in z.files}
+    cfg = json.loads(bytes(arrays["__config__"]).decode())
+    if fault == "drop":
+        cfg["layers"] -= 1
+        arrays = {k: v for k, v in arrays.items() if not k.startswith(f"layers.{cfg['layers']}.")}
+    else:
+        for k, v in arrays.items():
+            if k.startswith("layers.") and k.rsplit(".", 1)[1].startswith("w") and v.ndim == 2:
+                rounded = torch.from_numpy(v.astype(np.float32)).to(torch.float8_e4m3fn).to(torch.float32)
+                arrays[k] = rounded.numpy().astype(v.dtype)
+    arrays["__config__"] = np.frombuffer(json.dumps(cfg).encode(), np.uint8)
+    np.savez(out / "encoder.npz", **arrays)
+    return out
+
+
+def _worst_difference(got: list, want: list) -> float:
+    """The largest relative difference of a document's score between two
+    devices' per-query rankings of (document, score), over the documents
+    both rank."""
+    worst = 0.0
+    for a, b in zip(got, want, strict=True):
+        sb = dict(b)
+        for doc, score in a:
+            if doc in sb:
+                worst = max(worst, abs(score - sb[doc]) / max(abs(score), abs(sb[doc])))
+    return worst
+
+
+def _ranking_mismatches(got: list, want: list, rtol: float) -> list[str]:
+    """Where two devices' per-query rankings of (document, score) disagree:
+    a document both rank scored apart by more than ``rtol`` (relative), or
+    a document one ranks and the other does not that scores above the
+    other's last by more than ``rtol``."""
+    def off(x: float, y: float) -> bool:
+        return abs(x - y) > rtol * max(abs(x), abs(y))
+
+    bad = []
+    for q, (a, b) in enumerate(zip(got, want, strict=True)):
+        sa, sb = dict(a), dict(b)
+        for doc in sa.keys() & sb.keys():
+            if off(sa[doc], sb[doc]):
+                bad.append(f"query {q}: {doc} scores {sa[doc]} and {sb[doc]}")
+        for only, other in ((sa, sb), (sb, sa)):
+            last = min(other.values(), default=float("inf"))
+            for doc in only.keys() - other.keys():
+                if only[doc] > last and off(only[doc], last):
+                    bad.append(f"query {q}: {doc} ({only[doc]}) ranked on one side only, above the other's last ({last})")
+    return bad
+
+
+def phase18(card: str, total: dict[str, int]) -> dict:
+    """Phase 18: the held-out IR evaluation (train/semantic_ir_bench.py) on
+    the card through its entry points, in a temporary directory (deleted at
+    the end): (a) ``main`` with the packaged encoder, all six variants, (b)
+    the protocol exported as a BEIR directory and run through ``irbench``,
+    (c) the ``reranker_blend`` sweep over (a)'s ``sem_mv`` store, (d) the
+    card's rankings against the CPU's at a smaller size (the CPU half in a
+    process of its own, beside (a)-(c))."""
+    import shutil
+
+    from raglite_tpu_torch.train import corpus
+    from raglite_tpu_torch.train import semantic_ir_bench as sib
+
+    t_start = time.perf_counter()
+    root = scratch_dir(2_000_000_000, "phase18_")
+    stack = contextlib.ExitStack()  # (d)'s CPU half, killed if this phase fails first
+    try:
+        t0 = time.perf_counter()
+        summary = corpus.main(["--out", str(root / "corpus"), "--max-mb", str(PHASE18_CORPUS_MB),
+                               "--heldout-pct", str(PHASE18_HELDOUT_PCT)])
+        log(f"phase 18 corpus: {summary['heldout_docs']} held-out documents ({summary['heldout_mb']} MB), "
+            f"{summary['train_docs']} train, harvested in {time.perf_counter() - t0:.1f} s")
+        mark("phase 18 corpus")
+        cpu_half = stack.enter_context(beside("phase18_cpu", str(root / "corpus"), str(root / "small-cpu")))
+        common = ["--corpus", str(root / "corpus"), "--device", "cuda"]
+        sizes = ["--docs", str(PHASE18_DOCS), "--queries", str(PHASE18_QUERIES),
+                 "--adapter-queries", str(PHASE18_ADAPTER_QUERIES)]
+        t0 = time.perf_counter()
+        res = _counted(total, lambda: sib.main([*sizes, *common, "--embedder", "flax:sem", "--workdir", str(root / "ir"),
+                                                "--rerank-queries", str(PHASE18_RERANK_QUERIES),
+                                                "--latency-queries", str(PHASE18_LATENCY_QUERIES)]))
+        eval_s = time.perf_counter() - t0
+        lat = res["rerank_latency"]
+        log(f"phase 18 (a) held-out evaluation, the packaged encoder (flax:sem), {res['docs']} documents, "
+            f"{res['variants'][0]['queries']} queries, {res['adapter_evals']} adapter evals, in {eval_s:.1f} s on {card}; "
+            "the packaged encoder was trained on documents harvested on another machine, which these held-out "
+            "documents may be among, so the figures check the path and are no measure of retrieval quality; (d)'s "
+            "CPU half ran beside it, which the seconds below include:")
+        for row in res["variants"]:
+            log(f"  {row['variant']}: MRR@10 {row['mrr_at_10']:.4f}, nDCG@10 {row['ndcg_at_10']:.4f}, recall@10 "
+                f"{row['recall_at_10']:.4f} over {row['queries']} queries in {row['seconds']:.1f} s")
+        log(f"  inserts {', '.join(f'{k} {v:.2f} s' for k, v in res['insert_s'].items())}; adapter {res['adapter_s']:.2f} s; "
+            f"rerank-32 p50 {lat['p50_ms']:.2f} ms, p95 {lat['p95_ms']:.2f} ms over {lat['queries']} queries; on {card}")
+        assert [r["variant"] for r in res["variants"]][:4] == list(sib.VARIANTS[:4]), res["variants"]
+        assert {r["variant"] for r in res["variants"]} == {*sib.VARIANTS, f"sem-multivector@{PHASE18_RERANK_QUERIES}"}
+        assert set(res["insert_s"]) == {"hash", "sem_single", "sem_mv"} and res["adapter_evals"] > 0
+        assert all(0.0 <= r[m] <= 1.0 for r in res["variants"] for m in ("mrr_at_10", "ndcg_at_10", "recall_at_10"))
+        mark("phase 18 (a)")
+
+        t0 = time.perf_counter()
+        with _bench_cache(root / "bench-cache"):
+            beir = _counted(total, lambda: sib.beir_main([
+                "--docs", str(PHASE18_DOCS), "--queries", str(PHASE18_BEIR_QUERIES), *common, "--dir", str(root / "beir"),
+                "--store-dir", str(root / "beir-stores"), "--variants", PHASE18_BEIR_VARIANTS]))
+        beir_s = time.perf_counter() - t0
+        log(f"phase 18 (b) the protocol as a BEIR directory ({PHASE18_DOCS} documents, {PHASE18_BEIR_QUERIES} queries) "
+            f"through irbench in {beir_s:.1f} s: " + ", ".join(f"{r['variant']} AP@10 {r['AP@10']:.4f}" for r in beir)
+            + f" on {card}")
+        assert [r["variant"] for r in beir] == PHASE18_BEIR_VARIANTS.split(",") and all(0.0 <= r["AP@10"] <= 1.0 for r in beir), beir
+        mark("phase 18 (b)")
+
+        # The sweep over (a)'s store: the same documents (the same query and
+        # adapter documents: PHASE18_RERANK_QUERIES + the rest = 100 + 200),
+        # the first PHASE18_RERANK_QUERIES queries, so its rows compare with
+        # (a)'s sem-mv+rerank and sem-multivector@PHASE18_RERANK_QUERIES.
+        t0 = time.perf_counter()
+        rest = PHASE18_QUERIES + PHASE18_ADAPTER_QUERIES - PHASE18_RERANK_QUERIES
+        blend = _counted(total, lambda: sib.blend_main([
+            "--docs", str(PHASE18_DOCS), "--queries", str(PHASE18_RERANK_QUERIES), "--adapter-queries", str(rest),
+            *common, "--workdir", str(root / "ir"), "--embedder", "flax:sem", "--blends", PHASE18_BLENDS]))
+        blend_s = time.perf_counter() - t0
+        rerank = next(r for r in res["variants"] if r["variant"] == "sem-mv+rerank")
+        log(f"phase 18 (c) reranker_blend sweep over (a)'s sem_mv store in {blend_s:.1f} s: "
+            + ", ".join(f"{r['variant']} MRR@10 {r['mrr_at_10']:.4f} nDCG@10 {r['ndcg_at_10']:.4f} recall@10 "
+                        f"{r['recall_at_10']:.4f}" for r in blend)
+            + f" over {PHASE18_RERANK_QUERIES} queries (a check of the path, not a measure) on {card}")
+        # Blend 0.0 is the reranker's order: (a)'s rerank row.
+        keys = ("mrr_at_10", "ndcg_at_10", "recall_at_10", "queries")
+        assert {k: blend[0][k] for k in keys} == {k: rerank[k] for k in keys}, (blend[0], rerank)
+        mark("phase 18 (c)")
+
+        small = _phase18_small(str(root / "corpus"))
+        card_side = _counted(total, lambda: sib.main([*small, "--device", "cuda", "--workdir", str(root / "small-cuda")]))
+        faulty = {
+            fault: _counted(total, lambda fault=fault: sib.main([
+                *small, "--device", "cuda", "--variants", "sem-multivector", "--workdir", str(root / f"small-{fault}"),
+                "--embedder", f"flax:{faulty_encoder(root / f'encoder-{fault}', fault)}"]))
+            for fault in PHASE18_FAULTS
+        }
+        cpu, _ = cpu_half(timeout=900)
+        cpu_s = cpu["s"]
+        report = {}
+        for name, rtol in PHASE18_CPU_RTOL.items():
+            got, want = card_side["rankings"][name], cpu["rankings"][name]
+            report[name] = {"rtol": rtol, "worst": _worst_difference(got, want),
+                            "mismatches": _ranking_mismatches(got, want, rtol),
+                            "control": len(_ranking_mismatches(got, want[1:] + want[:1], rtol)),
+                            "swaps": sum(x != y for ra, rb in zip(got, want) for (x, _), (y, _) in zip(ra, rb))}
+        want, rtol = cpu["rankings"]["sem-multivector"], PHASE18_CPU_RTOL["sem-multivector"]
+        report["sem-multivector"]["faults"] = {
+            fault: {"worst": _worst_difference(res_f["rankings"]["sem-multivector"], want),
+                    "mismatches": len(_ranking_mismatches(res_f["rankings"]["sem-multivector"], want, rtol))}
+            for fault, res_f in faulty.items()
+        }
+        log(f"phase 18 (d) card against CPU, {card_side['docs']} documents, {card_side['variants'][0]['queries']} queries: "
+            + ", ".join(f"{r['variant']} MRR@10 {r['mrr_at_10']:.4f} / {c['mrr_at_10']:.4f} (largest relative difference "
+                        f"of a document's score {report[r['variant']]['worst']:.3g}, limit {report[r['variant']]['rtol']:.3g}; "
+                        f"ranks where the ids differ {report[r['variant']]['swaps']}; control, the next query's ranking: "
+                        f"{report[r['variant']]['control']} mismatches, must be > 0)"
+                        for r, c in zip(card_side["variants"], cpu["variants"]))
+            + "; the card's sem-multivector through a faulty encoder, must fail the limit: "
+            + ", ".join(f"{fault} largest relative difference {f['worst']:.3g}, {f['mismatches']} mismatches"
+                        for fault, f in report["sem-multivector"]["faults"].items())
+            + f"; CPU half {cpu_s:.1f} s beside (a)-(c) (budget {PHASE18_CPU_BUDGET_S:.0f} s), on {card}")
+        assert not any(r["mismatches"] for r in report.values()), {k: r["mismatches"][:5] for k, r in report.items()}
+        assert all(r["control"] > 0 for r in report.values()), report
+        assert all(f["mismatches"] > 0 for f in report["sem-multivector"]["faults"].values()), report
+        assert cpu_s <= 3 * PHASE18_CPU_BUDGET_S, cpu_s
+        mark("phase 18 (d)")
+        out = {"corpus": summary, "variants": res["variants"], "insert_s": res["insert_s"], "adapter_s": res["adapter_s"],
+               "rerank_latency": lat, "beir": beir, "blend": blend, "cpu_s": cpu_s,
+               "cpu_parity": {k: {x: y for x, y in r.items() if x != "mismatches"} for k, r in report.items()},
+               "seconds": time.perf_counter() - t_start}
+    finally:
+        stack.close()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase 18 done in {out['seconds']:.1f} s on {card}")
     return out
 
 
@@ -6443,7 +6930,8 @@ def main() -> int:
         "one prefill launch",
     )
     parser.add_argument(
-        "--only", choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15", "phase16", "phase17"],
+        "--only",
+        choices=["prefill", "phase10", "phase11", "phase12", "phase13", "phase14", "phase15", "phase16", "phase17", "phase18"],
         help="a partial run, printing no result line: 'prefill' builds the prefill kernel, holds it against "
         "its plain version (phase 2b's cases) and times it (phase 7's rows, at T 8,192 / S 8,352 and T 2,048 / "
         "S 2,208); 'phase10' builds every kernel, serves phase 3's store at --rows rows and runs phase 10 over it "
@@ -6453,7 +6941,8 @@ def main() -> int:
         "loads the large preset and runs phase 14 on phase 6's RAG prompt; 'phase15' builds every kernel, serves phase 3's "
         "store at --rows rows and runs phase 15 over it; 'phase16' builds every kernel, serves phase 3's store at --rows "
         "rows, runs phase 4b's keyword and hybrid checks over it and then phase 16; 'phase17' builds every kernel and "
-        "runs phase 17 alone (the trainers)",
+        "runs phase 17 alone (the trainers); 'phase18' builds every kernel and runs phase 18 alone (the held-out IR "
+        "evaluation)",
     )
     # One rank of phase 12 (d), started by phase 12 itself.
     parser.add_argument("--phase12-rank", type=int, help=argparse.SUPPRESS)
@@ -6599,10 +7088,17 @@ def main() -> int:
         log("partial run (--only phase17): no result line")
         return 0
 
+    if args.only == "phase18":
+        launches18: dict[str, int] = {}
+        summary18 = phase18(card, launches18)
+        log(f"phase 18 summary on {card}: {json.dumps({**summary18, 'launches': launches18})}")
+        log("partial run (--only phase18): no result line")
+        return 0
+
     if args.only == "phase11":
         texts = [(ROOT / f).read_text(encoding="utf-8") for f in STORE_DOCS]
         launches11: dict[str, int] = {}
-        summary11 = phase11(texts, args.rows, args.seed, card, launches11)
+        summary11 = phase11(texts, args.rows // PHASE11_ROWS_DIVISOR, args.seed, card, launches11)
         log(f"phase 11 summary on {card}: {json.dumps({**summary11, 'launches': launches11})}")
         log("partial run (--only phase11): no result line")
         return 0
@@ -6768,7 +7264,9 @@ def main() -> int:
         f"peak so far {peak_before / 1e9:.3f} GB), on {card}")
     phase10_launches: dict[str, int] = {}
     decoder10 = phase10_decoder(cfg, vs_q[0], answer["messages"], args.seed, card, phase10_launches)
+    mark("phase 10 (a)-(d)")
     encoder10 = phase10_encoder(texts, vs_q, PHASE10_ROWS, args.seed, card, phase10_launches)
+    mark("phase 10 (e)")
     orbax10 = phase10_orbax(cfg, answer["messages"], answer["answer"], card, phase10_launches)
     summary10 = {k: v for k, v in decoder10.items() if k != "timings"}
     summary10["int8"] = {k: v for k, v in decoder10["int8"].items() if k != "matmuls"}
@@ -6790,7 +7288,7 @@ def main() -> int:
     # kind, learned boundaries, a persistent store on disk, a cold CLI, the
     # web chat and MCP (its own store, in a temporary directory).
     phase11_launches: dict[str, int] = {}
-    summary11 = phase11(texts, args.rows, args.seed, card, phase11_launches)
+    summary11 = phase11(texts, args.rows // PHASE11_ROWS_DIVISOR, args.seed, card, phase11_launches)
     log(f"phase 11 summary on {card}: {json.dumps({**summary11, 'launches': phase11_launches})}")
     for name in ("int4_bucket_scan", "gqa_prefill_attention"):
         assert phase11_launches.get(name, 0) > 0, (name, phase11_launches)
@@ -6801,22 +7299,43 @@ def main() -> int:
     # 13. The IR benchmark: every variant on the card and the CPU, a
     # bge-base-shaped BERT over a store at --rows (the int4 route), the
     # HNSW baseline, and the CLI's bench (its own temporary directory).
-    phase13_launches: dict[str, int] = {}
-    summary13 = phase13(args.rows, args.seed, card, phase13_launches)
-    log(f"phase 13 summary on {card}: {json.dumps({**summary13, 'launches': phase13_launches})}")
-    assert phase13_launches.get("int4_bucket_scan", 0) > 0, phase13_launches
-    mark("phase 13")
+    # (a)'s CPU half, in a process of its own, runs beside phase 13's card
+    # work and phase 17's first steps, and is joined before 17 (c), whose
+    # CPU steps want the host's cores.
+    import shutil
 
-    # 17. Training on the card: the boundary trainer's recipe, the encoder
-    # trainer's four phases at full width and the export served, the card's
-    # losses against the CPU's (its own temporary directory).
-    _release_llms()
-    _fresh_memory_store()
-    torch.cuda.empty_cache()
-    phase17_launches: dict[str, int] = {}
-    summary17 = phase17(card, phase17_launches, profile=args.profile)
+    phase13_launches: dict[str, int] = {}
+    cpu13_root = scratch_dir(200_000_000, "phase13_cpu_")
+    try:
+        with beside("phase13_synthetic", str(cpu13_root), "cpu") as cpu13:
+            summary13 = phase13(args.rows, args.seed, card, phase13_launches, cpu_half=cpu13)
+            assert phase13_launches.get("int4_bucket_scan", 0) > 0, phase13_launches
+            mark("phase 13")
+
+            # 17. Training on the card: the boundary trainer's recipe, the
+            # encoder trainer's four phases at full width and the export
+            # served, the card's losses against the CPU's (its own temporary
+            # directory).
+            _release_llms()
+            _fresh_memory_store()
+            torch.cuda.empty_cache()
+            phase17_launches: dict[str, int] = {}
+            summary17 = phase17(card, phase17_launches, profile=args.profile,
+                                before_parity=lambda: phase13_join(summary13, cpu13, card))
+    finally:
+        shutil.rmtree(cpu13_root, ignore_errors=True)
+    log(f"phase 13 summary on {card}: {json.dumps({**summary13, 'launches': phase13_launches})}")
     log(f"phase 17 summary on {card}: {json.dumps({**summary17, 'launches': phase17_launches})}")
     mark("phase 17")
+
+    # 18. The held-out IR evaluation on the card: the packaged encoder's six
+    # variants, the BEIR export through irbench, the blend sweep, the card's
+    # rankings against the CPU's (its own temporary directory).
+    _fresh_memory_store()
+    phase18_launches: dict[str, int] = {}
+    summary18 = phase18(card, phase18_launches)
+    log(f"phase 18 summary on {card}: {json.dumps({**summary18, 'launches': phase18_launches})}")
+    mark("phase 18")
     replaces = {
         "int4_bucket_scan": ("raglite_tpu_torch/csrc/int4_scan.cu", "raglite_tpu/ops/fused_scan.py:269"),
         "bucketed_max_scan": ("raglite_tpu_torch/csrc/bucket_scan.cu", "raglite_tpu/ops/fused_scan.py:65"),
@@ -6867,6 +7386,9 @@ def main() -> int:
             # and the searches over the 2-document store the export
             # embedded take the exact route (under 131,072 rows).
             "launches_phase17": phase17_launches.get(name, 0),
+            # And on phase 18's: its stores hold a few thousand rows, under
+            # the int4 route's 131,072, and it runs no decoder.
+            "launches_phase18": phase18_launches.get(name, 0),
         })
         p12 = next((x for x in summary12["index"]["timings"] + summary12["tp"]["timings"] if x["name"] == name), None)
         if p12 is not None:

@@ -1,9 +1,13 @@
 """Train the semantic text encoder on the card (counterpart of
 scripts/train_encoder.py).
 
-The same four phases, losses, optimizers and host batch draws as the
-script, over the port's ``EncoderModel``:
+The same phases, losses, optimizers and host batch draws as the script,
+over the port's ``EncoderModel``:
 
+  tokenizer    train a byte-level BPE tokenizer of the size's vocabulary on
+               ``--corpus/train.jsonl`` into ``--workdir/tokenizer.json``
+               when that file is absent (train/bpe.py: the file
+               ``tokenizers``' BpeTrainer writes);
   tokens       tokenize ``--corpus/train.jsonl`` into ``tokens.npz``
                (train/corpus.py; ``python -m raglite_tpu_torch.train.corpus``
                builds the corpus);
@@ -22,6 +26,11 @@ script, over the port's ``EncoderModel``:
   export       ``encoder.npz`` (f16 matrices), ``tokenizer.json`` and
                ``config.json`` into ``--out``, which loads as
                ``embedder="flax:<out>"``.
+
+The tokenizer of the token cache and the export: ``--tokenizer`` where it
+is given, else the workdir's trained ``tokenizer.json`` where it exists,
+else the packaged encoder's.  ``--phase all`` runs tokenizer, tokens, mlm,
+contrastive, hardneg, maxsim and export in that order.
 
 Phases chain through ``--workdir`` files (``mlm.npz`` -> ``contrastive.npz``
 -> ``hardneg.npz`` -> ``maxsim.npz``) in the JAX package's npz layout, so
@@ -56,7 +65,7 @@ from raglite_tpu_torch.models.encoder import PACKAGED_ENCODER_DIR
 from raglite_tpu_torch.models.transformer import (
     EncoderModel, load_npz_encoder, matmul_f32, params_from_jax, save_npz_encoder, state_to_jax,
 )
-from raglite_tpu_torch.train import optim
+from raglite_tpu_torch.train import bpe, optim
 from raglite_tpu_torch.train.corpus import DATA, DEFAULT_CORPUS, build_token_cache, load_tokens
 from raglite_tpu_torch.utils.precision import full_f32_matmul
 
@@ -665,7 +674,7 @@ def main(argv: list[str] | None = None) -> dict:
     from raglite_tpu_torch.config import checked_device
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--phase", default="all", choices=["tokens", "mlm", "contrastive", "hardneg", "maxsim", "export", "all"])
+    parser.add_argument("--phase", default="all", choices=["tokenizer", "tokens", "mlm", "contrastive", "hardneg", "maxsim", "export", "all"])
     parser.add_argument("--size", default="base", choices=sorted(SIZES))
     parser.add_argument("--steps", type=int, default=0)
     parser.add_argument("--batch", type=int, default=0)
@@ -678,15 +687,25 @@ def main(argv: list[str] | None = None) -> dict:
     parser.add_argument("--workdir", type=Path, help="phase files and the token cache (default data/encoder_train_<size>)")
     parser.add_argument("--out", type=Path, help="export directory (default data/encoder_<size>), loads as flax:<out>")
     parser.add_argument("--corpus", type=Path, default=DEFAULT_CORPUS, help="train.corpus's output directory")
-    parser.add_argument("--tokenizer", type=Path, default=PACKAGED_TOKENIZER, help="tokenizer.json (default: the packaged one)")
+    parser.add_argument("--tokenizer", type=Path,
+                        help="tokenizer.json (default: the workdir's trained one if it exists, else the packaged one)")
     args = parser.parse_args(argv)
     cfg = SIZES[args.size]
     run = Run(
         cfg=cfg, workdir=args.workdir or DATA / f"encoder_train_{args.size}", device=checked_device(args.device),
-        corpus=args.corpus, tokenizer=args.tokenizer, seq=min(args.seq, cfg["max_len"]) if args.seq else SEQ,
+        corpus=args.corpus, seq=min(args.seq, cfg["max_len"]) if args.seq else SEQ,
     )
     run.workdir.mkdir(parents=True, exist_ok=True)
     results: dict = {}
+    trained = run.workdir / "tokenizer.json"
+    if args.phase in ("tokenizer", "all") and not trained.exists():
+        t0 = time.perf_counter()
+        spec = bpe.train_tokenizer(bpe.corpus_texts(run.corpus / "train.jsonl"), cfg["vocab"])
+        bpe.write_tokenizer(spec, trained)
+        results["tokenizer"] = {"vocab": len(spec["model"]["vocab"]), "merges": len(spec["model"]["merges"]),
+                                "s": time.perf_counter() - t0}
+        run.log(f"tokenizer: {results['tokenizer']}")
+    run.tokenizer = args.tokenizer or (trained if trained.exists() else PACKAGED_TOKENIZER)
     if args.phase in ("tokens", "all") and not (run.workdir / "tokens.npz").exists():
         results["tokens"] = build_token_cache(run.corpus, run.workdir / "tokens.npz", str(run.tokenizer))
         run.log(f"token cache: {results['tokens']}")

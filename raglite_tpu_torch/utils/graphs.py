@@ -19,6 +19,12 @@ logits, the counters).  :class:`StepGraph` runs it:
   later call replays the graph.  A failed capture or replay raises;
   nothing falls back to the eager step.
 
+Python's cyclic garbage collector is paused while a capture runs
+(:func:`gc_paused`): a collection inside a capture can destroy an
+unreachable graph (graphs sit in reference cycles with their steps and
+programs), and destroying a graph is not permitted while a stream of this
+thread captures: the capture is invalidated.
+
 A kernel launch recorded during a capture does not run, so it is not
 counted there (``ops/cuda_build.py:recording_launches``); the graph adds
 it to its kernel's ``launch_counts`` on each replay.
@@ -52,6 +58,7 @@ captures on a generation's stream.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -133,6 +140,31 @@ def on_stream(stream: torch.cuda.Stream | None):
     return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
 
 
+_gc_lock = threading.Lock()
+_gc_pauses = 0
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def gc_paused() -> Iterator[None]:
+    """No cyclic garbage collection inside the block (module docstring),
+    across threads: the collector is enabled again, if it was, when the last
+    of the paused blocks ends."""
+    global _gc_pauses, _gc_was_enabled
+    with _gc_lock:
+        if _gc_pauses == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_pauses += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pauses -= 1
+            if _gc_pauses == 0 and _gc_was_enabled:
+                gc.enable()
+
+
 class StepGraph:
     """``step`` run eagerly (``capture`` False), or run eagerly once and then
     replayed from a CUDA graph captured on the current stream (``capture``
@@ -165,7 +197,7 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         if self.generator is not None:
             graph.register_generator_state(self.generator)
-        with cuda_build.recording_launches() as recorded:
+        with gc_paused(), cuda_build.recording_launches() as recorded:
             graph.capture_begin(capture_error_mode="thread_local")
             try:
                 self.step()
@@ -427,7 +459,7 @@ class ProgramGraphs:
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
-        with cuda_build.recording_launches() as recorded:
+        with gc_paused(), cuda_build.recording_launches() as recorded:
             graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
             try:
                 outputs = program(*statics)

@@ -13,6 +13,7 @@ dispatch mode that raises on the ops that read a tensor on the host or
 give a shape that depends on the data.
 """
 
+import gc
 import itertools
 import sys
 import threading
@@ -352,6 +353,50 @@ def test_launches_recorded_under_capture_count_on_replay(monkeypatch) -> None:
     with pytest.raises(RuntimeError, match="cudaError 700"):
         cuda_build.launch(counts, "a", lambda *args: 700, [], device)
     assert counts["a"] == 5
+
+
+def test_no_garbage_collection_inside_a_capture(monkeypatch) -> None:
+    """The cyclic collector is off while a step or a program is captured
+    (a collection there could destroy another graph and void the capture),
+    also while two threads capture at once, and on again after the last."""
+
+    class _Graph:
+        def register_generator_state(self, generator) -> None: ...
+        def capture_begin(self, **kwargs) -> None: ...
+        def capture_end(self) -> None: ...
+
+    seen = []
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    graphs.StepGraph(lambda: seen.append(gc.isenabled()), capture=True)()
+    assert seen == [True, False] and gc.isenabled()
+    monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 0)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    programs = graphs.ProgramGraphs(torch.device("cpu"))
+    programs._capture(lambda x: seen.append(gc.isenabled()) or x, [torch.zeros(1)])
+    assert seen[-1] is False and gc.isenabled()
+    inside = threading.Barrier(3)
+    outside = threading.Event()
+
+    def capture() -> None:
+        with graphs.gc_paused():
+            inside.wait()
+            outside.wait()
+            seen.append(gc.isenabled())
+
+    threads = [threading.Thread(target=capture) for _ in range(2)]
+    for t in threads:
+        t.start()
+    inside.wait()
+    with graphs.gc_paused():
+        pass  # a third pause ends while the other two last
+    assert not gc.isenabled()
+    outside.set()
+    for t in threads:
+        t.join(timeout=30)
+    assert seen[-2:] == [False, False] and gc.isenabled()
+    with pytest.raises(ValueError), graphs.gc_paused():
+        raise ValueError
+    assert gc.isenabled()
 
 
 def test_eager_where_no_graph_is_captured(torch_llm) -> None:

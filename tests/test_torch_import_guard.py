@@ -17,6 +17,7 @@ card by default,
 and asking for the card where there is none raises instead of running on
 the CPU."""
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -57,6 +58,7 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.irbench, raglite_tpu_torch.models.unicode_props
         import raglite_tpu_torch.train.optim, raglite_tpu_torch.train.corpus
         import raglite_tpu_torch.train.encoder, raglite_tpu_torch.train.boundary
+        import raglite_tpu_torch.train.bpe, raglite_tpu_torch.train.semantic_ir_bench
         assert "pydantic" not in sys.modules
         assert "pandas" not in sys.modules
         assert "click" not in sys.modules
@@ -148,16 +150,33 @@ def test_boundary_model_on_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyP
 
 
 def test_trainers_on_cuda_without_a_gpu_raise(monkeypatch: pytest.MonkeyPatch, tmp_path) -> None:
-    """The trainers' command lines ask for the card by default and raise
-    where there is none, before they read or write a file."""
+    """The trainers' and the held-out evaluation's command lines ask for the
+    card by default and raise where there is none, before they read or write
+    a file; with ``--device cpu`` the evaluation runs."""
     from raglite_tpu_torch.train import boundary, encoder
+    from raglite_tpu_torch.train import semantic_ir_bench as sib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         boundary.main(["--out", str(tmp_path / "b.npz")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         encoder.main(["--phase", "mlm", "--workdir", str(tmp_path / "work")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        encoder.main(["--phase", "tokenizer", "--workdir", str(tmp_path / "work")])
+    args = ["--docs", "4", "--queries", "1", "--corpus", str(tmp_path / "corpus"), "--embedder", "hash:64"]
+    for main, extra in ((sib.main, ["--adapter-queries", "0", "--workdir", str(tmp_path / "ir")]),
+                        (sib.beir_main, ["--dir", str(tmp_path / "beir"), "--store-dir", str(tmp_path / "stores")]),
+                        (sib.blend_main, ["--adapter-queries", "0", "--workdir", str(tmp_path / "ir")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            main([*args, *extra])
     assert not list(tmp_path.iterdir())
+    (tmp_path / "corpus").mkdir()
+    text = " ".join(f"Sentence number {i} talks about katydids and crickets singing at night." for i in range(12))
+    (tmp_path / "corpus" / "heldout.jsonl").write_text("".join(
+        json.dumps({"id": f"{i:016x}", "title": "", "text": f"Document {i}. {text}"}) + "\n" for i in range(4)))
+    out = sib.main([*args, "--adapter-queries", "0", "--workdir", str(tmp_path / "ir"), "--device", "cpu",
+                    "--variants", "hash-single"])
+    assert out["device"] == "cpu" and [r["queries"] for r in out["variants"]] == [1]
 
 
 def test_multi_gpu_is_ported() -> None:
