@@ -156,7 +156,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    verify launches counted), ``@int8`` logits equal to the in-memory model
    quantized alike; the JAX package's orbax fixture (compressed frames)
    read on the card and the CPU (leaves equal, f32 logits within
-   FIXTURE_LOGIT_TOL) and the native decoder's MB/s on one host thread.
+   FIXTURE_LOGIT_TOL) and the native decoder's MB/s on one host thread;
+   (e)'s encoder once more as orbax's zarr v3 layout
+   (write_zarr3_checkpoint: sharding_indexed, zstd, a crc32c index, in
+   OCDBT) read as ``flax:ckpt:<dir>`` (weights and query embeddings equal
+   to the zarr v2 load bit for bit, the same ids, one int4 launch a query;
+   read s and GB/s beside zarr v2's); every layout fixture
+   (tests/data/orbax_layouts: zarr v3 sharded and Blosc, zarr v2 Blosc,
+   gzip, zlib, bz2, big-endian and F order, numbered OCDBT manifests) read
+   on the card and the CPU (every leaf equal) and each codec's host decode
+   MB/s on one thread.
 11. From files to answers through the surfaces (after phase 10 and the
    stores of 8 (d) and 9 (f); a store of its own in a temporary directory):
    (a) a PDF (pages, Flate streams, a Type1 body font, a Type0 heading font
@@ -2956,6 +2965,61 @@ def _logits_of(model, params, ids, cache_dtype=None):
     return logits[0]
 
 
+def write_zarr3_checkpoint(path: Path, params, config: dict) -> int:
+    """Write ``params`` (a tree of dicts and lists of torch tensors) and
+    ``config`` as orbax's ``use_zarr3=True`` OCDBT checkpoint: each leaf one
+    shard (``sharding_indexed``: one inner chunk, ``bytes`` little-endian
+    and ``zstd`` as raw-block frames; a ``bytes`` + ``crc32c`` index at the
+    end) in the port's OcdbtWriter database.  The package writes orbax's
+    default zarr v2 only, as the JAX package's save does; this writer makes
+    the zarr v3 layout that phase 10 (f) reads on the card, where orbax is
+    absent.  Returns the bytes on disk."""
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch import native
+    from raglite_tpu_torch.models.checkpoint import _host, _leaves
+    from raglite_tpu_torch.models.ocdbt import OcdbtWriter
+
+    little = {"name": "bytes", "configuration": {"endian": "little"}}
+    tree_metadata = {}
+    with OcdbtWriter(path / "params") as writer:
+        for keys, leaf in _leaves(params):
+            t = _host(leaf)
+            name, shape = ".".join(k for k, _ in keys), list(t.shape)
+            dtype = "bfloat16" if t.dtype == torch.bfloat16 else t.reshape(-1)[:0].numpy().dtype.name
+            frame = native.zstd_raw_frame(t.reshape(-1).view(torch.uint8).numpy())
+            index = np.asarray([0, frame.size], "<u8").view(np.uint8)
+            crc = np.frombuffer(native.crc32c(index).to_bytes(4, "little"), np.uint8)
+            meta = {
+                "zarr_format": 3, "node_type": "array", "shape": shape, "data_type": dtype,
+                "chunk_grid": {"name": "regular", "configuration": {"chunk_shape": shape}},
+                "chunk_key_encoding": {"name": "default"},
+                "fill_value": False if dtype == "bool" else 0.0 if t.is_floating_point() else 0,
+                "codecs": [{"name": "sharding_indexed", "configuration": {
+                    "chunk_shape": shape, "codecs": [little, {"name": "zstd", "configuration": {"level": 0, "checksum": False}}],
+                    "index_codecs": [little, {"name": "crc32c"}], "index_location": "end"}}],
+            }
+            writer.put(f"{name}/zarr.json", json.dumps(meta).encode())
+            writer.put(f"{name}/" + "/".join(["c", *("0" for _ in shape)]), np.concatenate([frame, index, crc]))
+            tree_metadata[str(tuple(k for k, _ in keys))] = {
+                "key_metadata": [{"key": k, "key_type": kt} for k, kt in keys],
+                "value_metadata": {"value_type": "np.ndarray", "skip_deserialize": False},
+            }
+        writer.commit()
+    (path / "params" / "_METADATA").write_text(json.dumps({
+        "tree_metadata": tree_metadata, "use_ocdbt": True, "use_zarr3": True,
+        "store_array_data_equal_to_fill_value": True, "custom_metadata": None,
+    }))
+    (path / "params" / "_CHECKPOINT_METADATA").write_text(json.dumps({
+        "item_handlers": "orbax.checkpoint._src.handlers.pytree_checkpoint_handler.PyTreeCheckpointHandler",
+        "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": 0, "commit_timestamp_nsecs": 0,
+        "custom_metadata": {},
+    }))
+    (path / "config.json").write_text(json.dumps(config))
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
 def phase10_orbax_encoder(ecfg, queries: list[str], total: dict[str, int], card: str) -> dict:
     """Phase 10 (f), the encoder: phase 10 (e)'s bge-m3-shaped encoder
     through save_checkpoint and ``flax:ckpt:<dir>``.  The format holds the
@@ -2963,18 +3027,25 @@ def phase10_orbax_encoder(ecfg, queries: list[str], total: dict[str, int], card:
     the JAX package), so the in-memory model is held to it with that
     tokenizer: every weight and the query embeddings equal bit for bit, and
     vector_search over phase 10 (e)'s store through each returns the same
-    ids (int4 route, launches counted)."""
+    ids (int4 route, launches counted).  Then the same encoder written as
+    orbax's zarr v3 layout (write_zarr3_checkpoint) and served as
+    ``flax:ckpt:<dir>``: weights and query embeddings bit-equal to the zarr
+    v2 load, the same ids, one int4 scan launch a query; the read seconds
+    beside the zarr v2 ones (both files just written: warm reads)."""
     import dataclasses
     import shutil
+
+    import torch
 
     from raglite_tpu_torch.embed import embed_queries
     from raglite_tpu_torch.index.dense import dense_index_from_config
     from raglite_tpu_torch.models import encoder as enc
     from raglite_tpu_torch.models.tokenizer import ByteTokenizer
+    from raglite_tpu_torch.models.transformer import params_to_jax
     from raglite_tpu_torch.search import vector_search
 
     encoder = enc.encoder_from_config(ecfg)
-    root = scratch_dir(1_300_000_000, "ckpt_enc_")
+    root = scratch_dir(2_600_000_000, "ckpt_enc_")
     make = enc._make_encoder
     try:
         t0 = time.perf_counter()
@@ -3007,7 +3078,44 @@ def phase10_orbax_encoder(ecfg, queries: list[str], total: dict[str, int], card:
             f"({nbytes / 1e9:.3f} GB on disk) on {card}: {len(want_state)} weights and {len(queries)} query embeddings "
             f"equal bit for bit to the in-memory model's (byte tokenizer, as the format reads), {len(queries)} "
             f"vector_searches over phase 10 (e)'s {dense_index_from_config(ecfg).num_rows} rows through it with the same ids (launches {launches})")
-        return {"encoder_save_s": save_s, "encoder_load_s": load_s, "encoder_bytes": nbytes}
+
+        t0 = time.perf_counter()
+        nbytes3 = write_zarr3_checkpoint(root / "enc3", params_to_jax(encoder._model), encoder._cfg)
+        save3_s = time.perf_counter() - t0
+        c3cfg = dataclasses.replace(ecfg, embedder=f"flax:ckpt:{root / 'enc3'}")
+        t0 = time.perf_counter()
+        back3 = enc.encoder_from_config(c3cfg)
+        load3_s = time.perf_counter() - t0
+        state3 = back3._model.state_dict()
+        assert sorted(state3) == sorted(got_state) and all(_same_bits(got_state[k], state3[k]) for k in got_state)
+        got3 = back3.embed(queries)
+        assert got3.dtype == got.dtype and got3.shape == got.shape and (got3.view("u1") == got.view("u1")).all()
+        assert (embed_queries(queries, config=c3cfg).view("u1") == embed_queries(queries, config=ccfg).view("u1")).all()
+        launches3: dict[str, int] = {}
+        ids3 = _counted(launches3, lambda: [vector_search(q, num_results=10, config=c3cfg)[0] for q in queries])
+        for name, count in launches3.items():
+            total[name] = total.get(name, 0) + count
+        assert ids3 == ids_got, (ids3, ids_got)
+        assert launches3["int4_bucket_scan"] == len(queries), launches3
+        # Both read once more, in the other order (zarr v2 was read first above).
+        again = {}
+        for name, path in (("zarr3", root / "enc3"), ("zarr2", root / "enc")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model = enc.TransformerEncoder(f"ckpt:{path}", device="cuda")
+            torch.cuda.synchronize()
+            again[name] = time.perf_counter() - t0
+            del model
+        log(f"phase 10 (f) flax:ckpt: zarr v3 (orbax's use_zarr3 layout: sharding_indexed, zstd frames, crc32c "
+            f"index, in OCDBT) of the same encoder written in {save3_s:.2f} s ({nbytes3 / 1e9:.3f} GB) and read onto "
+            f"the card in {load3_s:.2f} s, {nbytes3 / load3_s / 1e9:.2f} GB/s (zarr v2: {load_s:.2f} s, "
+            f"{nbytes / load_s / 1e9:.2f} GB/s), then in turn zarr v3 {again['zarr3']:.2f} s, zarr v2 "
+            f"{again['zarr2']:.2f} s (all warm) on {card}: {len(state3)} weights and {len(queries)} query "
+            f"embeddings equal bit for bit to the zarr v2 load's, {len(queries)} vector_searches with the same ids "
+            f"(launches {launches3})")
+        return {"encoder_save_s": save_s, "encoder_load_s": load_s, "encoder_bytes": nbytes,
+                "encoder_zarr3_save_s": save3_s, "encoder_zarr3_load_s": load3_s, "encoder_zarr3_bytes": nbytes3,
+                "encoder_reload_s": again}
     finally:
         enc._make_encoder = make
         shutil.rmtree(root, ignore_errors=True)
@@ -3061,7 +3169,118 @@ def phase10_fixture(card: str) -> dict:
         f"{decoded // passes} decoded) read on the card and the CPU: leaves equal bit for bit, f32 logits within "
         f"{err:.3g} (<= {FIXTURE_LOGIT_TOL}); the native zstd decoder {mb_s:.1f} MB/s decoded on one host thread "
         f"({passes} passes in {seconds:.3f} s), on {card}")
-    return {"fixture_logit_err": err, "zstd_decode_mb_s": mb_s}
+    return {"fixture_logit_err": err, "zstd_decode_mb_s": mb_s, **phase10_layout_fixtures(card)}
+
+
+#: One orbax checkpoint per layout the JAX package restores
+#: (scripts/orbax_layout_fixtures.py): zarr v3 sharded and Blosc, zarr v2
+#: Blosc, gzip, zlib and bz2, big-endian and F-order arrays, numbered OCDBT
+#: manifests.
+ORBAX_LAYOUTS = ROOT / "tests" / "data" / "orbax_layouts"
+
+
+def phase10_layout_fixtures(card: str) -> dict:
+    """Phase 10 (f), the layouts: each committed layout fixture read on the
+    card and on the CPU, every leaf equal bit for bit; then each codec's
+    host decode MB/s (_codec_rates)."""
+    from raglite_tpu_torch.models.checkpoint import load_checkpoint
+
+    layouts = sorted(p for p in ORBAX_LAYOUTS.iterdir() if p.is_dir())
+    assert len(layouts) == 7, layouts
+    leaves = 0
+    for root in layouts:
+        on_card, _ = load_checkpoint(root, device="cuda")
+        on_cpu, _ = load_checkpoint(root, device="cpu")
+        card_leaves, cpu_leaves = _tree_leaves(on_card), _tree_leaves(on_cpu)
+        assert sorted(card_leaves) == sorted(cpu_leaves), root.name
+        assert all(card_leaves[k].is_cuda and _same_bits(card_leaves[k].cpu(), cpu_leaves[k]) for k in cpu_leaves), root.name
+        leaves += len(cpu_leaves)
+    log(f"phase 10 (f) the {len(layouts)} layout fixtures ({', '.join(p.name for p in layouts)}; {leaves} leaves) "
+        f"read on the card and the CPU: every leaf equal bit for bit, on {card}")
+    rates = _codec_rates()
+    for codec, (mb_s, decoded, source) in rates.items():
+        log(f"phase 10 (f) host decode {codec}: {mb_s:.1f} MB/s decoded on one host thread ({decoded / 1e6:.1f} MB "
+            f"a pass; {source}), on {card}")
+    return {"decode_mb_s": {codec: rate[0] for codec, rate in rates.items()}}
+
+
+def _tiled_blosc(container: bytes, size: int) -> bytes:
+    """A Blosc container of ``size`` or more bytes whose blocks are all
+    ``container``'s first block (blocks decode independently)."""
+    header = container[:16]
+    blocksize, cbytes = int.from_bytes(header[8:12], "little"), int.from_bytes(header[12:16], "little")
+    nblocks = -(-int.from_bytes(header[4:8], "little") // blocksize)
+    start = int.from_bytes(container[16:20], "little")
+    end = int.from_bytes(container[20:24], "little") if nblocks > 1 else cbytes
+    block = container[start:end]
+    copies = -(-size // blocksize)
+    first = 16 + 4 * copies
+    total = first + copies * len(block)
+    head = header[:4] + (copies * blocksize).to_bytes(4, "little") + header[8:12] + total.to_bytes(4, "little")
+    starts = b"".join((first + i * len(block)).to_bytes(4, "little") for i in range(copies))
+    return head + starts + block * copies
+
+
+def _codec_rates(size: int = 4_000_000, seconds: float = 0.25) -> dict[str, tuple[float, int, str]]:
+    """{codec: (MB/s, bytes decoded a pass, what was decoded)}: the port's
+    decoders on one host thread.  Blosc: a container of about ``size``
+    bytes tiled from the zarr2_blosc fixture's largest compressed block of
+    each inner codec; zstd: the ocdbt_numbered fixture's largest chunk (a
+    tensorstore frame) repeated; gzip, zlib and bz2 (Python's): ``size``
+    bytes of bf16 values on 16 levels (as the fixtures draw them), made by
+    Python's compressors here."""
+    import bz2
+    import gzip
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from raglite_tpu_torch import native
+    from raglite_tpu_torch.models.checkpoint import _bytes_decode
+    from raglite_tpu_torch.models.ocdbt import OcdbtReader
+
+    samples: dict[str, tuple[bytes, int, str]] = {}  # codec: (input, decoded bytes, source)
+    blosc = ORBAX_LAYOUTS / "zarr2_blosc" / "params"
+    best: dict[str, tuple[int, bytes, str]] = {}
+    for zarray in blosc.glob("*/.zarray"):
+        codec = "blosc-" + json.loads(zarray.read_text())["compressor"]["cname"]
+        for chunk in zarray.parent.iterdir():
+            raw = chunk.read_bytes()
+            if chunk.name == ".zarray" or raw[2] & 0x2:  # stored, not compressed
+                continue
+            blocksize = int.from_bytes(raw[8:12], "little")
+            if blocksize > best.get(codec, (0,))[0]:
+                best[codec] = (blocksize, raw, f"{zarray.parent.name}/{chunk.name}")
+    for codec, (blocksize, raw, where) in best.items():
+        tiled = _tiled_blosc(raw, size)
+        shuffle = "bit" if raw[2] & 0x4 else "byte" if raw[2] & 0x1 else "no"
+        samples[codec] = (tiled, int.from_bytes(tiled[4:8], "little"),
+                          f"{where}'s {blocksize}-byte block ({shuffle} shuffle, type size {raw[3]}) tiled")
+    with OcdbtReader(ORBAX_LAYOUTS / "ocdbt_numbered" / "params") as store:
+        frame = max((store.get(k) for k in store.keys() if not k.endswith(".zarray")), key=len)
+    one = native.zstd_decompress(frame, np.empty(1 << 20, np.uint8), exact=False)
+    copies = -(-size // one)
+    samples["zstd"] = (frame * copies, one * copies, f"ocdbt_numbered's largest frame x {copies}")
+    values = torch.from_numpy(np.random.default_rng(0).integers(-8, 8, size // 2) / 32).to(torch.bfloat16)
+    plain = values.view(torch.uint8).numpy().tobytes()
+    for codec, packed in (("gzip", gzip.compress(plain, 6)), ("zlib", zlib.compress(plain, 6)), ("bz2", bz2.compress(plain, 9))):
+        samples[codec] = (packed, len(plain), f"{len(plain)} bytes of bf16 on 16 levels, Python's compressor")
+    out = np.empty(max(n for _, n, _ in samples.values()), np.uint8)
+    rates = {}
+    for codec, (data, n, source) in samples.items():
+        dst = out[:n]
+        passes, t0 = 0, time.perf_counter()
+        while passes == 0 or time.perf_counter() - t0 < seconds:
+            if codec.startswith("blosc"):
+                native.blosc_decompress(data, dst)
+            elif codec == "zstd":
+                native.zstd_decompress(data, dst)
+            else:
+                _bytes_decode(codec, data, n, dst, codec)
+            passes += 1
+        rates[codec] = (n * passes / (time.perf_counter() - t0) / 1e6, n, source)
+    return rates
 
 
 def phase10_orbax(cfg, messages, answer: str | None, card: str, total: dict[str, int]) -> dict:

@@ -29,6 +29,10 @@ little-endian).  Integers in bodies are LEB128 varints unless noted.
   subtree common prefix length (stripped from the child's keys), its
   reference and its statistics.
 
+With ``manifest_kind`` 1 (numbered), ``manifest.ocdbt`` holds the config
+alone and each commit writes ``manifest.<generation as 16 hex digits>``:
+the config again and the version tree.
+
 :class:`OcdbtReader` walks the newest version's tree; :class:`OcdbtWriter`
 writes one single-process database (values and nodes in one data file, the
 manifest last) with orbax's config.
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import mmap
 import os
+import re
 import threading
 import time
 import uuid
@@ -52,6 +57,7 @@ __all__ = ["DirectoryStore", "OcdbtReader", "OcdbtWriter"]
 MANIFEST_MAGIC = 0x0CDB3A2A
 NODE_MAGIC = 0x0CDB20DE
 _MISSING = (1 << 64) - 1  # the offset and length of an empty version's root
+_NUMBERED = re.compile(r"manifest\.[0-9a-f]{16}")  # a numbered manifest (its generation in hex)
 
 #: The config orbax writes (decoded from a checkpoint of the JAX package's
 #: ``save_checkpoint``: orbax 0.11, tensorstore 0.1.80).
@@ -245,18 +251,20 @@ class OcdbtReader(_Store):
 
     def __init__(self, root: str | Path) -> None:
         super().__init__(root)
-        body = unwrap((self.root / "manifest.ocdbt").read_bytes(), MANIFEST_MAGIC, "manifest")
-        r = _Reader(body)
-        r.raw(16)  # uuid
-        kind = r.varint()
-        if kind != 0:
-            msg = "OCDBT: numbered manifests (manifest_kind 1) are not read; only single-file manifests"
+        r = _Reader(unwrap((self.root / "manifest.ocdbt").read_bytes(), MANIFEST_MAGIC, "manifest"))
+        uuid_, kind = self._config(r)
+        if kind == 1:  # numbered: manifest.ocdbt holds the config, the newest manifest.<16 hex digits> the versions
+            numbered = sorted(p.name for p in self.root.iterdir() if _NUMBERED.fullmatch(p.name))
+            if not numbered:
+                msg = f"OCDBT: {self.root} has a numbered-manifest config and no numbered manifest"
+                raise ValueError(msg)
+            r = _Reader(unwrap((self.root / numbered[-1]).read_bytes(), MANIFEST_MAGIC, f"manifest {numbered[-1]}"))
+            if self._config(r)[0] != uuid_:  # (its own kind field reads 0)
+                msg = f"OCDBT: {numbered[-1]} belongs to another database than manifest.ocdbt"
+                raise ValueError(msg)
+        elif kind != 0:
+            msg = f"OCDBT: manifest kind {kind} (single-file and numbered manifests are read)"
             raise NotImplementedError(msg)
-        r.varint()  # max inline value bytes
-        self.max_decoded_node_bytes = r.varint()
-        r.byte()  # version tree arity log2
-        if r.varint() == 1:
-            r.raw(4)  # zstd level
         paths = _read_table(r)
         n = r.varint()
         if n == 0:
@@ -268,6 +276,16 @@ class OcdbtReader(_Store):
         self._entries: dict[bytes, bytes | tuple[str, int, int]] = {}
         if offsets[-1] != _MISSING:
             self._walk((paths[file_ids[-1]], offsets[-1], lengths[-1]), self.height, b"")
+
+    def _config(self, r: _Reader) -> tuple[bytes, int]:
+        """Reads a manifest's config; (uuid, manifest kind)."""
+        uuid_, kind = r.raw(16), r.varint()
+        r.varint()  # max inline value bytes
+        self.max_decoded_node_bytes = r.varint()
+        r.byte()  # version tree arity log2
+        if r.varint() == 1:
+            r.raw(4)  # zstd level
+        return uuid_, kind
 
     def _walk(self, ref: tuple[str, int, int], height: int, prefix: bytes) -> None:
         data = bytes(self._files.view(*ref))

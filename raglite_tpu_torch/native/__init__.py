@@ -14,7 +14,11 @@ raglite_tpu/native/__init__.py, which the port never imports):
   package's, so that the same vectors and seed give the same ids and scores.
 - ``zstd.cpp``: a zstd frame decoder (RFC 8878), a raw-block frame writer
   and CRC32C, the codecs of orbax's OCDBT/zarr checkpoints
-  (models/ocdbt.py, models/checkpoint.py).  These have no Python fallback:
+  (models/ocdbt.py, models/checkpoint.py).
+- ``blosc.cpp``: the Blosc container (both unshuffles) with its LZ4,
+  BloscLZ and Snappy decoders, tensorstore's ``blosc`` compressor
+  (models/checkpoint.py); its zlib streams go to Python's zlib, its zstd
+  streams to ``zstd.cpp``.  These codecs have no Python fallback:
   :func:`require_native` raises with the build's error.
 
 The sources go into one library, built with ``g++ -O3 -shared -fPIC -std=c++17 -pthread`` at first use
@@ -33,13 +37,14 @@ import logging
 import os
 import subprocess
 import threading
+import zlib
 from pathlib import Path
 
 import numpy as np
 
 logger = logging.getLogger(__name__)
 
-_SOURCES = tuple(Path(__file__).parent / name for name in ("postings.cpp", "hnsw.cpp", "zstd.cpp"))
+_SOURCES = tuple(Path(__file__).parent / name for name in ("postings.cpp", "hnsw.cpp", "zstd.cpp", "blosc.cpp"))
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 _LIB_PATH = _BUILD_DIR / "libraglite_native.so"
 _LOCK = threading.Lock()
@@ -144,6 +149,12 @@ def load_native() -> ctypes.CDLL | None:
         lib.rlt_zstd_raw_frame.restype = c_i64
         lib.rlt_crc32c.argtypes = [c_void, c_i64, c_u32]
         lib.rlt_crc32c.restype = c_u32
+        lib.rlt_blosc_error.argtypes = []
+        lib.rlt_blosc_error.restype = c_char_p
+        lib.rlt_blosc_nbytes.argtypes = [c_void, c_i64]
+        lib.rlt_blosc_nbytes.restype = c_i64
+        lib.rlt_blosc_decompress.argtypes = [c_void, c_i64, c_void, c_i64, _InflateFn]
+        lib.rlt_blosc_decompress.restype = c_i64
         _LIB = lib
         return _LIB
 
@@ -199,6 +210,50 @@ def zstd_raw_frame(data) -> np.ndarray:
     out = np.empty(lib.rlt_zstd_raw_frame_size(n), np.uint8)
     written = lib.rlt_zstd_raw_frame(ptr, n, out.ctypes.data)
     return out[:written]
+
+
+#: The inflate callback of Blosc's zlib streams: (src, size, dst, cap) ->
+#: bytes written, or -1.
+_InflateFn = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64)
+
+
+def _inflate(src: int, size: int, dst: int, cap: int) -> int:
+    try:
+        out = zlib.decompress(ctypes.string_at(src, size))
+    except zlib.error:
+        return -1
+    if len(out) > cap:
+        return -1
+    ctypes.memmove(dst, out, len(out))
+    return len(out)
+
+
+_INFLATE = _InflateFn(_inflate)  # kept alive for the library's calls
+
+
+def _blosc_failed(lib, code: int):
+    message = lib.rlt_blosc_error().decode()
+    return NotImplementedError(message) if code == -2 else ValueError(message)
+
+
+def blosc_decompress(src, out=None):
+    """Decode the Blosc container ``src`` into ``out`` (a writable CPU
+    tensor or numpy array of exactly its uncompressed size), or into a new
+    uint8 array; returns ``out``.  Raises ValueError on a truncated or
+    corrupt container or another size than ``out``'s, NotImplementedError on
+    a codec or format version it does not read."""
+    lib = require_native()
+    src_ptr, src_len = _address(src)
+    n = lib.rlt_blosc_nbytes(src_ptr, src_len)
+    if n < 0:
+        raise _blosc_failed(lib, n)
+    if out is None:
+        out = np.empty(n, np.uint8)
+    dst_ptr, dst_len = _address(out, writable=True)
+    written = lib.rlt_blosc_decompress(src_ptr, src_len, dst_ptr, dst_len, _INFLATE)
+    if written < 0:
+        raise _blosc_failed(lib, written)
+    return out
 
 
 def crc32c(data) -> int:

@@ -281,14 +281,6 @@ def test_directory_layout_without_ocdbt(tmp_path) -> None:
     _assert_same_tree(got, want)
 
 
-def test_zarr3_checkpoints_are_refused(tmp_path) -> None:
-    (tmp_path / "params").mkdir()
-    (tmp_path / "config.json").write_text("{}")
-    (tmp_path / "params" / "_METADATA").write_text(json.dumps({"tree_metadata": {}, "use_zarr3": True}))
-    with pytest.raises(NotImplementedError, match="use_zarr3"):
-        load_checkpoint(tmp_path)
-
-
 def _fixture_module():
     spec = importlib.util.spec_from_file_location("orbax_fixture", ROOT / "scripts" / "orbax_fixture.py")
     module = importlib.util.module_from_spec(spec)

@@ -115,6 +115,44 @@ def test_ckpt_load_leaves_storage_packages_unloaded(tmp_path) -> None:
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_every_checkpoint_layout_loads_without_storage_packages() -> None:
+    """Each committed layout fixture (zarr v3 sharded and Blosc, zarr v2
+    Blosc, gzip, zlib, bz2, big-endian and F order, numbered OCDBT
+    manifests) loads through ``ckpt:`` or ``flax:ckpt:`` with none of
+    tensorstore, ml_dtypes, zstandard, orbax, numcodecs, zarr, blosc, lz4,
+    JAX or the JAX package loaded; the native sources they need are
+    first-party C++ that includes the standard library alone."""
+    code = textwrap.dedent(
+        """
+        import sys
+        from pathlib import Path
+        from raglite_tpu_torch.models.checkpoint import load_checkpoint
+        from raglite_tpu_torch.models.decoder import TorchChatLLM
+        from raglite_tpu_torch.models.encoder import TransformerEncoder
+        for root in sorted(Path("tests/data/orbax_layouts").iterdir()):
+            tree, cfg = load_checkpoint(root)
+            if "lm_head" in tree:
+                assert TorchChatLLM(f"ckpt:{root}", device="cpu").cfg == cfg
+            else:
+                assert TransformerEncoder(f"ckpt:{root}", device="cpu").embed(["x"]).shape == (1, cfg["d_model"])
+        loaded = {m.split(".")[0] for m in sys.modules}
+        bad = loaded & {"tensorstore", "ml_dtypes", "zstandard", "orbax", "numcodecs", "zarr", "blosc", "lz4",
+                        "jax", "raglite_tpu"}
+        assert not bad, bad
+        print("ok")
+        """
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    from raglite_tpu_torch import native
+
+    assert {p.name for p in native._SOURCES} >= {"zstd.cpp", "blosc.cpp"}
+    for source in native._SOURCES:
+        includes = {line.split()[1] for line in source.read_text().splitlines() if line.startswith("#include")}
+        # C++ standard headers only: <name>, no ".h" (no zlib, lz4, blosc or zstd headers)
+        assert all(i.startswith("<") and "." not in i for i in includes), (source.name, includes)
+
+
 def test_cuda_without_a_gpu_raises(monkeypatch: pytest.MonkeyPatch) -> None:
     from raglite_tpu_torch import RAGLiteConfig
     from raglite_tpu_torch.search import vector_search
