@@ -236,7 +236,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    background rows up to ``--rows`` before their runs: one int4 launch a
    dense query (asserted), the multivector document runs' recall@10 against
    the exact route >= RECALL_MIN, a search's p50, AP@10, insert and seeding
-   seconds, the encoder's tokens/s; (c) hnsw_recall_comparison at 3,000 x
+   seconds, the encoder's tokens/s; then the same weights beside a second,
+   truncating tokenizer.json (Nmt, Strip and BERT normalizers; WhitespaceSplit,
+   Punctuation and Digits; truncation 512) as ``flax:<dir>`` over the same
+   store: 8 vector_search calls (one int4 launch each, asserted), a
+   token-level batch of the 8 longest documents (the Markdown ones
+   included), each cut to the first 512 ids of the untruncated encode, and
+   the 8 query embeddings on the card against the CPU's within
+   PHASE13_AP_ATOL, each part timed; (c) hnsw_recall_comparison at 3,000 x
    256 (the scan on the card): recall and memory of the f16 and int8 scans
    and of HNSW, its build seconds and ms a query, the claim asserted; (d)
    ``bench --num-queries 16`` and ``bench --hnsw-recall --num-rows 1000``
@@ -329,7 +336,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    export, whose
    ``flax:<dir>`` embeddings of 8 sentences equal the f16-rounded weights
    built in memory within PHASE17_EXPORT_ATOL, and a 2-document store
-   embedded with it answering 8 vector_search calls; (c) the card against
+   embedded with it answering 8 vector_search calls; that export turned
+   into an HF-layout directory by ``train.export_hf``'s ``main`` and served
+   as ``flax:<dir>``, its embeddings of the 8 sentences equal to the npz
+   export's within PHASE17_EXPORT_ATOL (timed); (c) the card against
    the CPU on the same batches at batch 8: 3 MLM steps from the seeded init
    and 3 contrastive steps from the packaged encoder, every loss within
    PHASE17_LOSS_RTOL and the first step's gradients within PHASE17_GRAD_COS
@@ -5107,6 +5117,24 @@ def wordpiece_tokenizer_json(texts: list[str], vocab_size: int = 30_522) -> dict
     }
 
 
+def truncating_tokenizer_json(spec: dict, max_length: int | None = 512) -> dict:
+    """Phase 13 (b)'s second tokenizer.json: ``wordpiece_tokenizer_json``'s
+    vocabulary (``spec``) behind a ``Sequence`` of the Nmt, Strip and BERT
+    normalizers and one of the WhitespaceSplit, Punctuation and Digits
+    pre-tokenizers, truncated to ``max_length`` from the right (None: not
+    truncated), not padded."""
+    truncation = None if max_length is None else {
+        "direction": "Right", "max_length": max_length, "strategy": "LongestFirst", "stride": 0}
+    return {
+        **spec, "truncation": truncation, "padding": None,
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Nmt"}, {"type": "Strip", "strip_left": True, "strip_right": True}, spec["normalizer"]]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "WhitespaceSplit"}, {"type": "Punctuation", "behavior": "Isolated"},
+            {"type": "Digits", "individual_digits": False}]},
+    }
+
+
 def write_beir(directory: Path, dataset) -> Path:
     """``dataset`` as a BEIR directory (corpus.jsonl, queries.jsonl,
     qrels.tsv): each document's first line as its title, the rest as its
@@ -5202,7 +5230,8 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
     ckpt = root / "bge-base"
     t0 = time.perf_counter()
     ckpt.mkdir(parents=True)
-    (ckpt / "tokenizer.json").write_text(json.dumps(wordpiece_tokenizer_json(_markdown_texts())))
+    tokenizer_spec = wordpiece_tokenizer_json(_markdown_texts())
+    (ckpt / "tokenizer.json").write_text(json.dumps(tokenizer_spec))
     written = write_bge_m3_checkpoint(ckpt, seed + 13, config=BGE_BASE_CONFIG)
     write_s = time.perf_counter() - t0
     dataset = beir_directory_dataset(str(write_beir(root / "synthetic-beir", synthetic_dataset(num_docs=PHASE13_QUERIES))))
@@ -5272,7 +5301,75 @@ def phase13_bert(rows: int, seed: int, root: Path, card: str, total: dict[str, i
         + f"; int4 launches one a dense query (asserted); multivector document runs' recall@10 against the exact route "
         f"{recall:.4f}; one evaluator search p50 {search_p50:.3f} ms; the encoder {tokens_per_s:.0f} tokens/s "
         f"(token-level batches of the {len(texts)} documents)")
+    out["truncation"] = phase13_truncation(first.config, ckpt, tokenizer_spec, index, texts, queries[:8], card, total)
     return out
+
+
+def phase13_truncation(cfg, ckpt: Path, spec: dict, index, texts: list[str], queries: list[str], card: str,
+                       total: dict[str, int]) -> dict:
+    """Phase 13 (b)'s truncating tokenizer: the same weights (linked) beside
+    ``truncating_tokenizer_json(spec)`` served as ``flax:<dir>`` over the
+    phase's store: ``queries`` through vector_search (one int4 launch each),
+    a token-level batch of the 8 longest of the phase's documents and the
+    Markdown documents (each cut to its first 512 ids, asserted against the
+    same components untruncated), and the queries' embeddings on the card
+    against the CPU's."""
+    import dataclasses
+    import os
+    import shutil
+
+    import numpy as np
+
+    from raglite_tpu_torch.embed import embed_queries
+    from raglite_tpu_torch.models.encoder import encoder_from_config
+    from raglite_tpu_torch.models.tokenizer import HFTokenizer
+    from raglite_tpu_torch.search import vector_search
+
+    t0 = time.perf_counter()
+    trunc = ckpt.parent / "bge-base-truncating"
+    trunc.mkdir()
+    for name in ("model.safetensors", "config.json"):
+        try:
+            os.link(ckpt / name, trunc / name)
+        except OSError:
+            shutil.copyfile(ckpt / name, trunc / name)
+    (trunc / "tokenizer.json").write_text(json.dumps(truncating_tokenizer_json(spec)))
+    (trunc / "untruncated.json").write_text(json.dumps(truncating_tokenizer_json(spec, None)))
+    tcfg = dataclasses.replace(cfg, embedder=f"flax:{trunc}")
+    launches: dict[str, int] = {}
+    _counted(launches, lambda: [vector_search(q, num_results=10, config=tcfg) for q in queries])
+    for name, count in launches.items():
+        total[name] = total.get(name, 0) + count
+    assert index.last_route == "int4_two_stage" and launches.get("int4_bucket_scan", 0) == len(queries), launches
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encoder = encoder_from_config(tcfg)
+    longest = sorted([*texts, *_markdown_texts()], key=len, reverse=True)[:8]
+    states = encoder.embed_token_level_batch(longest)
+    full = HFTokenizer(str(trunc / "untruncated.json"))
+    lengths = []
+    for text, state in zip(longest, states):
+        ids, untruncated = encoder._tokenizer.encode(text), full.encode(text)
+        assert len(ids) <= 512 and ids == untruncated[:512] and state.shape == (len(ids), 768), (len(ids), state.shape)
+        assert np.isfinite(state).all()
+        lengths.append(len(untruncated))
+    assert max(lengths) > 512, lengths  # the cut was exercised
+    tokens_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_emb = embed_queries(queries, config=tcfg)
+    cpu_emb = embed_queries(queries, config=dataclasses.replace(tcfg, device="cpu"))
+    err = float(np.abs(card_emb - cpu_emb).max())
+    cos = float(min(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)) for a, b in zip(card_emb, cpu_emb)))
+    cpu_s = time.perf_counter() - t0
+    log(f"phase 13 (b) truncating tokenizer.json (Nmt, Strip, BertNormalizer; WhitespaceSplit, Punctuation, Digits; "
+        f"truncation 512): {len(queries)} vector_search calls in {search_s:.2f} s (launches {launches}); a token-level "
+        f"batch of the 8 longest documents (untruncated {sorted(lengths)} ids, each longer one cut to its first 512) in "
+        f"{tokens_s:.2f} s; the {len(queries)} query embeddings on the card against the CPU's: max |diff| {err:.3g} "
+        f"(limit {PHASE13_AP_ATOL}), least cosine {cos:.6f}, in {cpu_s:.2f} s; on {card}")
+    assert card_emb.shape == (len(queries), 768) and np.isfinite(card_emb).all()
+    assert err <= PHASE13_AP_ATOL, err
+    return {"search_s": search_s, "tokens_s": tokens_s, "cpu_s": cpu_s, "max_abs_diff": err, "min_cos": cos,
+            "untruncated_lengths": lengths}
 
 
 def phase13_hnsw(card: str) -> dict:
@@ -6605,7 +6702,7 @@ def phase17_encoder(root: Path, card: str, total: dict[str, int]) -> dict:
     from raglite_tpu_torch.models.encoder import PACKAGED_ENCODER_DIR, TransformerEncoder, encoder_from_config
     from raglite_tpu_torch.models.tokenizer import load_tokenizer
     from raglite_tpu_torch.models.transformer import EncoderModel, load_npz_encoder
-    from raglite_tpu_torch.train import corpus
+    from raglite_tpu_torch.train import corpus, export_hf
     from raglite_tpu_torch.train import encoder as te
 
     work, out = root / "work", root / "export"
@@ -6660,7 +6757,22 @@ def phase17_encoder(root: Path, card: str, total: dict[str, int]) -> dict:
     assert got.shape == (len(texts), 768) and np.isfinite(got).all()
     assert export_err <= PHASE17_EXPORT_ATOL, export_err
     assert all(len(ids) == 5 and np.isfinite(scores).all() for ids, scores in results), results
-    return {"corpus": {**summary, "tokens": tokens["tokens"]}, "phases": report, "export_max_abs_diff": export_err}
+
+    # The npz export through the HF export module (export_hf's command
+    # line), served as flax:<dir>: the same f16 matrices and f32 vectors.
+    t0 = time.perf_counter()
+    export_hf.main(["--src", str(out), "--out", str(root / "export-hf")])
+    hf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hf = encoder_from_config(RAGLiteConfig(embedder=f"flax:{root / 'export-hf'}", device="cuda")).embed(texts)
+    hf_err = float(np.abs(hf - got).max())
+    log(f"phase 17 (b) HF export (python -m raglite_tpu_torch.train.export_hf): model.safetensors "
+        f"{(root / 'export-hf' / 'model.safetensors').stat().st_size / 1e6:.1f} MB in {hf_s:.2f} s; its flax:<dir> "
+        f"embeddings of the {len(texts)} texts against the npz export's: max |diff| {hf_err:.3g} (limit "
+        f"{PHASE17_EXPORT_ATOL}), in {time.perf_counter() - t0:.2f} s, on {card}")
+    assert hf.shape == got.shape and hf_err <= PHASE17_EXPORT_ATOL, hf_err
+    return {"corpus": {**summary, "tokens": tokens["tokens"]}, "phases": report, "export_max_abs_diff": export_err,
+            "hf_export_max_abs_diff": hf_err, "hf_export_s": hf_s}
 
 
 def phase17_profile(work: Path, card: str) -> None:

@@ -8,24 +8,32 @@
   added tokens (``special``, ``normalized``, ``lstrip``, ``rstrip``,
   ``single_word``), then the normalizer (``NFC``, ``NFD``, ``NFKC``,
   ``NFKD``, ``Lowercase``, ``StripAccents``, ``BertNormalizer``,
-  ``Precompiled``, ``Prepend``, ``Replace``, ``Sequence``), the
-  pre-tokenizer (``ByteLevel``, ``Split``, ``Metaspace``,
-  ``BertPreTokenizer``, ``Whitespace``, ``Sequence``) and the model (``BPE``
-  with ``byte_fallback``, ``ignore_merges``, ``fuse_unk``; ``Unigram`` by
+  ``Precompiled``, ``Prepend``, ``Replace``, ``Nmt``, ``Strip``,
+  ``ByteLevel``, ``Sequence``), the pre-tokenizer (``ByteLevel``,
+  ``Split``, ``Metaspace``, ``BertPreTokenizer``, ``Whitespace``,
+  ``WhitespaceSplit``, ``Punctuation``, ``Digits``, ``CharDelimiterSplit``,
+  ``UnicodeScripts``, ``FixedLength``, ``Sequence``) and the model (``BPE``
+  with ``byte_fallback``, ``ignore_merges``, ``fuse_unk``,
+  ``continuing_subword_prefix``, ``end_of_word_suffix``; ``Unigram`` by
   Viterbi over the piece scores, with ``byte_fallback``; ``WordPiece``,
-  greedy longest match first); ``decode`` runs the decoder (``ByteLevel``,
-  ``Metaspace``, ``WordPiece``, ``ByteFallback``, ``Fuse``, ``Strip``,
-  ``Replace``, ``Sequence``; with none, tokens joined by spaces, as
-  ``tokenizers`` does) and skips special added tokens.  Any other component
-  raises ``NotImplementedError`` naming it.  The Unicode properties the
-  components read are those of ``tokenizers``' own tables
-  (models/unicode_props.py), and ``Precompiled`` (XLM-R's SentencePiece
-  charsmap) looks extended grapheme clusters up whole, as ``tokenizers``
-  does.
-  Split patterns in the Oniguruma syntax of ``tokenizers`` (``\\p{L}``,
-  ``\\p{N}``, ``\\s``, ``(?i:...)``) are translated to Python ``re`` with
-  the Unicode classes spelled out.  The special ids come from the sibling
-  ``config.json``, as in the JAX package.
+  greedy longest match first; ``WordLevel``), then the file's
+  ``truncation`` and ``padding``; ``decode`` runs the decoder
+  (``ByteLevel``, ``Metaspace``, ``WordPiece``, ``ByteFallback``, ``Fuse``,
+  ``Strip``, ``Replace``, ``BPEDecoder``, ``CTC``, ``Sequence``; with none,
+  tokens joined by spaces, as ``tokenizers`` does) and skips special added
+  tokens.  BPE dropout strictly between 0 and 1 raises
+  ``NotImplementedError``: ``tokenizers`` samples its merges at random, so
+  no reader can give its ids.  A component ``tokenizers`` 0.22 does not
+  have raises it too, naming it.  The Unicode properties the components
+  read are those of ``tokenizers``' own tables (models/unicode_props.py),
+  and ``Precompiled`` (XLM-R's SentencePiece charsmap) looks extended
+  grapheme clusters up whole, as ``tokenizers`` does.
+  Split and Replace patterns in the Oniguruma syntax of ``tokenizers``
+  (``\\p{L}``, ``\\p{Letter}``, ``\\p{Han}``, ``\\P{..}``, ``\\s``, ``\\S``,
+  ``(?i:...)``) are translated to Python ``re`` with the Unicode classes
+  spelled out: every property name Oniguruma accepts (general categories,
+  scripts, blocks, binary properties), inside a class too.  The special
+  ids come from the sibling ``config.json``, as in the JAX package.
 - ``load_tokenizer``: the ``HFTokenizer`` of a checkpoint's
   ``tokenizer.json`` (``required=False``: the byte tokenizer, with a
   warning, where there is none).
@@ -39,8 +47,6 @@ import json
 import os
 import re
 import struct
-import sys
-import unicodedata
 import warnings
 from functools import lru_cache
 from typing import Callable
@@ -85,70 +91,183 @@ def _bytes_to_unicode() -> dict[int, str]:
     return {b: chr(c) for b, c in zip(keep, chars)}
 
 
-#: Unicode White_Space (what ``\s`` means in the patterns of ``tokenizers``;
-#: Python's ``\s`` also takes \x1c-\x1f).
+#: Unicode White_Space, as a class body (what an added token's ``lstrip``
+#: and ``rstrip`` take; Python's ``\s`` also takes \x1c-\x1f).
 _WHITESPACE = "\t\n\x0b\x0c\r \x85\xa0\u1680\u2000-\u200a\u2028\u2029\u202f\u205f\u3000"
 
 
-@lru_cache(maxsize=8)
-def _category_class(prefix: str) -> str:
-    """Regex class body of every code point whose general category starts
-    with ``prefix`` ("L" for \\p{L}, "N" for \\p{N}, "Lu" ...); Python's
-    ``re`` has no \\p{...}."""
-    ranges: list[list[int]] = []
-    for cp in range(sys.maxunicode + 1):
-        if unicodedata.category(chr(cp)).startswith(prefix):
-            if ranges and ranges[-1][1] == cp - 1:
-                ranges[-1][1] = cp
-            else:
-                ranges.append([cp, cp])
+def _class_body(ranges) -> str:
+    """A regex class body (no brackets) of inclusive code point ranges."""
     return "".join(
         re.escape(chr(a)) if a == b else f"{re.escape(chr(a))}-{re.escape(chr(b))}"
         for a, b in ranges
     )
 
 
+#: Oniguruma's shorthand classes as its property names (Unicode, not ASCII).
+_SHORTHANDS = {"s": "space", "d": "digit", "w": "word", "h": "xdigit"}
+#: Escaped characters that stand for another one.
+_ESCAPED = {"t": "\t", "n": "\n", "r": "\r", "f": "\f", "v": "\v", "a": "\a", "e": "\x1b"}
+
+
+def _escape(pattern: str, i: int, in_class: bool = False) -> tuple[tuple | str | None, int]:
+    """The escape at ``pattern[i]`` (a backslash): a set of code points as
+    ranges (``\\p{..}``, ``\\P{..}``, ``\\s``, ``\\d``, ``\\w``, ``\\h`` and
+    their negations; ``in_class``: as read inside a class), one character
+    (``\\n``, ``\\x41``, ``\\x{263A}``, ``\\u263A``, ``\\.``), or None (an
+    escape Python reads alike); and the index after it."""
+    nxt = pattern[i + 1]
+    if nxt in "pP" and pattern[i + 2 : i + 3] == "{":
+        end = pattern.index("}", i)
+        ranges = U.onig_property(pattern[i + 3 : end], in_class)
+        return (U.complement(ranges) if nxt == "P" else ranges), end + 1
+    if nxt.lower() in _SHORTHANDS:
+        ranges = U.onig_property(_SHORTHANDS[nxt.lower()], in_class)
+        return (U.complement(ranges) if nxt.isupper() else ranges), i + 2
+    if nxt == "x" and pattern[i + 2 : i + 3] == "{":
+        end = pattern.index("}", i)
+        return chr(int(pattern[i + 3 : end], 16)), end + 1
+    if nxt in "xu":
+        width = 2 if nxt == "x" else 4
+        return chr(int(pattern[i + 2 : i + 2 + width], 16)), i + 2 + width
+    if nxt in _ESCAPED:
+        return _ESCAPED[nxt], i + 2
+    if nxt.isalnum():
+        return None, i + 2
+    return nxt, i + 2
+
+
+#: A POSIX bracket inside a class (a name of letters: another text between
+#: "[:" and ":]" is a nested class).
+_POSIX = re.compile(r"\[:(\^?[A-Za-z]+):\]")
+
+
+def _parse_class(pattern: str, i: int) -> tuple[tuple[tuple[int, int], ...], int]:
+    """The Oniguruma class at ``pattern[i]`` (a ``[``) as ranges, and the
+    index after it: characters, ranges, escapes, nested classes, POSIX
+    brackets (``[:alpha:]``, ``[:^alpha:]``), ``&&`` intersections (an empty
+    operand empties the class, as in Oniguruma) and a leading ``^``; a
+    ``]`` right after the opening is a literal."""
+    i += 1
+    negate = pattern[i : i + 1] == "^"
+    i += negate
+    operands: list[list[tuple[int, int]]] = []
+    items: list[tuple[int, int]] = []
+    start = i
+    while True:
+        if i >= len(pattern):
+            msg = f"unterminated character class in {pattern!r}"
+            raise ValueError(msg)
+        c = pattern[i]
+        if c == "]" and i > start:
+            i += 1
+            break
+        if pattern.startswith("&&", i):
+            operands.append(items)
+            items, i = [], i + 2
+            continue
+        posix = _POSIX.match(pattern, i)
+        if posix:
+            items.extend(U.posix_bracket(posix.group(1)))
+            i = posix.end()
+            continue
+        if c == "[":
+            ranges, i = _parse_class(pattern, i)
+            items.extend(ranges)
+            continue
+        if c == "\\":
+            lo, i = _escape(pattern, i, True)
+            if isinstance(lo, tuple):
+                if pattern[i : i + 1] == "-" and pattern[i + 1 : i + 2] not in ("]", ""):
+                    msg = f"a class cannot start a range in {pattern!r}"
+                    raise ValueError(msg)
+                items.extend(lo)
+                continue
+            if lo is None:
+                msg = f"escape {pattern[i - 2 : i]!r} in a class is not supported"
+                raise NotImplementedError(msg)
+        else:
+            lo, i = c, i + 1
+        hi = lo
+        if pattern[i : i + 1] == "-" and pattern[i + 1 : i + 2] not in ("]", "") and not pattern.startswith("&&", i + 1):
+            i += 1
+            if pattern[i] == "\\":
+                hi, i = _escape(pattern, i, True)
+                if not isinstance(hi, str):
+                    msg = f"a range cannot end in a class in {pattern!r}"
+                    raise ValueError(msg)
+            elif pattern[i] == "[":
+                msg = f"a range cannot end in a class in {pattern!r}"
+                raise ValueError(msg)
+            else:
+                hi, i = pattern[i], i + 1
+        items.append((ord(lo), ord(hi)))
+    operands.append(items)
+    ranges = U.merged(operands[0])
+    for operand in operands[1:]:
+        ranges = U.intersect(ranges, U.merged(operand))
+    return (U.complement(ranges) if negate else ranges), i
+
+
+def _set_class(ranges) -> str:
+    body = _class_body(ranges)
+    return f"[{body}]" if body else "(?!)"
+
+
 def _translate_regex(pattern: str) -> str:
-    """An Oniguruma pattern of ``tokenizers`` as Python ``re``: ``\\p{X}``
-    and ``\\s`` spelled out (inside a class too), ``\\P{X}`` and ``\\S``
-    outside one; every other construct is passed through."""
+    """An Oniguruma pattern of ``tokenizers`` as Python ``re`` (which has no
+    \\p{...}, nested classes or ``&&``, and another ``\\w``, ``\\d``, ``\\b``
+    and ``\\Z``): every class and every set escape (``\\p{X}``, ``\\P{X}``,
+    ``\\s``, ``\\d``, ``\\w``, ``\\h`` and their negations) spelled out as
+    the code points Oniguruma's tables give it; ``\\z``, ``\\Z``, ``\\b``,
+    ``\\B``, ``\\R`` and named groups rewritten; every other construct is
+    passed through (Python's ``re`` rejects those it lacks, such as ``\\X``
+    and ``\\G``).  A property name Oniguruma rejects raises
+    ``ValueError``."""
     out: list[str] = []
-    i, in_class = 0, False
+    i = 0
     while i < len(pattern):
         c = pattern[i]
         if c == "\\" and i + 1 < len(pattern):
             nxt = pattern[i + 1]
-            if nxt in "pP" and pattern[i + 2 : i + 3] == "{":
-                end = pattern.index("}", i)
-                name = pattern[i + 3 : end]
-                if not (1 <= len(name) <= 2 and name[0].isupper()):
-                    msg = f"regex property \\{nxt}{{{name}}} is not supported"
-                    raise NotImplementedError(msg)
-                body = _category_class(name)
-                if nxt == "P":
-                    if in_class:
-                        msg = f"negated property \\P{{{name}}} inside a class is not supported"
-                        raise NotImplementedError(msg)
-                    out.append(f"[^{body}]")
-                else:
-                    out.append(body if in_class else f"[{body}]")
+            if nxt in "zZ":  # end of string; Oniguruma's \Z also before a final newline
+                out.append(r"\Z" if nxt == "z" else r"(?=\n?\Z)")
+                i += 2
+                continue
+            if nxt == "R":  # a line break
+                out.append("(?:\r\n|[\n\x0b\x0c\r\x85\u2028\u2029])")
+                i += 2
+                continue
+            if nxt == "k" and pattern[i + 2 : i + 3] == "<":  # a named back-reference
+                end = pattern.index(">", i)
+                out.append(f"(?P={pattern[i + 3 : end]})")
                 i = end + 1
                 continue
-            if nxt == "s":
-                out.append(_WHITESPACE if in_class else f"[{_WHITESPACE}]")
-            elif nxt == "S":
-                if in_class:
-                    msg = "\\S inside a class is not supported"
-                    raise NotImplementedError(msg)
-                out.append(f"[^{_WHITESPACE}]")
+            if nxt in "bB":  # word boundaries by Oniguruma's \w
+                word = _set_class(U.onig_property("word"))
+                if nxt == "b":
+                    out.append(f"(?:(?<={word})(?!{word})|(?<!{word})(?={word}))")
+                else:
+                    out.append(f"(?:(?<={word})(?={word})|(?<!{word})(?!{word}))")
+                i += 2
+                continue
+            value, j = _escape(pattern, i)
+            if isinstance(value, tuple):
+                out.append(_set_class(value))
+            elif isinstance(value, str):
+                out.append(re.escape(value))
             else:
-                out.append(pattern[i : i + 2])
-            i += 2
+                out.append(pattern[i:j])
+            i = j
             continue
-        if c == "[" and not in_class:
-            in_class = True
-        elif c == "]" and in_class:
-            in_class = False
+        if c == "[":
+            ranges, i = _parse_class(pattern, i)
+            out.append(_set_class(ranges))
+            continue
+        if pattern.startswith("(?<", i) and pattern[i + 3 : i + 4] not in ("=", "!"):  # a named group
+            out.append("(?P<")
+            i += 3
+            continue
         out.append(c)
         i += 1
     return "".join(out)
@@ -282,6 +401,24 @@ def _normalizer(spec: dict | None) -> Callable[[str], str] | None:
     if kind == "Replace":
         rx, content = _pattern(spec["pattern"]), spec["content"]
         return lambda s: rx.sub(lambda _: content, s)
+    if kind == "Nmt":
+        table = U.nmt_map()
+        return lambda s: s.translate(table)
+    if kind == "Strip":
+        left, right = spec.get("strip_left", True), spec.get("strip_right", True)
+
+        def strip(s: str) -> str:
+            a, b = 0, len(s)
+            while left and a < b and U.is_whitespace(s[a]):
+                a += 1
+            while right and b > a and U.is_whitespace(s[b - 1]):
+                b -= 1
+            return s[a:b]
+
+        return strip
+    if kind == "ByteLevel":
+        byte_map = _bytes_to_unicode()
+        return lambda s: "".join(byte_map[b] for b in s.encode("utf-8"))
     if kind == "Sequence":
         steps = [_normalizer(n) for n in spec["normalizers"]]
 
@@ -301,17 +438,31 @@ def _normalizer(spec: dict | None) -> Callable[[str], str] | None:
 Piece = tuple[str, bool]
 
 
-def _split(text: str, first: bool, rx: re.Pattern, behavior: str, invert: bool = False) -> list[Piece]:
+#: Where a pattern matches a text: its (start, end) spans, in order.
+Finder = Callable[[str], list[tuple[int, int]]]
+
+
+def _regex_finder(rx: re.Pattern) -> Finder:
+    return lambda text: [m.span() for m in rx.finditer(text)]
+
+
+def _char_finder(pred: Callable[[str], bool]) -> Finder:
+    """A character predicate as ``tokenizers`` matches one: each character
+    that satisfies it is a match of its own."""
+    return lambda text: [(i, i + 1) for i, c in enumerate(text) if pred(c)]
+
+
+def _split(text: str, first: bool, find: Finder, behavior: str, invert: bool = False) -> list[Piece]:
     """``NormalizedString::split`` of ``tokenizers``: the text cut into the
     pattern's matches and the gaps between them, then joined per
     ``behavior``; empty pieces are dropped."""
     spans: list[list] = []  # [start, end, is_match]
     prev = 0
-    for m in rx.finditer(text):
-        if m.start() != prev:
-            spans.append([prev, m.start(), invert])
-        spans.append([m.start(), m.end(), not invert])
-        prev = m.end()
+    for start, end in find(text):
+        if start != prev:
+            spans.append([prev, start, invert])
+        spans.append([start, end, not invert])
+        prev = end
     if prev != len(text):
         spans.append([prev, len(text), invert])
     if behavior == "Removed":
@@ -359,6 +510,20 @@ def _split_classes(text: str, first: bool, classify: Callable[[str], int]) -> li
     return out
 
 
+def _split_scripts(text: str, first: bool) -> list[Piece]:
+    """``UnicodeScripts``: a cut before each character whose script differs
+    from the last script seen; Any (class 0) neither cuts nor counts, so
+    that spaces join the run before them and leading ones are dropped."""
+    cuts, last = [], None
+    for i, c in enumerate(text):
+        cls = U.script(c)
+        if cls and cls != last:
+            cuts.append(i)
+            last = cls
+    cuts.append(len(text))
+    return [(text[a:b], first and a == 0) for a, b in zip(cuts, cuts[1:])]
+
+
 def _bert_class(c: str) -> int:
     """BertPreTokenizer's split: white space removed, each punctuation
     character isolated."""
@@ -381,8 +546,28 @@ def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]]:
 
         return sequence
     if kind == "Split":
-        rx, behavior, invert = _pattern(spec["pattern"]), spec["behavior"], bool(spec.get("invert", False))
-        return lambda pieces: [p for text, first in pieces for p in _split(text, first, rx, behavior, invert)]
+        find, behavior = _regex_finder(_pattern(spec["pattern"])), spec["behavior"]
+        invert = bool(spec.get("invert", False))
+        return lambda pieces: [p for text, first in pieces for p in _split(text, first, find, behavior, invert)]
+    if kind in ("WhitespaceSplit", "Punctuation", "Digits", "CharDelimiterSplit"):  # splits on a character predicate
+        if kind == "WhitespaceSplit":
+            pred, behavior = U.is_whitespace, "Removed"
+        elif kind == "Punctuation":
+            pred, behavior = U.is_punctuation, spec.get("behavior", "Isolated")
+        elif kind == "Digits":
+            pred, behavior = U.is_numeric, "Isolated" if spec.get("individual_digits") else "Contiguous"
+        else:
+            pred, behavior = spec["delimiter"].__eq__, "Removed"
+        find = _char_finder(pred)
+        return lambda pieces: [p for text, first in pieces for p in _split(text, first, find, behavior)]
+    if kind == "UnicodeScripts":
+        return lambda pieces: [p for text, first in pieces for p in _split_scripts(text, first)]
+    if kind == "FixedLength":
+        n = int(spec.get("length", 5))
+        if n < 1:
+            msg = "FixedLength: the length must be at least 1"
+            raise ValueError(msg)
+        return lambda pieces: [(text[i : i + n], first and i == 0) for text, first in pieces for i in range(0, len(text), n)]
     if kind == "ByteLevel":
         prefix, use_regex, byte_map = bool(spec.get("add_prefix_space", True)), spec.get("use_regex", True), _bytes_to_unicode()
 
@@ -391,7 +576,7 @@ def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]]:
             for text, first in pieces:
                 if prefix and not text.startswith(" "):
                     text = " " + text
-                words = _split(text, first, _gpt2_split(), "Isolated") if use_regex else [(text, first)]
+                words = _split(text, first, _regex_finder(_gpt2_split()), "Isolated") if use_regex else [(text, first)]
                 out.extend(("".join(byte_map[b] for b in w.encode("utf-8")), f) for w, f in words)
             return out
 
@@ -399,7 +584,7 @@ def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]]:
     if kind == "Metaspace":
         repl = spec.get("replacement", "▁")
         scheme = spec.get("prepend_scheme") or ("always" if spec.get("add_prefix_space", True) else "never")
-        split, rx = spec.get("split", True), re.compile(re.escape(repl))
+        split, find = spec.get("split", True), _regex_finder(re.compile(re.escape(repl)))
 
         def metaspace(pieces: list[Piece]) -> list[Piece]:
             out = []
@@ -407,7 +592,7 @@ def _pre_tokenizer(spec: dict | None) -> Callable[[list[Piece]], list[Piece]]:
                 text = text.replace(" ", repl)
                 if not text.startswith(repl) and (scheme == "always" or (scheme == "first" and first)):
                     text = repl + text
-                out.extend(_split(text, first, rx, "MergedWithNext") if split else [(text, first)])
+                out.extend(_split(text, first, find, "MergedWithNext") if split else [(text, first)])
             return out
 
         return metaspace
@@ -426,23 +611,38 @@ def _byte_token(b: int) -> str:
 
 
 class _BPE:
-    """``tokenizers``' BPE: characters (or their byte tokens, or the unk
-    token, fused) merged by rank, lowest rank then leftmost first."""
+    """``tokenizers``' BPE: characters (the continuing-subword prefix before
+    all but the first, the end-of-word suffix after the last; or their byte
+    tokens, or the unk token, fused) merged by rank, lowest rank then
+    leftmost first.  A merge of ``a`` and ``b`` makes ``a`` + ``b`` less the
+    prefix's length."""
 
     def __init__(self, spec: dict) -> None:
-        for key in ("continuing_subword_prefix", "end_of_word_suffix", "dropout"):
-            if spec.get(key):
-                msg = f"BPE {key}={spec[key]!r} is not supported"
-                raise NotImplementedError(msg)
+        dropout = spec.get("dropout")
+        if dropout is not None and not 0.0 <= dropout <= 1.0:
+            msg = f"BPE dropout={dropout!r} is not between 0 and 1"
+            raise ValueError(msg)
+        if dropout is not None and 0.0 < dropout < 1.0:
+            msg = (
+                f"BPE dropout={dropout!r} is not supported: tokenizers skips each merge at random with this "
+                "probability, so no reader can give the same ids"
+            )
+            raise NotImplementedError(msg)
+        # Dropout 1 skips every merge (tokenizers draws u in [0, 1) and
+        # skips the merge where u < dropout).
+        self.no_merges = dropout == 1.0
         self.vocab: dict[str, int] = spec["vocab"]
         self.unk = spec.get("unk_token")
         self.fuse_unk = bool(spec.get("fuse_unk", False))
         self.byte_fallback = bool(spec.get("byte_fallback", False))
         self.ignore_merges = bool(spec.get("ignore_merges", False))
+        self.prefix = spec.get("continuing_subword_prefix") or ""
+        self.suffix = spec.get("end_of_word_suffix") or ""
+        cut = len(self.prefix.encode("utf-8"))
         self.merges: dict[tuple[int, int], tuple[int, int]] = {}
         for rank, m in enumerate(spec["merges"]):
             a, b = m.split(" ", 1) if isinstance(m, str) else m
-            self.merges[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b])
+            self.merges[(self.vocab[a], self.vocab[b])] = (rank, self.vocab[a + b.encode("utf-8")[cut:].decode("utf-8")])
         self.id_to_token = {i: t for t, i in self.vocab.items()}
 
     def tokenize(self, word: str) -> list[int]:
@@ -451,7 +651,12 @@ class _BPE:
             return [vocab[word]]
         ids: list[int] = []
         unk: tuple[int, int] | None = None  # a pending (fused) unk: (id, chars)
-        for ch in word:
+        last = len(word) - 1
+        for i, ch in enumerate(word):
+            if i and self.prefix:
+                ch = self.prefix + ch
+            if i == last and self.suffix:
+                ch += self.suffix
             tid = vocab.get(ch)
             if tid is not None:
                 if unk is not None:
@@ -471,7 +676,7 @@ class _BPE:
                 unk = (unk_id, 0)
         if unk is not None:
             ids.append(unk[0])
-        return self._merge(ids)
+        return ids if self.no_merges else self._merge(ids)
 
     def _merge(self, ids: list[int]) -> list[int]:
         merges = self.merges
@@ -623,6 +828,22 @@ class _WordPiece:
         return ids
 
 
+class _WordLevel:
+    """``tokenizers``' WordLevel: each word's id, or the unk token's."""
+
+    def __init__(self, spec: dict) -> None:
+        self.vocab: dict[str, int] = spec["vocab"]
+        self.unk = spec.get("unk_token", "<unk>")
+        self.id_to_token = {i: t for t, i in self.vocab.items()}
+
+    def tokenize(self, word: str) -> list[int]:
+        tid = self.vocab.get(word, self.vocab.get(self.unk))
+        if tid is None:
+            msg = f"WordLevel: {word!r} and the unk token {self.unk!r} are not in the vocabulary"
+            raise ValueError(msg)
+        return [tid]
+
+
 def _model(spec: dict):
     kind = spec.get("type") or ("BPE" if "merges" in spec else "Unigram" if isinstance(spec.get("vocab"), list) else None)
     if kind == "BPE":
@@ -631,6 +852,8 @@ def _model(spec: dict):
         return _Unigram(spec)
     if kind == "WordPiece":
         return _WordPiece(spec)
+    if kind == "WordLevel":
+        return _WordLevel(spec)
     msg = f"tokenizer.json model {kind!r} is not supported"
     raise NotImplementedError(msg)
 
@@ -739,6 +962,26 @@ def _decoder(spec: dict | None) -> Callable[[list[str]], list[str]] | None:
     if kind == "Replace":
         rx, content = _pattern(spec["pattern"]), spec["content"]
         return lambda tokens: [rx.sub(lambda _: content, tok) for tok in tokens]
+    if kind == "BPEDecoder":
+        suffix = spec.get("suffix", "</w>")
+        return lambda tokens: [tok.replace(suffix, "" if i == len(tokens) - 1 else " ") for i, tok in enumerate(tokens)]
+    if kind == "CTC":
+        pad, delimiter = spec.get("pad_token", "<pad>"), spec.get("word_delimiter_token", "|")
+        cleanup = spec.get("cleanup", True)
+
+        def ctc(tokens: list[str]) -> list[str]:
+            out = []
+            for i, tok in enumerate(tokens):
+                if i and tok == tokens[i - 1]:
+                    continue  # repeats collapse first
+                tok = tok.replace(pad, "")
+                if cleanup:
+                    tok = _cleanup(tok).replace(delimiter, " ")
+                if tok:
+                    out.append(tok)
+            return out
+
+        return ctc
     if kind == "Sequence":
         steps = [_decoder(d) for d in spec["decoders"]]
 
@@ -826,6 +1069,8 @@ class HFTokenizer:
         norm = self._normalize or (lambda s: s)
         self._raw_added = _AddedTokens(plain, [t["content"] for t in plain])
         self._norm_added = _AddedTokens(normed, [norm(t["content"]) for t in normed])
+        self._truncation = spec.get("truncation")
+        self._padding = spec.get("padding")
         self._vocab = {**self._model.vocab, **self._added_ids}
         self._id_to_token = {**self._model.id_to_token, **{i: t for t, i in self._added_ids.items()}}
         self.vocab_size = len(self._vocab)
@@ -869,7 +1114,40 @@ class HFTokenizer:
 
     def encode(self, text: str) -> list[int]:
         """Ids of ``text`` without a post-processor's specials
-        (``add_special_tokens=False``, as the JAX package encodes)."""
+        (``add_special_tokens=False``, as the JAX package encodes), truncated
+        and padded as the file says."""
+        return self._post_process(self._encode(text))
+
+    def _post_process(self, ids: list[int]) -> list[int]:
+        """``tokenizers``' truncation, then padding, of one sequence without
+        specials: the ids (added tokens too) cut to ``max_length`` from the
+        ``direction`` side (``OnlySecond`` has no second sequence to cut and
+        fails, as ``stride`` not below ``max_length`` does; ``stride`` only
+        feeds the overflow, which no one reads), then padded with ``pad_id``
+        on the ``direction`` side to the ``Fixed`` length (``BatchLongest``:
+        the sequence's own), rounded up to ``pad_to_multiple_of``."""
+        trunc = self._truncation
+        if trunc is not None and len(ids) > trunc["max_length"]:
+            n = trunc["max_length"]
+            if n and trunc.get("strategy") == "OnlySecond":
+                msg = "Truncation error: Second sequence not provided"
+                raise ValueError(msg)
+            if n and trunc.get("stride", 0) >= n:
+                msg = f"truncation stride {trunc['stride']} is not below max_length {n}"
+                raise ValueError(msg)
+            ids = ids[-n:] if trunc.get("direction") == "Left" and n else ids[:n]
+        pad = self._padding
+        if pad is not None:
+            strategy = pad.get("strategy", "BatchLongest")
+            length = strategy["Fixed"] if isinstance(strategy, dict) else len(ids)
+            multiple = pad.get("pad_to_multiple_of")
+            if multiple and length % multiple:
+                length += multiple - length % multiple
+            fill = [pad.get("pad_id", 0)] * max(0, length - len(ids))
+            ids = fill + ids if pad.get("direction") == "Left" else ids + fill
+        return ids
+
+    def _encode(self, text: str) -> list[int]:
         out: list[int] = []
         for a, b, tok in self._raw_added.split(text):
             if tok is not None:

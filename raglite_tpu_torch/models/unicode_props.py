@@ -2,16 +2,21 @@
 extended grapheme clusters, for models/tokenizer.py.
 
 ``tokenizers`` (0.22) takes its properties from several Rust crates of
-several Unicode versions: BERT's normalizer and pre-tokenizer read general
-categories of about Unicode 8 (``unicode_categories``), the NF* forms and
-``StripAccents`` those of ``unicode-normalization``, ``Lowercase`` Rust's
-own (newer than Python 3.12's Unicode 15.0), the ``Whitespace``
-pre-tokenizer Oniguruma's ``\\w`` and ``\\s``, and ``Precompiled`` the
-grapheme clusters of ``unicode-segmentation``.  Each property here is
-derived from Python's ``unicodedata`` and then corrected by the code points
-where the two disagree, which models/unicode_tables.py lists (generated by
-scripts/tokenizer_unicode_tables.py from ``tokenizers`` itself), so that
-the port gives ``tokenizers``' results on every code point without it.
+several Unicode versions: BERT's normalizer and pre-tokenizer (and the
+``Punctuation`` pre-tokenizer) read general categories of about Unicode 8
+(``unicode_categories``), the NF* forms and ``StripAccents`` those of
+``unicode-normalization``, ``Lowercase``, ``Strip``, ``WhitespaceSplit``
+and ``Digits`` Rust's own (newer than Python 3.12's Unicode 15.0), the
+``Whitespace`` pre-tokenizer Oniguruma's ``\\w`` and ``\\s``, Split and
+Replace patterns Oniguruma's ``\\p{...}`` sets, ``UnicodeScripts`` a
+script table of its own, and ``Precompiled`` the grapheme clusters of
+``unicode-segmentation``.  Each property here is derived from Python's
+``unicodedata`` and then corrected by the code points where the two
+disagree, or, where Python has no such property (scripts, blocks, binary
+properties, Nmt's map), read from range tables; models/unicode_tables.py
+holds both (generated by scripts/tokenizer_unicode_tables.py from
+``tokenizers`` itself), so that the port gives ``tokenizers``' results on
+every code point without it.
 
 :func:`graphemes` splits text into extended grapheme clusters by the rules
 of UAX #29 (GB3-GB13; GB9c, the Indic conjunct rule, is left out: it only
@@ -98,6 +103,156 @@ def word_class(c: str) -> int:
     if word:
         return 0
     return 1 if (c in WHITESPACE) != _in(T.SPACE_FIX, ord(c)) else 2
+
+
+@lru_cache(maxsize=65536)
+def is_whitespace(c: str) -> bool:
+    """Rust's ``char::is_whitespace`` (``Strip``, ``WhitespaceSplit``)."""
+    return (c in WHITESPACE) != _in(T.RUST_SPACE_FIX, ord(c))
+
+
+@lru_cache(maxsize=65536)
+def is_numeric(c: str) -> bool:
+    """Rust's ``char::is_numeric`` (``Digits``): Nd, Nl or No."""
+    return (unicodedata.category(c)[0] == "N") != _in(T.NUMERIC_FIX, ord(c))
+
+
+@lru_cache(maxsize=1)
+def nmt_map() -> dict[int, str | None]:
+    """``Nmt``'s map as a ``str.translate`` table: control characters
+    removed, the white space it knows turned into spaces."""
+    table: dict[int, str | None] = {}
+    for ranges, to in ((T.NMT_REMOVED, None), (T.NMT_SPACE, " ")):
+        for a, b in ranges:
+            table.update(dict.fromkeys(range(a, b + 1), to))
+    return table
+
+
+_SCRIPT_STARTS = [a for a, _, _ in T.SCRIPTS]
+
+
+@lru_cache(maxsize=65536)
+def script(c: str) -> int:
+    """``UnicodeScripts``' script class of ``c``: 0 for Any (a space, an
+    unassigned code point), which joins whatever run it is in; Hiragana,
+    Katakana and U+30FC are in Han's class."""
+    cp = ord(c)
+    i = bisect_right(_SCRIPT_STARTS, cp) - 1
+    return T.SCRIPTS[i][2] if i >= 0 and cp <= T.SCRIPTS[i][1] else 0
+
+
+# --- Oniguruma's \\p{...} sets -------------------------------------------------
+
+#: Oniguruma's one-letter general categories and LC, as unions.
+_CATEGORY_GROUPS = {"L": "Lu Ll Lt Lm Lo", "M": "Mn Mc Me", "N": "Nd Nl No", "P": "Pc Pd Ps Pe Pi Pf Po",
+                    "S": "Sm Sc Sk So", "Z": "Zs Zl Zp", "C": "Cc Cf Cs Co Cn", "LC": "Lu Ll Lt"}
+
+
+@lru_cache(maxsize=1)
+def _onig_categories() -> dict[str, list[tuple[int, int]]]:
+    """Each two-letter general category as Oniguruma reads it: Python's,
+    with the code points ``ONIG_GC_FIX`` moves."""
+    python = [unicodedata.category(chr(cp)) for cp in range(0x110000)]
+    cats = list(python)
+    for cat, ranges in T.ONIG_GC_FIX.items():
+        for a, b in ranges:
+            for cp in range(a, b + 1):
+                if python[cp] != cat:  # moved into cat (and so out of its own)
+                    cats[cp] = cat
+    out: dict[str, list[tuple[int, int]]] = {}
+    start = 0
+    for cp in range(1, 0x110001):
+        if cp == 0x110000 or cats[cp] != cats[start]:
+            out.setdefault(cats[start], []).append((start, cp - 1))
+            start = cp
+    return out
+
+
+def merged(ranges) -> tuple[tuple[int, int], ...]:
+    """Inclusive code point ranges, sorted and joined where they touch."""
+    out: list[list[int]] = []
+    for a, b in sorted(ranges):
+        if out and a <= out[-1][1] + 1:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return tuple((a, b) for a, b in out)
+
+
+@lru_cache(maxsize=256)
+def onig_property(name: str, in_class: bool = False) -> tuple[tuple[int, int], ...]:
+    """The code points of Oniguruma's ``\\p{name}`` as sorted inclusive
+    ranges (``in_class``: inside a character class, where Oniguruma reads
+    Latin-1 through a table of its own).  Oniguruma ignores case, spaces,
+    hyphens and underscores in the name, and a leading ``^`` negates it; a
+    name it rejects raises ``ValueError``, as ``tokenizers`` does when it
+    reads the pattern."""
+    key = "".join(ch for ch in name if ch not in " -_").lower()
+    negate = key.startswith("^")
+    value = T.ONIG_ALIASES.get(key[1:] if negate else key)
+    if value is None:
+        msg = f"Oniguruma rejects the property name {name!r}"
+        raise ValueError(msg)
+    ranges = _onig_set(value)
+    flips = T.ONIG_IN_CLASS_FIX.get(value) if in_class else None
+    if flips:  # the symmetric difference
+        ranges = merged([*intersect(ranges, complement(flips)), *intersect(flips, complement(ranges))])
+    return complement(ranges) if negate else ranges
+
+
+def _onig_set(value: str) -> tuple[tuple[int, int], ...]:
+    """An ``ONIG_ALIASES`` value's ranges: a stored set, or a general
+    category (or their union) as Oniguruma reads it."""
+    if value in T.ONIG_SETS:
+        return tuple((int(a, 16), int(b or a, 16)) for a, _, b in (r.partition("-") for r in T.ONIG_SETS[value].split()))
+    cats = _onig_categories()
+    return merged(r for cat in _CATEGORY_GROUPS.get(value, value).split() for r in cats.get(cat, ()))
+
+
+#: The POSIX bracket names Oniguruma knows (``[:alpha:]``, ``[:^alpha:]``).
+POSIX_NAMES = frozenset("alnum alpha ascii blank cntrl digit graph lower print punct space upper xdigit word".split())
+
+
+@lru_cache(maxsize=32)
+def posix_bracket(name: str) -> tuple[tuple[int, int], ...]:
+    """The code points of Oniguruma's ``[:name:]`` inside a class: the
+    property of that name, or the set ``ONIG_POSIX`` names where they differ
+    (``punct`` takes the symbols too); another name raises ``ValueError``,
+    as in Oniguruma."""
+    negate = name.startswith("^")
+    base = name[1:] if negate else name
+    if base not in POSIX_NAMES:
+        msg = f"Oniguruma rejects the POSIX bracket [:{name}:]"
+        raise ValueError(msg)
+    key = T.ONIG_POSIX.get(base)
+    ranges = _onig_set(key) if key else onig_property(base, True)
+    return complement(ranges) if negate else ranges
+
+
+def intersect(a, b) -> tuple[tuple[int, int], ...]:
+    """The intersection of two sorted, disjoint range tuples."""
+    out, i, j = [], 0, 0
+    while i < len(a) and j < len(b):
+        lo, hi = max(a[i][0], b[j][0]), min(a[i][1], b[j][1])
+        if lo <= hi:
+            out.append((lo, hi))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return tuple(out)
+
+
+def complement(ranges: tuple[tuple[int, int], ...]) -> tuple[tuple[int, int], ...]:
+    """The code points (0 to 0x10FFFF) outside sorted, disjoint ``ranges``."""
+    out, start = [], 0
+    for a, b in ranges:
+        if a > start:
+            out.append((start, a - 1))
+        start = b + 1
+    if start <= 0x10FFFF:
+        out.append((start, 0x10FFFF))
+    return tuple(out)
 
 
 def is_chinese_char(c: str) -> bool:

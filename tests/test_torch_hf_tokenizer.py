@@ -318,9 +318,9 @@ def test_missing_file_and_unknown_components(tmp_path) -> None:
         assert load_tokenizer(str(tmp_path / "nope" / "tokenizer.json"), required=False).encode("a") == [100]
     spec = _jax_tests_bpe()
     for key, value, name in [
-        ("normalizer", {"type": "Nmt"}, "Nmt"),
-        ("pre_tokenizer", {"type": "CharDelimiterSplit", "delimiter": "-"}, "CharDelimiterSplit"),
-        ("decoder", {"type": "CTC", "pad_token": "<pad>", "word_delimiter_token": "|", "cleanup": True}, "CTC"),
+        ("model", {**spec["model"], "dropout": 0.1}, "dropout"),
+        ("normalizer", {"type": "Unheard"}, "Unheard"),
+        ("decoder", {"type": "Unheard"}, "Unheard"),
     ]:
         (tmp_path / "t.json").write_text(json.dumps({**spec, key: value}))
         with pytest.raises(NotImplementedError, match=name):
@@ -397,7 +397,9 @@ def test_precompiled_graphemes_match_tokenizers(grapheme_normalizers, text: str)
 def test_chip_smokes_hand_made_tokenizers_match_tokenizers(tmp_path) -> None:
     """The tokenizer.json files chip_smoke.py writes by hand for its
     Qwen3-4B-shaped, bge-m3-shaped (Unigram behind XLM-R's normalizer: a
-    Precompiled charsmap and a Replace) and bge-base-shaped (WordPiece)
+    Precompiled charsmap and a Replace) and bge-base-shaped (WordPiece, and
+    phase 13 (b)'s second file: Nmt, Strip and BERT normalizers,
+    WhitespaceSplit, Punctuation and Digits, truncation to 512)
     checkpoints (the card has no ``tokenizers``) read the same in both
     readers, specials at Qwen's and BERT's ids."""
     import importlib
@@ -410,6 +412,7 @@ def test_chip_smokes_hand_made_tokenizers_match_tokenizers(tmp_path) -> None:
         "unigram": chip_smoke.unigram_tokenizer_json(texts),
         "wordpiece": chip_smoke.wordpiece_tokenizer_json(texts),
     }
+    specs["truncating"] = chip_smoke.truncating_tokenizer_json(specs["wordpiece"])
     assert specs["unigram"]["normalizer"]["normalizers"][0]["type"] == "Precompiled"
     for name, spec in specs.items():
         path = tmp_path / f"{name}.json"
@@ -420,6 +423,8 @@ def test_chip_smokes_hand_made_tokenizers_match_tokenizers(tmp_path) -> None:
         assert ours.decode(want) == ref.decode(want), name
         if name == "qwen":
             assert [ours.token_id(t) for t in CHATML] == [151643, 151644, 151645] == [ref.token_to_id(t) for t in CHATML]
+        if name == "truncating":
+            assert len(want) == 512 and len(ref.encode(texts[0] * 2, add_special_tokens=False).ids) == 512
         if name == "wordpiece":
             bert = {"[PAD]": 0, "[UNK]": 100, "[CLS]": 101, "[SEP]": 102, "[MASK]": 103}
             assert {t: ours.token_id(t) for t in bert} == bert == {t: ref.token_to_id(t) for t in bert}

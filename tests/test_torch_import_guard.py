@@ -7,7 +7,8 @@ included), the int8
 matmuls, the document converters, the boundary model, the tracer, the
 micro-batcher, the MCP server, the web chat, the CLI, the multi-GPU
 modules, the IR benchmark with its HNSW baseline, the tokenizer's
-Unicode tables and the trainers with their optimizer and corpus) loads
+Unicode tables, the trainers with their optimizer and corpus, the HF
+export and the store-scale run) loads
 neither JAX
 nor the JAX package nor click (nor markdown-it,
 tokenizers, optax, safetensors, transformers, orbax, tensorstore, msgpack or
@@ -58,6 +59,7 @@ def test_import_loads_no_jax_and_defaults_to_cuda() -> None:
         import raglite_tpu_torch.irbench, raglite_tpu_torch.models.unicode_props
         import raglite_tpu_torch.train.optim, raglite_tpu_torch.train.corpus
         import raglite_tpu_torch.train.encoder, raglite_tpu_torch.train.boundary
+        import raglite_tpu_torch.train.export_hf, raglite_tpu_torch.store_scale
         import raglite_tpu_torch.train.bpe, raglite_tpu_torch.train.semantic_ir_bench
         assert "pydantic" not in sys.modules
         assert "pandas" not in sys.modules

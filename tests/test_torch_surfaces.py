@@ -471,6 +471,19 @@ def test_phase_timing_aggregates() -> None:
     assert trace.report()["unit.raises"]["count"] == 1
 
 
+def _fresh_jax_memory_store() -> None:
+    """Forget the JAX package's cached stores and indexes, so that its next
+    ":memory:" config gets a new store: the same document already in a store
+    that an earlier test of this process left (tests/test_trace.py inserts
+    this one) is skipped, and emits no insert phases."""
+    from raglite_tpu.index.dense import _index_for_store
+    from raglite_tpu.index.keyword import _keyword_index_for_path
+    from raglite_tpu.store import _store_for_path
+
+    for cache in (_store_for_path, _index_for_store, _keyword_index_for_path):
+        cache.cache_clear()
+
+
 def test_insert_and_search_emit_phases_as_jax() -> None:
     from raglite_tpu import RAGLiteConfig as JConfig
     from raglite_tpu import insert_documents as jinsert
@@ -487,8 +500,12 @@ def test_insert_and_search_emit_phases_as_jax() -> None:
     insert_documents([Document.from_text(text)], config=config)
     vector_search("photons", config=config)
     jconfig = JConfig(store_path=":memory:", embedder="hash:256", llm="echo")
-    jinsert([JDocument.from_text(text)], config=jconfig)
-    jsearch("photons", config=jconfig)
+    _fresh_jax_memory_store()
+    try:
+        jinsert([JDocument.from_text(text)], config=jconfig)
+        jsearch("photons", config=jconfig)
+    finally:
+        _fresh_jax_memory_store()
     ours, theirs = trace.report(), jtrace.report()
     for name in ("insert.split_sentences", "insert.split_chunklets", "insert.embed", "insert.split_chunks",
                  "search.embed_query", "search.dense_scan"):
